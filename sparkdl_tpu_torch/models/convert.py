@@ -1,0 +1,99 @@
+"""Carry ViT weights from the Flax layout to a PyTorch ``state_dict``.
+
+``vit_state_dict_from_flax`` takes the parameter tree of
+``sparkdl_tpu.models.vit.ViT`` (nested dicts of numpy arrays, with or without
+the outer ``{"params": ...}``) and returns the ``state_dict`` of
+:class:`sparkdl_tpu_torch.models.vit.ViT`:
+
+- Dense kernels ``(in, out)`` become ``weight`` ``(out, in)``;
+- the patch conv kernel goes from HWIO to OIHW;
+- LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``;
+- ``cls_token`` and ``pos_embed`` carry over as they are.
+
+A key that the layout does not use, or one that it needs and does not find,
+raises ``KeyError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_BLOCK_DENSE = ("qkv", "proj", "mlp_up", "mlp_down")
+_BLOCK_NORMS = ("ln_1", "ln_2")
+
+
+def _take(tree: Mapping[str, Any], key: str, where: str):
+    if not isinstance(tree, Mapping) or key not in tree:
+        raise KeyError(f"missing key {where}{key}")
+    return tree[key]
+
+
+def _check_used(tree: Mapping[str, Any], used, where: str) -> None:
+    extra = sorted(set(tree) - set(used))
+    if extra:
+        raise KeyError(f"unused keys under {where or '<root>'}: {extra}")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _dense(tree, name, where, out: Dict[str, torch.Tensor], prefix: str):
+    sub = _take(tree, name, where)
+    path = f"{where}{name}/"
+    kernel = _take(sub, "kernel", path)
+    bias = _take(sub, "bias", path)
+    _check_used(sub, ("kernel", "bias"), path)
+    out[f"{prefix}{name}.weight"] = _tensor(kernel).T.contiguous()
+    out[f"{prefix}{name}.bias"] = _tensor(bias)
+
+
+def _norm(tree, name, where, out: Dict[str, torch.Tensor], prefix: str):
+    sub = _take(tree, name, where)
+    path = f"{where}{name}/"
+    scale = _take(sub, "scale", path)
+    bias = _take(sub, "bias", path)
+    _check_used(sub, ("scale", "bias"), path)
+    out[f"{prefix}{name}.weight"] = _tensor(scale)
+    out[f"{prefix}{name}.bias"] = _tensor(bias)
+
+
+def vit_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The PyTorch ``state_dict`` of a Flax ViT parameter tree."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    used = ["patch_embed", "cls_token", "pos_embed", "ln_final"]
+
+    pe = _take(params, "patch_embed", "")
+    kernel = _take(pe, "kernel", "patch_embed/")
+    bias = _take(pe, "bias", "patch_embed/")
+    _check_used(pe, ("kernel", "bias"), "patch_embed/")
+    out["patch_embed.weight"] = _tensor(kernel).permute(3, 2, 0, 1).contiguous()
+    out["patch_embed.bias"] = _tensor(bias)
+    out["cls_token"] = _tensor(_take(params, "cls_token", ""))
+    out["pos_embed"] = _tensor(_take(params, "pos_embed", ""))
+
+    depth = 0
+    while f"block_{depth}" in params:
+        name = f"block_{depth}"
+        block = params[name]
+        for norm in _BLOCK_NORMS:
+            _norm(block, norm, f"{name}/", out, f"blocks.{depth}.")
+        for dense in _BLOCK_DENSE:
+            _dense(block, dense, f"{name}/", out, f"blocks.{depth}.")
+        _check_used(block, _BLOCK_NORMS + _BLOCK_DENSE, f"{name}/")
+        used.append(name)
+        depth += 1
+    if depth == 0:
+        raise KeyError("missing key block_0")
+
+    _norm(params, "ln_final", "", out, "")
+    if "head" in params:
+        _dense(params, "head", "", out, "")
+        used.append("head")
+    _check_used(params, used, "")
+    return out

@@ -1,0 +1,14 @@
+"""Spark-ML-compatible typed parameters (a trimmed copy of ``sparkdl_tpu.param``)."""
+
+from sparkdl_tpu_torch.param.base import Param, Params, TypeConverters, keyword_only
+from sparkdl_tpu_torch.param.shared import CanLoadImage, HasInputCol, HasOutputCol
+
+__all__ = [
+    "Param",
+    "Params",
+    "TypeConverters",
+    "keyword_only",
+    "HasInputCol",
+    "HasOutputCol",
+    "CanLoadImage",
+]
