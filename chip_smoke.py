@@ -7,17 +7,27 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
 1. device: a CUDA card is present; its name and power limit (nvidia-smi);
-2. build: every kernel of the main path, from the sources in this checkout;
+2. build: every kernel of the main path, from the sources in this checkout,
+   one nvcc per source, all started together; registers and spills;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes and at the test shapes;
-4. slice: ViT-B/16 image-file inference at full width through
+   card, at the main path's shapes and at the test shapes, q/k/v as views
+   of one qkv tensor; gradients through the autograd Function against
+   autograd of the plain forward;
+4. inference slice: ViT-B/16 image-file inference at full width through
    ``TorchImageFileTransformer`` over 64 generated 224x224 images, with
    random weights in the Flax layout carried across by
    ``vit_state_dict_from_flax``; flash rows held to the dense-attention rows
    and to a CPU run on two images; the kernel's launches on that run counted;
-5. timing: each kernel, its plain version and the PyTorch library call that
-   computes the same function, with CUDA events; the model forward with the
-   kernel and with dense attention; the slice's images/s.
+5. training slice: ``TorchImageFileEstimator.fit`` of ViT-B/16 (10 classes,
+   adam, 2 epochs of 2 steps at batch 32) over the same images; the forward
+   with lse, dQ and dK/dV launches counted, and the lse-free forward's on
+   the fitted transformer's transform; the first step's gradients and the
+   four losses held to the dense-attention fit, one step at 2 images to a
+   CPU fit; the caller's module unchanged by a fit with the defaults;
+6. timing: each kernel, its plain version and the PyTorch library call that
+   computes the same function, with CUDA events; the model forward and the
+   training step with the kernels and with dense attention; the inference
+   slice's images/s and the training images/s of a second fit.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -30,6 +40,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -41,12 +52,22 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 F32_TOL = dict(atol=2e-4, rtol=2e-4)    # tests/test_ops.py's flash tolerance
+GRAD_TOL = dict(atol=1e-3, rtol=1e-3)   # tests/test_ops.py's flash-gradient tolerance
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding
 SLICE_TOL = dict(atol=5e-4, rtol=5e-3)  # tests/test_ops.py's ViT tolerance
+# flash vs dense training on the card, both float32: each gradient tensor to
+# 1e-4 of its norm (of at least 1e-3 of the largest norm: the key bias's
+# gradient is exactly zero, so float noise); the losses of 4 adam steps to
+# 1e-4 relative (adam turns float noise in near-zero gradients into weight
+# moves of up to lr); the weights as check_adam_step says
+GRAD_NORM_RTOL = 1e-4
+LOSS_RTOL = 1e-4
 
 VIT_SHAPE = (32, 197, 12, 64)  # ViT-B/16 at 224, batch 32: (b, s, h, d)
 N_IMAGES = 64
 BATCH = 32
+N_CLASSES = 10
+TRAIN_LR = 1e-4
 
 
 def log(msg: str) -> None:
@@ -77,27 +98,95 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype_name: str):
-    """Least time for one forward: the larger of its bytes (q, k, v read
-    once, o written once) over HBM bandwidth and its operations (QK^T and
-    PV, 4*b*h*s^2*d) over the peak rate for the type."""
+def attention_bound_ms(shape, dtype_name: str, products: int = 2,
+                       tensors: int = 4, rows: int = 0):
+    """Least time for one attention kernel: the larger of its bytes over HBM
+    bandwidth and its operations over the peak rate for the type.
+
+    ``products`` (b*h) x (s x s x d) matrix products of 2*s^2*d operations
+    each; ``tensors`` (b, s, h, d) tensors in the input type and ``rows``
+    (b, h, s) float32 vectors each read or written once. The forward: QK^T
+    and PV, q/k/v read and o written (2, 4, 0). dQ: QK^T, dO V^T, dS K, with
+    q/k/v/dO read, dQ written, lse and delta read (3, 5, 2). dK/dV: QK^T,
+    dO V^T, P^T dO, dS^T Q, with q/k/v/dO read, dK and dV written, lse and
+    delta read (4, 6, 2)."""
     b, s, h, d = shape
     itemsize = 4 if dtype_name == "float32" else 2
-    bytes_ms = 4 * b * s * h * d * itemsize / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 4 * b * h * s * s * d / PEAK_FLOPS[dtype_name] * 1e3
+    nbytes = tensors * b * s * h * d * itemsize + rows * b * h * s * 4
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = products * 2 * b * h * s * s * d / PEAK_FLOPS[dtype_name] * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
 
 
-def qkv_views(shape, dtype, seed):
-    """q, k, v as views into one fused projection, as ViT passes them."""
+def fused_qkv(shape, dtype, seed):
+    """One random (b, s, 3*h*d) projection on the card."""
     import torch
 
     b, s, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
-    return [t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1)]
+    return torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
+
+
+def views(fused, shape):
+    return [t.reshape(shape) for t in fused.chunk(3, dim=-1)]
+
+
+def qkv_views(shape, dtype, seed):
+    """q, k, v as views into one fused projection, as ViT passes them."""
+    return views(fused_qkv(shape, dtype, seed), shape)
+
+
+def cotangent(shape, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def check_backward(shape, dtype, kwargs, seed):
+    """The backward kernels, reached through the autograd Function with q/k/v
+    as views of one qkv leaf, against flash_attention_bwd_reference on the
+    same inputs, out and lse; and, in float32, against autograd through the
+    plain forward. Returns the max abs errors of (dQ, dK, dV)."""
+    import torch
+
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    fused = fused_qkv(shape, dtype, seed)
+    q, k, v = views(fused, shape)
+    do = cotangent(shape, dtype, seed)
+    leaf = fused.clone().requires_grad_()
+    flash_attention(*views(leaf, shape), **kwargs).backward(do)
+    got = views(leaf.grad, shape)
+    # the plain backward from the kernel's own out and lse, as the Function saves them
+    out, lse = flash_attention(q, k, v, return_lse=True, **kwargs)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, **kwargs)
+    torch.cuda.synchronize()
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    errs = []
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+        errs.append((g.float() - w.float()).abs().max().item())
+    line = (f"  {str(dtype):15s} {str(shape):20s} {str(kwargs):16s} "
+            f"dq/dk/dv max_abs_err={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
+    if dtype == torch.float32:
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(
+            flash_attention_reference(*leaves, **kwargs), leaves, do
+        )
+        auto_err = 0.0
+        for g, w in zip(got, auto):
+            torch.testing.assert_close(g, w, **GRAD_TOL)
+            auto_err = max(auto_err, (g - w).abs().max().item())
+        line += f"; vs autograd of plain forward {auto_err:.3e}"
+    log(line)
+    return errs
 
 
 def check_kernel(shape, dtype, kwargs, seed):
@@ -123,10 +212,10 @@ def check_kernel(shape, dtype, kwargs, seed):
     return err
 
 
-def flax_layout_vit_params(seed: int):
+def flax_layout_vit_params(seed: int, classes: int = 1000):
     """Random ViT-B/16 weights in the Flax layout (kernels (in, out), conv
     HWIO, LayerNorm scale/bias), scaled like Flax's initialisers so the
-    activations stay of unit order."""
+    activations stay of unit order; the head has ``classes`` outputs."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
@@ -139,7 +228,7 @@ def flax_layout_vit_params(seed: int):
     def norm(dim):
         return {"scale": 1.0 + normal((dim,), 0.1), "bias": normal((dim,), 0.1)}
 
-    patch, dim, depth, mlp, classes = 16, 768, 12, 3072, 1000
+    patch, dim, depth, mlp = 16, 768, 12, 3072
     params = {
         "patch_embed": {"kernel": normal((patch, patch, 3, dim), (patch * patch * 3) ** -0.5),
                         "bias": normal((dim,), 0.02)},
@@ -180,6 +269,75 @@ def rows_array(rows) -> np.ndarray:
     return np.stack([r["features"].toArray() for r in rows])
 
 
+def train_estimator(module, train_params, **kw):
+    from sparkdl_tpu_torch.estimators import TorchImageFileEstimator
+
+    args = dict(
+        inputCol="uri", outputCol="features", labelCol="label",
+        imageLoader=load_npy, module=module, optimizer="adam",
+        fitParams={"epochs": 2, "batch_size": BATCH,
+                   "learning_rate": TRAIN_LR, "seed": 0},
+        initialVariables=train_params, device="cuda",
+    )
+    args.update(kw)
+    return TorchImageFileEstimator(**args)
+
+
+def training_df(uris):
+    from sparkdl_tpu_torch.sql.session import TorchSession
+
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    return session.createDataFrame(
+        [{"uri": u, "label": i % N_CLASSES} for i, u in enumerate(uris)],
+        numPartitions=1,
+    )
+
+
+def ce_per_sample(module, batch):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(module(batch["x"]), batch["y"].long(), reduction="none")
+
+
+def first_step_grads(state_dict, attn_impl, x, y):
+    """Gradients of the first training step (mean CE over one batch)."""
+    import torch
+
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    model = ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl=attn_impl)
+    model.load_state_dict(state_dict, strict=True)
+    model.cuda().train()
+    loss = ce_per_sample(model, {"x": x, "y": y}).mean()
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def check_adam_step(got, want, steps):
+    """Weights after ``steps`` adam steps of two runs: each within
+    ``2 * steps * lr`` (adam moves a weight by about lr whatever its
+    gradient's size, so where float noise flips the sign of a near-zero
+    gradient the two runs step apart by up to 2 lr), and at least 99.5% of
+    them within atol=1e-6, rtol=1e-5. Returns the largest difference and the
+    share within the tight tolerance."""
+    import torch
+
+    close = total = 0
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].float().cpu()
+        w = w.float().cpu()
+        diff = (g - w).abs().max().item()
+        if diff > 2 * steps * TRAIN_LR * 1.001:
+            raise AssertionError(f"{name}: {diff:.3e} apart after {steps} adam steps")
+        worst = max(worst, diff)
+        close += torch.isclose(g, w, atol=1e-6, rtol=1e-5).sum().item()
+        total += w.numel()
+    if close < 0.995 * total:
+        raise AssertionError(f"{total - close} of {total} weights differ")
+    return worst, close / total
+
+
 def main() -> int:
     import torch
 
@@ -195,34 +353,82 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
+    from sparkdl_tpu_torch.models.vit import ViT
     from sparkdl_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
         FLASH_FWD,
+        FLASH_FWD_LSE,
+        attention_delta,
         flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_reference,
         flash_attention_reference,
     )
+    from sparkdl_tpu_torch.parallel.trainer import init_train_state, make_train_step
+    from sparkdl_tpu_torch.estimators.losses import get_optimizer
     from sparkdl_tpu_torch.utils.metrics import metrics
 
-    # phase 2: build
-    t0 = time.perf_counter()
-    FLASH_FWD.build()
-    log(f"build: {FLASH_FWD.source.name} in {time.perf_counter() - t0:.1f} s")
-    for line in FLASH_FWD.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  {line.strip()}")
+    kernels = (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)
 
-    # phase 3: kernel vs plain (f32 2e-4 as tests/test_ops.py; bf16 2e-2)
-    log("kernel vs plain (flash_attention_fwd):")
-    main_err = check_kernel(VIT_SHAPE, torch.float32, {}, seed=0)
-    check_kernel(VIT_SHAPE, torch.bfloat16, {}, seed=1)
-    for shape, kwargs in [
+    def reset_counts():
+        for kernel in kernels:
+            kernel.launches = 0
+
+    def counts():
+        return {k.symbol + ("+lse" if k is FLASH_FWD_LSE else ""): k.launches
+                for k in kernels}
+
+    # phase 2: build, one nvcc per source, all started together
+    t0 = time.perf_counter()
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.build()
+        except BaseException as exc:  # re-raised below, on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=build, args=(k,)) for k in (FLASH_FWD, FLASH_BWD_DQ)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for kernel in kernels:
+        kernel.build()  # the other launchers of the two libraries
+    log(f"build: {FLASH_FWD.source.name}, {FLASH_BWD_DQ.source.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kernel in (FLASH_FWD, FLASH_BWD_DQ):
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  {line.strip()}")
+
+    # phase 3: kernel vs plain (forward f32 2e-4 and gradients f32 1e-3 as
+    # tests/test_ops.py; bf16 2e-2, one bf16 rounding of the output)
+    test_shapes = [
         ((2, 197, 3, 64), {}), ((1, 128, 2, 32), {}), ((2, 300, 4, 128), {}),
         ((1, 197, 2, 64), {"causal": True}), ((1, 256, 2, 64), {"kv_len": 200}),
-    ]:
+    ]
+    log("kernel vs plain (flash_attention_fwd, with and without lse):")
+    fwd_err = check_kernel(VIT_SHAPE, torch.float32, {}, seed=0)
+    check_kernel(VIT_SHAPE, torch.bfloat16, {}, seed=1)
+    for shape, kwargs in test_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             check_kernel(shape, dtype, kwargs, seed=2)
+    log("kernel vs plain (flash_attention_bwd_dq, flash_attention_bwd_dkv):")
+    dq_err, dk_err, dv_err = check_backward(VIT_SHAPE, torch.float32, {}, seed=0)
+    check_backward(VIT_SHAPE, torch.bfloat16, {}, seed=1)
+    for shape, kwargs in test_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_backward(shape, dtype, kwargs, seed=3)
 
-    # phase 4: the slice, ViT-B/16 at full width
+    # phase 4: the inference slice, ViT-B/16 at full width
     state = vit_state_dict_from_flax(flax_layout_vit_params(seed=0))
+    train_params = flax_layout_vit_params(seed=2, classes=N_CLASSES)
+    train_state = vit_state_dict_from_flax(train_params)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         image_dir = Path(tmp)
         rng = np.random.default_rng(1)
@@ -231,17 +437,17 @@ def main() -> int:
                     rng.random((224, 224, 3), dtype=np.float32))
 
         flash_stage, df = run_slice(image_dir, state, "flash", "cuda")
-        FLASH_FWD.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         flash_rows = flash_stage.transform(df).collect()
         first_s = time.perf_counter() - t0
-        launches = FLASH_FWD.launches
+        serve_counts = counts()
         expected = 12 * (N_IMAGES // BATCH)
-        log(f"slice: {len(flash_rows)} rows, flash_attention_fwd launches={launches} "
-            f"(expected {expected}: 12 blocks x {N_IMAGES // BATCH} batches), "
+        log(f"slice: {len(flash_rows)} rows, launches {serve_counts} "
+            f"(expected {expected} lse-free: 12 blocks x {N_IMAGES // BATCH} batches), "
             f"first transform {first_s:.2f} s")
-        if launches != expected:
-            raise AssertionError(f"kernel launched {launches} times, expected {expected}")
+        if list(serve_counts.values()) != [expected, 0, 0, 0]:
+            raise AssertionError(f"inference launches {serve_counts}")
         flash = rows_array(flash_rows)
         if flash.shape != (N_IMAGES, 1000) or not np.isfinite(flash).all():
             raise AssertionError(f"bad slice output: shape {flash.shape}")
@@ -251,8 +457,8 @@ def main() -> int:
         np.testing.assert_allclose(flash, full, **SLICE_TOL)
         log(f"  flash vs full on the card: max_abs_err={np.abs(flash - full).max():.3e}")
 
-        uris = [r["uri"] for r in flash_rows[:2]]
-        cpu_stage, cpu_df = run_slice(image_dir, state, "full", "cpu", uris=uris)
+        uris = [r["uri"] for r in flash_rows]
+        cpu_stage, cpu_df = run_slice(image_dir, state, "full", "cpu", uris=uris[:2])
         cpu = rows_array(cpu_stage.transform(cpu_df).collect())
         np.testing.assert_allclose(flash[:2], cpu, **SLICE_TOL)
         log(f"  flash on the card vs full on the CPU (2 images): "
@@ -274,26 +480,166 @@ def main() -> int:
                              sorted(metrics.snapshot("sparkdl.").items())))
 
         # the model forward alone, on one resident batch
-        x = torch.from_numpy(np.stack([load_npy(r["uri"]) for r in flash_rows[:BATCH]]))
-        x = x.cuda()
+        images = np.stack([load_npy(u) for u in uris])
+        x = torch.from_numpy(images[:BATCH]).cuda()
         with torch.inference_mode():
             forward_ms = {
                 impl: time_ms(lambda m=stage.module: m(x), iters=10)
                 for impl, stage in (("flash", flash_stage), ("full", full_stage))
             }
+        del flash_stage, full_stage, cpu_stage
 
-    # phase 5: timing at the main path's shape (f32, q/k/v views of one qkv)
+        # phase 5: the training slice, ViT-B/16 at full width, 10 classes
+        labels = np.arange(N_IMAGES) % N_CLASSES
+        train_df = training_df(uris)
+        steps = 2 * (N_IMAGES // BATCH)
+
+        # the first step's batch, as fit draws it, through flash and dense
+        first = np.random.RandomState(0).permutation(N_IMAGES)[:BATCH]
+        xb = torch.from_numpy(images[first]).cuda()
+        yb = torch.from_numpy(labels[first]).cuda()
+        flash_loss0, flash_grads = first_step_grads(train_state, "flash", xb, yb)
+        full_loss0, full_grads = first_step_grads(train_state, "full", xb, yb)
+        norms = {n: g.norm().item() for n, g in full_grads.items()}
+        floor = 1e-3 * max(norms.values())
+        grad_err = max((flash_grads[n] - g).norm().item() / max(norms[n], floor)
+                       for n, g in full_grads.items())
+        log(f"training: first-step gradients flash vs full on the card, largest "
+            f"relative norm error {grad_err:.3e} (floor {floor:.3e}); loss "
+            f"{flash_loss0:.6f} vs {full_loss0:.6f}")
+        if grad_err > GRAD_NORM_RTOL:
+            raise AssertionError(f"first-step gradients differ by {grad_err:.3e}")
+        del flash_grads, full_grads
+
+        caller_module = ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash")
+        before = {n: t.clone() for n, t in caller_module.state_dict().items()}
+        estimator = train_estimator(caller_module, train_params)
+        reset_counts()
+        t0 = time.perf_counter()
+        fitted = estimator.fit(train_df)
+        torch.cuda.synchronize()
+        first_fit_s = time.perf_counter() - t0
+        fit_counts = counts()
+        expected = 12 * steps
+        log(f"training: fit of {steps} steps, launches {fit_counts} (expected "
+            f"{expected} with lse, dQ and dK/dV: 12 blocks x {steps} steps; "
+            f"0 lse-free), first fit {first_fit_s:.2f} s")
+        if list(fit_counts.values()) != [0, expected, expected, expected]:
+            raise AssertionError(f"training launches {fit_counts}")
+        for n, t in caller_module.state_dict().items():
+            if not torch.equal(t, before[n]):
+                raise AssertionError(f"fit changed the caller's module: {n}")
+
+        full_fit = train_estimator(
+            ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="full"),
+            train_params,
+        ).fit(train_df)
+        losses = np.array(fitted._training_losses)
+        full_losses = np.array(full_fit._training_losses)
+        log(f"  losses flash {losses.tolist()} vs full {full_losses.tolist()}")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise AssertionError(f"bad training losses {losses}")
+        np.testing.assert_allclose(losses, full_losses, rtol=LOSS_RTOL)
+        adam_diff, adam_share = check_adam_step(
+            fitted.module.state_dict(), full_fit.module.state_dict(), steps
+        )
+        log(f"  weights flash vs full after {steps} adam steps: largest "
+            f"difference {adam_diff:.3e}, {100 * adam_share:.4f}% within 1e-6")
+        del full_fit
+
+        reset_counts()
+        tuned_rows = rows_array(fitted.transform(df).collect())
+        tuned_counts = counts()
+        log(f"  fitted transformer: {len(tuned_rows)} rows, launches {tuned_counts}")
+        # the fitted transformer batches at the default transform batch size
+        from sparkdl_tpu_torch.transformers.utils import DEFAULT_BATCH_SIZE
+
+        if list(tuned_counts.values()) != [12 * -(-N_IMAGES // DEFAULT_BATCH_SIZE), 0, 0, 0]:
+            raise AssertionError(f"fitted transform launches {tuned_counts}")
+        if tuned_rows.shape != (N_IMAGES, N_CLASSES) or not np.isfinite(tuned_rows).all():
+            raise AssertionError(f"bad fitted rows: shape {tuned_rows.shape}")
+
+        # one step at 2 images, on the card and on the CPU
+        small_df = training_df(uris[:2])
+        small = {"fitParams": {"epochs": 1, "batch_size": 2,
+                               "learning_rate": TRAIN_LR, "seed": 0}}
+        card_fit = train_estimator(
+            ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash"),
+            train_params, **small,
+        ).fit(small_df)
+        cpu_fit = train_estimator(
+            ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash"),
+            train_params, device="cpu", **small,
+        ).fit(small_df)
+        np.testing.assert_allclose(card_fit._training_losses,
+                                   cpu_fit._training_losses, rtol=LOSS_RTOL)
+        cpu_diff, cpu_share = check_adam_step(
+            card_fit.module.state_dict(), cpu_fit.module.state_dict(), 1
+        )
+        card_rows = rows_array(card_fit.transform(small_df).collect())
+        cpu_rows = rows_array(cpu_fit.transform(small_df).collect())
+        np.testing.assert_allclose(card_rows, cpu_rows, **SLICE_TOL)
+        log(f"  one step at 2 images, card vs CPU: loss {card_fit._training_losses} "
+            f"vs {cpu_fit._training_losses}; weights largest difference "
+            f"{cpu_diff:.3e}, {100 * cpu_share:.4f}% within 1e-6; rows "
+            f"max_abs_err={np.abs(card_rows - cpu_rows).max():.3e}")
+        del card_fit, cpu_fit
+
+        # a fit with the defaults (weights drawn from the seed) leaves the
+        # caller's module as it was
+        default_module = ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash")
+        before = {n: t.clone() for n, t in default_module.state_dict().items()}
+        from sparkdl_tpu_torch.estimators import TorchImageFileEstimator
+
+        TorchImageFileEstimator(
+            inputCol="uri", outputCol="features", labelCol="label",
+            imageLoader=load_npy, module=default_module,
+        ).fit(train_df)
+        for n, t in default_module.state_dict().items():
+            if not torch.equal(t, before[n]):
+                raise AssertionError(f"a default fit changed the caller's module: {n}")
+        log("  a fit with the defaults left the caller's module unchanged")
+
+        # training images/s, steady state: a second fit
+        metrics.reset()
+        t0 = time.perf_counter()
+        estimator.fit(train_df)
+        fit_s = time.perf_counter() - t0
+        step_s = metrics.timer("estimator.step").seconds
+        n_steps = metrics.counter("estimator.steps").value
+        log(f"training images/s (ViT-B/16, adam, batch {BATCH}, {steps} steps, {card}): "
+            f"fit {2 * N_IMAGES / fit_s:.1f} ({fit_s:.3f} s, loading and copies "
+            f"included); estimator.step {n_steps * BATCH / step_s:.1f} "
+            f"({int(n_steps)} steps, {1e3 * step_s / n_steps:.3f} ms each)")
+
+        # the training step alone, on one resident batch
+        step_ms = {}
+        for impl in ("flash", "full"):
+            model = ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl=impl)
+            model.load_state_dict(train_state, strict=True)
+            model.cuda().train()
+            train = init_train_state(model, get_optimizer("adam", TRAIN_LR))
+            step = make_train_step(ce_per_sample)
+            batch = {"x": xb, "y": yb, "w": torch.ones(BATCH, device="cuda")}
+            step_ms[impl] = time_ms(lambda: step(train, batch), iters=5, warmup=2)
+            del model, train
+
+    # phase 6: timing at the main path's shape (f32, q/k/v views of one qkv)
     records = []
     q, k, v = qkv_views(VIT_SHAPE, torch.float32, seed=0)
+    b, s, h, d = VIT_SHAPE
+    scale = d ** -0.5
     ms = time_ms(lambda: flash_attention(q, k, v), iters=20)
+    lse_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True), iters=20)
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v), iters=10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), iters=20
     )
     bound_ms, bound_by = attention_bound_ms(VIT_SHAPE, "float32")
-    log(f"timing at {VIT_SHAPE} float32 ({card}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
+    log(f"forward timing at {VIT_SHAPE} float32 ({card}): kernel {ms:.4f} ms "
+        f"(with lse {lse_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     log(f"ViT-B/16 forward at batch {BATCH} float32 ({card}): "
         f"flash {forward_ms['flash']:.3f} ms, full {forward_ms['full']:.3f} ms; "
@@ -302,20 +648,80 @@ def main() -> int:
     qb, kb, vb = qkv_views(VIT_SHAPE, torch.bfloat16, seed=1)
     bf16_ms = time_ms(lambda: flash_attention(qb, kb, vb), iters=20)
     bf16_bound, bf16_by = attention_bound_ms(VIT_SHAPE, "bfloat16")
-    log(f"timing at {VIT_SHAPE} bfloat16 ({card}): kernel {bf16_ms:.4f} ms, "
+    log(f"forward timing at {VIT_SHAPE} bfloat16 ({card}): kernel {bf16_ms:.4f} ms, "
         f"bound {bf16_bound:.4f} ms ({bf16_by})")
+
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    do = cotangent(VIT_SHAPE, torch.float32, seed=0)
+    delta = attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, False, scale, s)
+    dq_ms = time_ms(lambda: flash_attention_bwd_dq(*args), iters=20)
+    dkv_ms = time_ms(lambda: flash_attention_bwd_dkv(*args), iters=20)
+    delta_ms = time_ms(lambda: attention_delta(out, do), iters=20)
+    bwd_plain_ms = time_ms(
+        lambda: flash_attention_bwd_reference(q, k, v, out, lse, do), iters=5
+    )
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    flash_out = flash_attention(*leaves)
+    bwd_ms = time_ms(
+        lambda: torch.autograd.grad(flash_out, leaves, do, retain_graph=True), iters=20
+    )
+    t_leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(*t_leaves)
+    do_t = do.transpose(1, 2)
+    bwd_library_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa_out, t_leaves, do_t, retain_graph=True), iters=20
+    )
+    dq_bound, dq_by = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2)
+    dkv_bound, dkv_by = attention_bound_ms(VIT_SHAPE, "float32", 4, 6, 2)
+    log(f"backward timing at {VIT_SHAPE} float32 ({card}): dQ kernel {dq_ms:.4f} ms "
+        f"(bound {dq_bound:.4f} ms, {dq_by}), dK/dV kernel {dkv_ms:.4f} ms "
+        f"(bound {dkv_bound:.4f} ms, {dkv_by}), delta {delta_ms:.4f} ms; "
+        f"backward through autograd {bwd_ms:.4f} ms vs scaled_dot_product_attention's "
+        f"backward {bwd_library_ms:.4f} ms; plain backward {bwd_plain_ms:.4f} ms")
+    ob, lseb = flash_attention(qb, kb, vb, return_lse=True)
+    dob = cotangent(VIT_SHAPE, torch.bfloat16, seed=1)
+    bf16_args = (qb, kb, vb, dob, lseb, attention_delta(ob, dob), False, scale, s)
+    dq_bf16 = time_ms(lambda: flash_attention_bwd_dq(*bf16_args), iters=20)
+    dkv_bf16 = time_ms(lambda: flash_attention_bwd_dkv(*bf16_args), iters=20)
+    log(f"backward timing at {VIT_SHAPE} bfloat16 ({card}): dQ {dq_bf16:.4f} ms "
+        f"(bound {attention_bound_ms(VIT_SHAPE, 'bfloat16', 3, 5, 2)[0]:.4f} ms), "
+        f"dK/dV {dkv_bf16:.4f} ms "
+        f"(bound {attention_bound_ms(VIT_SHAPE, 'bfloat16', 4, 6, 2)[0]:.4f} ms)")
+    kernel_ms = 12 * (lse_ms + dq_ms + dkv_ms)
+    log(f"ViT-B/16 training step at batch {BATCH} float32, adam ({card}): flash "
+        f"{step_ms['flash']:.3f} ms, full {step_ms['full']:.3f} ms; 12 x (forward "
+        f"with lse + dQ + dK/dV) = {kernel_ms:.3f} ms = "
+        f"{100 * kernel_ms / step_ms['flash']:.1f}% of the flash step")
+
+    source = "sparkdl_tpu_torch/ops/csrc/flash_attention_{}.cu"
+    common = {"route": "cuda"}
     records.append({
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "sparkdl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "name": "flash_attention_fwd", **common, "source": source.format("fwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:284",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        # both paths: inference, then fit (with lse) and the fitted transform
+        "launches": serve_counts["flash_attention_fwd"]
+        + fit_counts["flash_attention_fwd+lse"] + tuned_counts["flash_attention_fwd"],
+        "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    })
+    # no single library call computes dQ or dK/dV alone: library_ms is the
+    # backward of scaled_dot_product_attention, set against dQ + dK/dV + delta
+    # (the line above); plain_ms is flash_attention_bwd_reference, which
+    # computes all three gradients
+    records.append({
+        "name": "flash_attention_bwd_dq", **common, "source": source.format("bwd"),
+        "replaces": "sparkdl_tpu/ops/flash_attention.py:317",
+        "launches": fit_counts["flash_attention_bwd_dq"], "max_abs_err": dq_err,
+        "ms": dq_ms, "plain_ms": bwd_plain_ms, "bound_ms": dq_bound,
+        "bound_by": dq_by, "library_ms": bwd_library_ms,
+    })
+    records.append({
+        "name": "flash_attention_bwd_dkv", **common, "source": source.format("bwd"),
+        "replaces": "sparkdl_tpu/ops/flash_attention.py:340",
+        "launches": fit_counts["flash_attention_bwd_dkv"],
+        "max_abs_err": max(dk_err, dv_err), "ms": dkv_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": dkv_bound, "bound_by": dkv_by, "library_ms": bwd_library_ms,
     })
 
     print(card, flush=True)

@@ -14,6 +14,7 @@ import importlib
 VERSION = __version__ = "0.1.0"
 
 _EXPORTS = {
+    "TorchImageFileEstimator": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchImageFileTransformer": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchSession": "sparkdl_tpu_torch.sql.session",
     "ViT": "sparkdl_tpu_torch.models.vit",

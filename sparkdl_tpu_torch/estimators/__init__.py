@@ -1,7 +1,8 @@
-"""Fitted image-file models of the port (the estimators' ``fit`` is not ported yet)."""
+"""Image-file estimators of the port and their fitted models."""
 
 from sparkdl_tpu_torch.estimators.torch_image_file_estimator import (
+    TorchImageFileEstimator,
     TorchImageFileTransformer,
 )
 
-__all__ = ["TorchImageFileTransformer"]
+__all__ = ["TorchImageFileEstimator", "TorchImageFileTransformer"]

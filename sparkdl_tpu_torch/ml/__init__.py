@@ -1,6 +1,6 @@
 """Pipeline-stage base classes and vectors (a trimmed copy of ``sparkdl_tpu.ml``)."""
 
-from sparkdl_tpu_torch.ml.base import Transformer
+from sparkdl_tpu_torch.ml.base import Estimator, Transformer
 from sparkdl_tpu_torch.ml.linalg import DenseVector, Vectors
 
-__all__ = ["Transformer", "DenseVector", "Vectors"]
+__all__ = ["Estimator", "Transformer", "DenseVector", "Vectors"]

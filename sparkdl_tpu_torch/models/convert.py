@@ -1,4 +1,4 @@
-"""Carry ViT weights from the Flax layout to a PyTorch ``state_dict``.
+"""Carry ViT weights between the Flax layout and a PyTorch ``state_dict``.
 
 ``vit_state_dict_from_flax`` takes the parameter tree of
 ``sparkdl_tpu.models.vit.ViT`` (nested dicts of numpy arrays, with or without
@@ -9,6 +9,11 @@ the outer ``{"params": ...}``) and returns the ``state_dict`` of
 - the patch conv kernel goes from HWIO to OIHW;
 - LayerNorm ``scale`` / ``bias`` become ``weight`` / ``bias``;
 - ``cls_token`` and ``pos_embed`` carry over as they are.
+
+``vit_flax_from_state_dict`` is its inverse: it maps a ``state_dict`` (or a
+tree of gradients under the same names) back to ``{"params": ...}`` of
+numpy arrays, so the port's trained weights compare with the JAX package's
+by Flax name.
 
 A key that the layout does not use, or one that it needs and does not find,
 raises ``KeyError``.
@@ -97,3 +102,47 @@ def vit_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         used.append("head")
     _check_used(params, used, "")
     return out
+
+
+def vit_flax_from_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The Flax parameter tree ``{"params": ...}`` (float32 numpy arrays) of
+    a ViT ``state_dict``: the inverse of :func:`vit_state_dict_from_flax`."""
+    left = dict(state)
+
+    def take(name: str) -> np.ndarray:
+        if name not in left:
+            raise KeyError(f"missing key {name}")
+        t = left.pop(name)
+        t = t.detach().cpu() if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+        return t.float().numpy().copy()
+
+    def dense(prefix: str) -> Dict[str, np.ndarray]:
+        return {"kernel": take(f"{prefix}.weight").T.copy(),
+                "bias": take(f"{prefix}.bias")}
+
+    def norm(prefix: str) -> Dict[str, np.ndarray]:
+        return {"scale": take(f"{prefix}.weight"), "bias": take(f"{prefix}.bias")}
+
+    params: Dict[str, Any] = {
+        "patch_embed": {
+            "kernel": take("patch_embed.weight").transpose(2, 3, 1, 0).copy(),
+            "bias": take("patch_embed.bias"),
+        },
+        "cls_token": take("cls_token"),
+        "pos_embed": take("pos_embed"),
+    }
+    depth = 0
+    while f"blocks.{depth}.ln_1.weight" in left:
+        prefix = f"blocks.{depth}"
+        block = {n: norm(f"{prefix}.{n}") for n in _BLOCK_NORMS}
+        block.update({n: dense(f"{prefix}.{n}") for n in _BLOCK_DENSE})
+        params[f"block_{depth}"] = block
+        depth += 1
+    if depth == 0:
+        raise KeyError("missing key blocks.0.ln_1.weight")
+    params["ln_final"] = norm("ln_final")
+    if "head.weight" in left or "head.bias" in left:
+        params["head"] = dense("head")
+    if left:
+        raise KeyError(f"unused keys: {sorted(left)}")
+    return {"params": params}

@@ -2,7 +2,8 @@
 
 from sparkdl_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_reference,
     flash_attention_reference,
 )
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_bwd_reference", "flash_attention_reference"]

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -86,11 +86,30 @@ def build_library(source: Path) -> tuple:
     return out, log
 
 
+_LIBRARIES: Dict[Path, Tuple[ctypes.CDLL, str]] = {}
+_LIBRARIES_LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[Path, threading.Lock] = {}
+
+
+def load_library(source: Path) -> Tuple[ctypes.CDLL, str]:
+    """The loaded library of ``source`` and its build log, built once per
+    process however many launchers it exports; sources build in parallel."""
+    with _LIBRARIES_LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _LIBRARIES:
+            path, log = build_library(source)
+            _LIBRARIES[source] = (ctypes.CDLL(str(path)), log)
+        return _LIBRARIES[source]
+
+
 class CudaKernel:
     """One ``extern "C"`` launcher of one source, built at first call.
 
     ``launches`` counts the launches that returned without a CUDA error;
     the wrapper that owns the kernel advances it nowhere else.
+    ``build_log`` is nvcc's output for the whole source (empty when the
+    library was cached on disk).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -101,22 +120,19 @@ class CudaKernel:
         self.build_log = ""
         self._fn = None
         self._error_string = None
-        self._lock = threading.Lock()
 
     def build(self) -> None:
-        with self._lock:
-            if self._fn is not None:
-                return
-            path, self.build_log = build_library(self.source)
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.symbol}_error_string")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._error_string = err
-            self._fn = fn
+        if self._fn is not None:
+            return
+        lib, self.build_log = load_library(self.source)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{self.symbol}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._error_string = err
+        self._fn = fn
 
     def __call__(self, *args) -> None:
         self.build()
@@ -127,4 +143,3 @@ class CudaKernel:
                 f"{self._error_string(rc).decode(errors='replace')}"
             )
         self.launches += 1
-

@@ -1,7 +1,12 @@
 """Spark-ML-compatible typed parameters (a trimmed copy of ``sparkdl_tpu.param``)."""
 
 from sparkdl_tpu_torch.param.base import Param, Params, TypeConverters, keyword_only
-from sparkdl_tpu_torch.param.shared import CanLoadImage, HasInputCol, HasOutputCol
+from sparkdl_tpu_torch.param.shared import (
+    CanLoadImage,
+    HasInputCol,
+    HasLabelCol,
+    HasOutputCol,
+)
 
 __all__ = [
     "Param",
@@ -9,6 +14,7 @@ __all__ = [
     "TypeConverters",
     "keyword_only",
     "HasInputCol",
+    "HasLabelCol",
     "HasOutputCol",
     "CanLoadImage",
 ]

@@ -31,6 +31,21 @@ class HasOutputCol(Params):
         return self.getOrDefault(self.outputCol)
 
 
+class HasLabelCol(Params):
+    labelCol = Param(
+        "undefined",
+        "labelCol",
+        "name of the column storing the training data labels.",
+        TypeConverters.toString,
+    )
+
+    def setLabelCol(self, value):
+        return self._set(labelCol=value)
+
+    def getLabelCol(self):
+        return self.getOrDefault(self.labelCol)
+
+
 class CanLoadImage(Params):
     """Mixin for stages taking an ``imageLoader`` callable:
     ``imageLoader(uri) -> np.ndarray`` loads and preprocesses one image."""

@@ -1,10 +1,13 @@
-"""Host metrics of the batched transform loop.
+"""Host metrics of the batched transform loop and the fit loop.
 
 A trimmed copy of ``sparkdl_tpu.utils.metrics``: the counters and timers the
 hot loop advances (``sparkdl.load``, ``sparkdl.forward``, ``sparkdl.serve``,
 ``sparkdl.images_processed``, ``sparkdl.rows_processed``,
 ``sparkdl.batches_run``), so ``metrics.images_per_sec()`` reports the
-sustained rate of the current process. Thread-safe.
+sustained rate of the current process; and the always-on part of
+``sparkdl_tpu.obs.hooks``' fit profiler, :func:`fit_step` (the
+``estimator.step`` timer and the ``estimator.steps`` counter). Trace spans
+are not ported yet. Thread-safe.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 
 class Counter:
@@ -47,9 +50,11 @@ class Timer:
         try:
             yield
         finally:
-            elapsed = time.perf_counter() - start
-            with self._lock:
-                self._seconds += elapsed
+            self.add_seconds(time.perf_counter() - start)
+
+    def add_seconds(self, seconds: float) -> None:
+        with self._lock:
+            self._seconds += seconds
 
     @property
     def seconds(self) -> float:
@@ -110,3 +115,17 @@ class MetricsRegistry:
 
 #: the process-wide registry
 metrics = MetricsRegistry()
+
+
+@contextmanager
+def fit_step(sync: Optional[Callable[[], None]] = None):
+    """Time one optimizer step into the ``estimator.step`` timer and count
+    it in ``estimator.steps``. ``sync`` (the card's ``synchronize``) runs
+    before the clock stops, so each entry is the step's device time, not
+    its enqueue. Nothing is recorded for a step that raised."""
+    start = time.perf_counter()
+    yield
+    if sync is not None:
+        sync()
+    metrics.timer("estimator.step").add_seconds(time.perf_counter() - start)
+    metrics.counter("estimator.steps").add(1)

@@ -12,8 +12,12 @@ import pytest
 import torch
 
 from sparkdl_tpu_torch.ops.flash_attention import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
     FLASH_FWD,
+    FLASH_FWD_LSE,
     flash_attention,
+    flash_attention_bwd_reference,
     flash_attention_reference,
 )
 
@@ -21,6 +25,7 @@ pytestmark = pytest.mark.cuda
 
 F32_TOL = dict(atol=2e-4, rtol=2e-4)  # tests/test_ops.py's flash tolerance
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 output rounding
+GRAD_TOL = dict(atol=1e-3, rtol=1e-3)  # tests/test_ops.py's flash-gradient tolerance
 
 # (shape, kwargs): the cases of tests/test_ops.py:21-46 and the ViT-B/16 shape
 CASES = [
@@ -58,11 +63,11 @@ def _qkv(shape, seed):
 @pytest.mark.parametrize("shape,kwargs", CASES, ids=IDS)
 def test_kernel_matches_plain_version(cuda, shape, kwargs, dtype):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _qkv(shape, seed=4))
-    launches = FLASH_FWD.launches
+    launches = FLASH_FWD.launches, FLASH_FWD_LSE.launches
     out, lse = flash_attention(q, k, v, return_lse=True, **kwargs)
     want, want_lse = flash_attention_reference(q, k, v, return_lse=True, **kwargs)
     torch.cuda.synchronize()
-    assert FLASH_FWD.launches == launches + 1
+    assert (FLASH_FWD.launches, FLASH_FWD_LSE.launches) == (launches[0], launches[1] + 1)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(out.float(), want.float(), **tol)
     torch.testing.assert_close(lse, want_lse, **F32_TOL)
@@ -86,6 +91,73 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     h = torch.zeros((1, 8, 1, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(h, h, h)
-    w = torch.zeros((1, 8, 1, 64), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    w = torch.zeros((1, 8, 1, 48), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
         flash_attention(w, w, w)
+
+
+def _qkv_views(shape, dtype, seed, cuda):
+    """q, k, v as views into one fused (b, s, 3*h*d) projection, as ViT
+    passes them, and a random cotangent."""
+    b, s, h, d = shape
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32))
+    qkv = qkv.to(cuda, dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+    do = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda, dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,kwargs", CASES, ids=IDS)
+def test_backward_kernels_match_plain_version(cuda, shape, kwargs, dtype):
+    """dQ and dK/dV kernels against flash_attention_bwd_reference on the
+    same (strided) q, k, v, the forward's out and lse, and one cotangent."""
+    q, k, v, do = _qkv_views(shape, dtype, seed=6, cuda=cuda)
+    assert not q.is_contiguous()
+    out, lse = flash_attention(q, k, v, return_lse=True, **kwargs)
+    q_, k_, v_ = (t.detach().requires_grad_() for t in (q, k, v))
+    launches = [k.launches for k in (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)]
+    got = torch.autograd.grad(flash_attention(q_, k_, v_, **kwargs), (q_, k_, v_), do)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)] == [
+        launches[0], launches[1] + 1, launches[2] + 1, launches[3] + 1,
+    ]
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, **kwargs)
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == shape
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.parametrize("shape,kwargs", CASES, ids=IDS)
+def test_gradients_match_autograd_of_plain_forward(cuda, shape, kwargs):
+    """The autograd.Function on the card against autograd through the
+    plain forward, in one random cotangent direction."""
+    q, k, v, do = _qkv_views(shape, torch.float32, seed=7, cuda=cuda)
+    grads = []
+    for fn in (flash_attention, flash_attention_reference):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, **kwargs), leaves, do))
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, **GRAD_TOL)
+
+
+def test_backward_is_deterministic(cuda):
+    """No atomics: two backward passes give the same bytes."""
+    q, k, v, do = _qkv_views((4, 197, 12, 64), torch.float32, seed=8, cuda=cuda)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    runs = [torch.autograd.grad(flash_attention(q, k, v), (q, k, v), do)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_no_grad_call_takes_the_lse_free_forward(cuda):
+    q, k, v, _ = _qkv_views((2, 197, 3, 64), torch.float32, seed=9, cuda=cuda)
+    leaf = q.detach().requires_grad_()
+    launches = FLASH_FWD.launches, FLASH_BWD_DQ.launches
+    with torch.no_grad():
+        out = flash_attention(leaf, k, v)
+    assert not out.requires_grad
+    assert (FLASH_FWD.launches, FLASH_BWD_DQ.launches) == (launches[0] + 1, launches[1])

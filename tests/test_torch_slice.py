@@ -170,7 +170,15 @@ def test_port_imports_no_jax_in_a_fresh_process():
     )
     assert proc.returncode == 0, proc.stderr
     loaded = proc.stdout.split()
-    assert "sparkdl_tpu_torch.ops.flash_attention" in loaded
+    for module in (
+        "sparkdl_tpu_torch.ops.flash_attention",
+        "sparkdl_tpu_torch.data.dataset",
+        "sparkdl_tpu_torch.estimators.data",
+        "sparkdl_tpu_torch.estimators.losses",
+        "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
+        "sparkdl_tpu_torch.parallel.trainer",
+    ):
+        assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
 
 
