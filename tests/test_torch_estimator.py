@@ -95,7 +95,7 @@ def labels():
 
 @pytest.fixture(scope="module")
 def flax_params(images):
-    variables = JaxViT(**GEOMETRY).init(jax.random.PRNGKey(0), jnp.asarray(images[:1]))
+    variables = jax.jit(JaxViT(**GEOMETRY).init)(jax.random.PRNGKey(0), jnp.asarray(images[:1]))
     return jax.tree_util.tree_map(np.asarray, variables)
 
 
@@ -131,6 +131,15 @@ def _jax_loss(params, x, y, w):
 #: one jitted oracle step for every test: every batch has 4 rows, so it
 #: compiles once
 _jax_value_and_grad = jax.jit(jax.value_and_grad(_jax_loss))
+_jax_forward = jax.jit(JaxViT(**GEOMETRY).apply)
+
+
+@jax.jit
+def _jax_adam_update(grads, opt_state, params):
+    """``get_optimizer("adam", LR)``'s update, applied: one compiled program
+    in place of a dispatch for every op of every parameter."""
+    updates, opt_state = jax_get_optimizer("adam", LR).update(grads, opt_state, params)
+    return optax.apply_updates(params, updates), opt_state
 
 
 @pytest.fixture(scope="module")
@@ -139,16 +148,14 @@ def jax_adam_run(flax_params, images, labels):
     the parameters after each of 3 adam steps on the first 4 images."""
     x, y = jnp.asarray(images[:4]), jnp.asarray(labels[:4])
     w = jnp.ones(4, jnp.float32)
-    tx = jax_get_optimizer("adam", LR)
     params = jax.tree_util.tree_map(jnp.asarray, flax_params)
-    opt_state = tx.init(params)
+    opt_state = jax_get_optimizer("adam", LR).init(params)
     first = None
     for _ in range(3):
         loss, grads = _jax_value_and_grad(params, x, y, w)
         if first is None:
             first = (float(loss), jax.tree_util.tree_map(np.asarray, grads))
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
+        params, opt_state = _jax_adam_update(grads, opt_state, params)
     return first, jax.tree_util.tree_map(np.asarray, params)
 
 
@@ -185,8 +192,8 @@ def _assert_adam_params_close(got, want, steps, images):
         total += g.size
     assert close >= 0.995 * total, f"{total - close} of {total} weights differ"
     x = jnp.asarray(images)
-    np.testing.assert_allclose(np.asarray(JaxViT(**GEOMETRY).apply(got, x)),
-                               np.asarray(JaxViT(**GEOMETRY).apply(want, x)), **VIT_TOL)
+    np.testing.assert_allclose(np.asarray(_jax_forward(got, x)),
+                               np.asarray(_jax_forward(want, x)), **VIT_TOL)
 
 
 def _assert_trees_close(got, want, **tol):
@@ -374,7 +381,7 @@ def test_fit_rows_match_jax_forward_of_trained_params(fitted, train_df, uris, im
     transformer, _ = fitted
     assert isinstance(transformer, TorchImageFileTransformer)
     tuned = vit_flax_from_state_dict(transformer.module.state_dict())
-    want = np.asarray(JaxViT(**GEOMETRY).apply(tuned, jnp.asarray(images)))
+    want = np.asarray(_jax_forward(tuned, jnp.asarray(images)))
     rows = transformer.transform(train_df).collect()
     assert [r["uri"] for r in rows] == uris
     got = np.stack([r["out"].toArray() for r in rows])
@@ -386,17 +393,15 @@ def test_fit_matches_the_jax_epoch_loop(fitted, flax_params, images, labels):
     the oracle stepping over the JAX package's own epoch batches."""
     transformer, steps = fitted
     assert steps == 4
-    tx = jax_get_optimizer("adam", LR)
     params = jax.tree_util.tree_map(jnp.asarray, flax_params)
-    opt_state = tx.init(params)
+    opt_state = jax_get_optimizer("adam", LR).init(params)
     rng, losses = np.random.RandomState(0), []
     for _ in range(2):
         for b in jax_in_memory_epoch_dataset(
             rng.permutation(N_IMAGES), images, labels, 4, 2, weighted=True
         ):
             loss, grads = _jax_value_and_grad(params, b["x"], b["y"], b["w"])
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
+            params, opt_state = _jax_adam_update(grads, opt_state, params)
             losses.append(float(loss))
     np.testing.assert_allclose(transformer._training_losses, losses, **GRAD_TOL)
     assert transformer._training_loss == transformer._training_losses[-1]
