@@ -40,8 +40,8 @@ import json
 import subprocess
 import sys
 import tempfile
-import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -54,14 +54,19 @@ PEAK_BYTES_PER_S = 3.35e12
 F32_TOL = dict(atol=2e-4, rtol=2e-4)    # tests/test_ops.py's flash tolerance
 GRAD_TOL = dict(atol=1e-3, rtol=1e-3)   # tests/test_ops.py's flash-gradient tolerance
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding
+# bf16 gradients: one bf16 rounding of the value (the kernels accumulate in
+# float32 as the plain backward does, and round once at the store)
+BF16_GRAD_TOL = dict(atol=1e-3, rtol=8e-3)
 SLICE_TOL = dict(atol=5e-4, rtol=5e-3)  # tests/test_ops.py's ViT tolerance
 # flash vs dense training on the card, both float32: each gradient tensor to
 # 1e-4 of its norm (of at least 1e-3 of the largest norm: the key bias's
 # gradient is exactly zero, so float noise); the losses of 4 adam steps to
 # 1e-4 relative (adam turns float noise in near-zero gradients into weight
-# moves of up to lr); the weights as check_adam_step says
+# moves of up to lr); the weights as check_adam_step says, each leaf's change
+# to 1e-2 of its norm
 GRAD_NORM_RTOL = 1e-4
 LOSS_RTOL = 1e-4
+ADAM_LEAF_RTOL = 1e-2
 
 VIT_SHAPE = (32, 197, 12, 64)  # ViT-B/16 at 224, batch 32: (b, s, h, d)
 N_IMAGES = 64
@@ -168,7 +173,7 @@ def check_backward(shape, dtype, kwargs, seed):
     out, lse = flash_attention(q, k, v, return_lse=True, **kwargs)
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, **kwargs)
     torch.cuda.synchronize()
-    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
     errs = []
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), **tol)
@@ -313,29 +318,36 @@ def first_step_grads(state_dict, attn_impl, x, y):
     return loss.item(), {n: p.grad for n, p in model.named_parameters()}
 
 
-def check_adam_step(got, want, steps):
-    """Weights after ``steps`` adam steps of two runs: each within
-    ``2 * steps * lr`` (adam moves a weight by about lr whatever its
+def check_adam_step(got, want, start, steps):
+    """Weights after ``steps`` adam steps from ``start`` in two runs: each
+    within ``2 * steps * lr`` (adam moves a weight by about lr whatever its
     gradient's size, so where float noise flips the sign of a near-zero
-    gradient the two runs step apart by up to 2 lr), and at least 99.5% of
-    them within atol=1e-6, rtol=1e-5. Returns the largest difference and the
-    share within the tight tolerance."""
-    import torch
-
-    close = total = 0
+    gradient the two runs step apart by up to 2 lr); and in every leaf, the
+    key bias (the middle third of a qkv bias, whose gradient is exactly
+    zero) split off, the change from ``start`` within ADAM_LEAF_RTOL of the
+    other run's change in norm, so a leaf left unmoved or moved wrongly
+    fails. Returns the largest difference and the worst leaf's error."""
     worst = 0.0
+    worst_leaf = (0.0, "")
     for name, w in want.items():
         g = got[name].float().cpu()
         w = w.float().cpu()
+        s = start[name].float().cpu()
         diff = (g - w).abs().max().item()
         if diff > 2 * steps * TRAIN_LR * 1.001:
             raise AssertionError(f"{name}: {diff:.3e} apart after {steps} adam steps")
         worst = max(worst, diff)
-        close += torch.isclose(g, w, atol=1e-6, rtol=1e-5).sum().item()
-        total += w.numel()
-    if close < 0.995 * total:
-        raise AssertionError(f"{total - close} of {total} weights differ")
-    return worst, close / total
+        parts = {name: slice(None)}
+        if name.endswith("qkv.bias"):
+            third = w.shape[-1] // 3
+            parts = {f"{name}[q]": slice(0, third), f"{name}[v]": slice(2 * third, None)}
+        for part, sl in parts.items():
+            moved, other = (g - s)[..., sl], (w - s)[..., sl]
+            err = ((moved - other).norm() / other.norm()).item()
+            if not err <= ADAM_LEAF_RTOL:
+                raise AssertionError(f"{part}: change differs by {err:.3e} of its norm")
+            worst_leaf = max(worst_leaf, (err, part))
+    return worst, worst_leaf
 
 
 def main() -> int:
@@ -380,34 +392,25 @@ def main() -> int:
         return {k.symbol + ("+lse" if k is FLASH_FWD_LSE else ""): k.launches
                 for k in kernels}
 
-    # phase 2: build, one nvcc per source, all started together
+    # phase 2: build, one nvcc per source, all started together; the
+    # launchers then load the libraries from the build directory
+    from sparkdl_tpu_torch.ops.cuda_build import build_library
+
     t0 = time.perf_counter()
-    errors = []
-
-    def build(kernel):
-        try:
-            kernel.build()
-        except BaseException as exc:  # re-raised below, on the main thread
-            errors.append(exc)
-
-    threads = [threading.Thread(target=build, args=(k,)) for k in (FLASH_FWD, FLASH_BWD_DQ)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
+    sources = sorted({kernel.source for kernel in kernels})
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = list(pool.map(build_library, sources))
     for kernel in kernels:
-        kernel.build()  # the other launchers of the two libraries
-    log(f"build: {FLASH_FWD.source.name}, {FLASH_BWD_DQ.source.name} in "
+        kernel.build()
+    log(f"build: {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for kernel in (FLASH_FWD, FLASH_BWD_DQ):
-        for line in kernel.build_log.splitlines():
+    for _, build_log in built:
+        for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {line.strip()}")
 
     # phase 3: kernel vs plain (forward f32 2e-4 and gradients f32 1e-3 as
-    # tests/test_ops.py; bf16 2e-2, one bf16 rounding of the output)
+    # tests/test_ops.py; bf16 forward 2e-2, bf16 gradients 8e-3 relative)
     test_shapes = [
         ((2, 197, 3, 64), {}), ((1, 128, 2, 32), {}), ((2, 300, 4, 128), {}),
         ((1, 197, 2, 64), {"causal": True}), ((1, 256, 2, 64), {"kv_len": 200}),
@@ -540,11 +543,12 @@ def main() -> int:
         if len(losses) != steps or not np.isfinite(losses).all():
             raise AssertionError(f"bad training losses {losses}")
         np.testing.assert_allclose(losses, full_losses, rtol=LOSS_RTOL)
-        adam_diff, adam_share = check_adam_step(
-            fitted.module.state_dict(), full_fit.module.state_dict(), steps
+        adam_diff, adam_leaf = check_adam_step(
+            fitted.module.state_dict(), full_fit.module.state_dict(), train_state, steps
         )
         log(f"  weights flash vs full after {steps} adam steps: largest "
-            f"difference {adam_diff:.3e}, {100 * adam_share:.4f}% within 1e-6")
+            f"difference {adam_diff:.3e}; worst leaf change error "
+            f"{adam_leaf[0]:.3e} ({adam_leaf[1]})")
         del full_fit
 
         reset_counts()
@@ -573,15 +577,16 @@ def main() -> int:
         ).fit(small_df)
         np.testing.assert_allclose(card_fit._training_losses,
                                    cpu_fit._training_losses, rtol=LOSS_RTOL)
-        cpu_diff, cpu_share = check_adam_step(
-            card_fit.module.state_dict(), cpu_fit.module.state_dict(), 1
+        cpu_diff, cpu_leaf = check_adam_step(
+            card_fit.module.state_dict(), cpu_fit.module.state_dict(), train_state, 1
         )
         card_rows = rows_array(card_fit.transform(small_df).collect())
         cpu_rows = rows_array(cpu_fit.transform(small_df).collect())
         np.testing.assert_allclose(card_rows, cpu_rows, **SLICE_TOL)
         log(f"  one step at 2 images, card vs CPU: loss {card_fit._training_losses} "
             f"vs {cpu_fit._training_losses}; weights largest difference "
-            f"{cpu_diff:.3e}, {100 * cpu_share:.4f}% within 1e-6; rows "
+            f"{cpu_diff:.3e}, worst leaf change error {cpu_leaf[0]:.3e} "
+            f"({cpu_leaf[1]}); rows "
             f"max_abs_err={np.abs(card_rows - cpu_rows).max():.3e}")
         del card_fit, cpu_fit
 

@@ -1,71 +1,18 @@
-"""The estimators' data plane: collect rows, load images, build an epoch.
+"""The estimators' data plane: load the images, build an epoch's batches.
 
 A copy of ``sparkdl_tpu.estimators.data`` for one host: collect (URI,
 label) rows, load the images through the user's ``imageLoader`` in a thread
-pool, and batch each epoch's permutation with the cyclic-pad policy. The
-multi-host shard (``runner``) and the streaming loader are not ported yet.
+pool, and batch each epoch's permutation with the cyclic-pad policy of
+``in_memory_epoch_dataset``, batch for batch. The multi-host shard
+(``runner``) and the streaming loader are not ported yet.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
-
-from sparkdl_tpu_torch.data import Dataset
-
-
-def collect_host_shard_rows(
-    dataset,
-    input_col: str,
-    label_col: str,
-) -> Tuple[List[str], List[Any], int]:
-    """Collect (URI, label) rows without loading any images. Returns
-    ``(uris, labels, n_global)``; one host keeps every row."""
-    rows = dataset.collect()
-    if not rows:
-        raise ValueError("fit() received an empty dataset")
-    uris = [r[input_col] for r in rows]
-    labels = [r[label_col] for r in rows]
-    return uris, labels, len(rows)
-
-
-def in_memory_epoch_dataset(
-    order: np.ndarray,
-    x: np.ndarray,
-    y: np.ndarray,
-    local_bs: int,
-    steps: int,
-    weighted: bool,
-) -> Dataset:
-    """One in-memory ``_fit`` epoch as a :class:`Dataset`: the epoch
-    permutation batched with the cyclic-pad policy, then a gather stage
-    materializing ``{"x", "y"[, "w"]}`` from the preloaded rows. Pad rows
-    carry zero weight when ``weighted``."""
-
-    def gather(b):
-        idx = np.asarray(b.items, dtype=np.int64)
-        batch = {"x": x[idx], "y": y[idx]}
-        if weighted:
-            w = np.zeros(int(local_bs), np.float32)
-            w[: b.n_real] = 1.0
-            batch["w"] = w
-        return batch
-
-    return (
-        Dataset.from_arrays(np.asarray(order))
-        .batch(int(local_bs), pad="cyclic", min_batches=steps)
-        .map(gather)
-    )
-
-
-def labels_to_array(labels: List[Any]) -> np.ndarray:
-    """Scalar labels -> int32 class ids; vector labels -> float32 rows."""
-    first = np.asarray(labels[0])
-    if first.ndim == 0:
-        return np.asarray(labels, dtype=np.int32)
-    return np.stack([np.asarray(l, dtype=np.float32) for l in labels])
 
 
 def load_host_shard(
@@ -73,16 +20,34 @@ def load_host_shard(
     input_col: str,
     label_col: str,
     loader: Callable[[str], Any],
-    max_workers: int = 16,
-) -> Tuple[np.ndarray, List[Any], int]:
-    """Collect (URI, label) rows and load the images via ``loader`` in a
-    thread pool. Returns ``(x, labels, n_global)``: ``x`` stacked float32,
+) -> Tuple[np.ndarray, List[Any]]:
+    """Collect every (URI, label) row and load the images via ``loader`` in
+    a thread pool. Returns ``(x, labels)``: ``x`` stacked float32,
     ``labels`` the raw label values (the caller owns the dtype policy)."""
-    uris, labels, n_global = collect_host_shard_rows(
-        dataset, input_col, label_col
-    )
-    with ThreadPoolExecutor(max_workers=max_workers) as pool:
+    rows = dataset.collect()
+    if not rows:
+        raise ValueError("fit() received an empty dataset")
+    uris = [r[input_col] for r in rows]
+    with ThreadPoolExecutor(max_workers=16) as pool:
         images = list(
             pool.map(lambda u: np.asarray(loader(u), dtype=np.float32), uris)
         )
-    return np.stack(images), labels, n_global
+    return np.stack(images), [r[label_col] for r in rows]
+
+
+def epoch_batches(
+    order: np.ndarray,
+    x: np.ndarray,
+    y: np.ndarray,
+    batch_size: int,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """One epoch: ``order`` cut into ``ceil(n / batch_size)`` batches of
+    ``{"x", "y", "w"}``, the last one padded by cycling from the start of
+    ``order`` (``np.resize``); pad rows carry weight 0, real rows 1."""
+    n = len(order)
+    steps = -(-n // batch_size)
+    idx = np.resize(np.asarray(order, np.int64), steps * batch_size)
+    w = (np.arange(steps * batch_size) < n).astype(np.float32)
+    for rows, weights in zip(idx.reshape(steps, batch_size),
+                             w.reshape(steps, batch_size)):
+        yield {"x": x[rows], "y": y[rows], "w": weights}

@@ -23,10 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sparkdl_tpu_torch.estimators.data import (
-    in_memory_epoch_dataset,
-    load_host_shard,
-)
+from sparkdl_tpu_torch.estimators.data import epoch_batches, load_host_shard
 from sparkdl_tpu_torch.estimators.losses import (
     get_optimizer,
     get_per_sample_loss_fn,
@@ -263,7 +260,7 @@ class TorchImageFileEstimator(
         return self._set(**kwargs)
 
     def _load_shard(self, dataset):
-        x, labels, n_global = load_host_shard(
+        x, labels = load_host_shard(
             dataset,
             self.getInputCol(),
             self.getLabelCol(),
@@ -278,7 +275,7 @@ class TorchImageFileEstimator(
                     f"values (dtype {raw.dtype}); this estimator trains "
                     "with integer class labels"
                 )
-        return x, raw.astype(np.int32), n_global
+        return x, raw.astype(np.int32)
 
     def _per_sample_loss(self):
         """``(module, batch) -> (batch,)`` per-sample losses."""
@@ -320,7 +317,7 @@ class TorchImageFileEstimator(
         lr = fit_params.get("learning_rate")
         seed = int(fit_params.get("seed", 0))
 
-        x, y, _ = self._load_shard(dataset)
+        x, y = self._load_shard(dataset)
         tx = get_optimizer(self.getOrDefault(self.optimizer), lr)
         per_sample = self._per_sample_loss()
 
@@ -338,7 +335,6 @@ class TorchImageFileEstimator(
         step_fn = make_train_step(per_sample)
 
         n = x.shape[0]
-        steps_per_epoch = max(1, -(-n // batch_size))
         rng = np.random.RandomState(seed % 2**32)
         sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
 
@@ -349,13 +345,10 @@ class TorchImageFileEstimator(
         last_loss = None
         for epoch in range(epochs):
             order = rng.permutation(n)
+            losses = []
             # pad rows carry zero weight, so each update is the exact mean
             # over the real rows
-            epoch_ds = in_memory_epoch_dataset(
-                order, x, y, batch_size, steps_per_epoch, weighted=True
-            )
-            losses = []
-            for batch in epoch_ds:
+            for batch in epoch_batches(order, x, y, batch_size):
                 with fit_step(sync):
                     state, loss = step_fn(state, place(batch))
                 losses.append(loss)

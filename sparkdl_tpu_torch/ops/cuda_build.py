@@ -17,9 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -86,21 +85,16 @@ def build_library(source: Path) -> tuple:
     return out, log
 
 
-_LIBRARIES: Dict[Path, Tuple[ctypes.CDLL, str]] = {}
-_LIBRARIES_LOCK = threading.Lock()
-_SOURCE_LOCKS: Dict[Path, threading.Lock] = {}
+_LIBRARIES: Dict[Path, ctypes.CDLL] = {}
 
 
-def load_library(source: Path) -> Tuple[ctypes.CDLL, str]:
-    """The loaded library of ``source`` and its build log, built once per
-    process however many launchers it exports; sources build in parallel."""
-    with _LIBRARIES_LOCK:
-        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
-    with lock:
-        if source not in _LIBRARIES:
-            path, log = build_library(source)
-            _LIBRARIES[source] = (ctypes.CDLL(str(path)), log)
-        return _LIBRARIES[source]
+def load_library(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, built once per process however
+    many launchers it exports."""
+    if source not in _LIBRARIES:
+        path, _ = build_library(source)
+        _LIBRARIES[source] = ctypes.CDLL(str(path))
+    return _LIBRARIES[source]
 
 
 class CudaKernel:
@@ -108,8 +102,6 @@ class CudaKernel:
 
     ``launches`` counts the launches that returned without a CUDA error;
     the wrapper that owns the kernel advances it nowhere else.
-    ``build_log`` is nvcc's output for the whole source (empty when the
-    library was cached on disk).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -117,14 +109,13 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self.build_log = ""
         self._fn = None
         self._error_string = None
 
     def build(self) -> None:
         if self._fn is not None:
             return
-        lib, self.build_log = load_library(self.source)
+        lib = load_library(self.source)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

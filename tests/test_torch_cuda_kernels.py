@@ -26,6 +26,9 @@ pytestmark = pytest.mark.cuda
 F32_TOL = dict(atol=2e-4, rtol=2e-4)  # tests/test_ops.py's flash tolerance
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)  # bf16 output rounding
 GRAD_TOL = dict(atol=1e-3, rtol=1e-3)  # tests/test_ops.py's flash-gradient tolerance
+# bf16 gradients: one bf16 rounding of the value (float32 sums, one rounding
+# at the store, as in the plain backward)
+BF16_GRAD_TOL = dict(atol=1e-3, rtol=8e-3)
 
 # (shape, kwargs): the cases of tests/test_ops.py:21-46 and the ViT-B/16 shape
 CASES = [
@@ -124,7 +127,7 @@ def test_backward_kernels_match_plain_version(cuda, shape, kwargs, dtype):
         launches[0], launches[1] + 1, launches[2] + 1, launches[3] + 1,
     ]
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, **kwargs)
-    tol = GRAD_TOL if dtype == torch.float32 else BF16_TOL
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == shape
         torch.testing.assert_close(g.float(), w.float(), **tol)

@@ -172,7 +172,6 @@ def test_port_imports_no_jax_in_a_fresh_process():
     loaded = proc.stdout.split()
     for module in (
         "sparkdl_tpu_torch.ops.flash_attention",
-        "sparkdl_tpu_torch.data.dataset",
         "sparkdl_tpu_torch.estimators.data",
         "sparkdl_tpu_torch.estimators.losses",
         "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
