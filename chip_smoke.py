@@ -8,11 +8,16 @@ prints no result):
 
 1. device: a CUDA card is present; its name and power limit (nvidia-smi);
 2. build: every kernel of the main path, from the sources in this checkout,
-   one nvcc per source, all started together; registers and spills;
+   one nvcc per source, all started together; each kernel's registers and
+   spills (none allowed in the backward kernels at head_dim 64) and its
+   tensor-core products (HMMA) and cp.async copies (LDGSTS) in its SASS
+   (both required in the backward kernels);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at the test shapes, q/k/v as views
    of one qkv tensor; gradients through the autograd Function against
-   autograd of the plain forward;
+   autograd of the plain forward; the backward kernels' split-TF32 products
+   at least 10x closer to the f32 plain backward than single TF32 products,
+   and their error and the plain backward's against a float64 backward;
 4. inference slice: ViT-B/16 image-file inference at full width through
    ``TorchImageFileTransformer`` over 64 generated 224x224 images, with
    random weights in the Flax layout carried across by
@@ -47,8 +52,9 @@ from pathlib import Path
 import numpy as np
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): float32 on
-# the CUDA cores, bf16 on the tensor cores, and HBM3.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the CUDA cores, bf16 on the tensor cores, float32 done as split TF32 on the
+# tensor cores (three TF32 products per f32 product at 495 TFLOP/s), and HBM3.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "split_tf32": 495e12 / 3}
 PEAK_BYTES_PER_S = 3.35e12
 
 F32_TOL = dict(atol=2e-4, rtol=2e-4)    # tests/test_ops.py's flash tolerance
@@ -104,9 +110,10 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def attention_bound_ms(shape, dtype_name: str, products: int = 2,
-                       tensors: int = 4, rows: int = 0):
+                       tensors: int = 4, rows: int = 0, rate: str = None):
     """Least time for one attention kernel: the larger of its bytes over HBM
-    bandwidth and its operations over the peak rate for the type.
+    bandwidth and its operations over the peak rate for the type (or for
+    ``rate``, a key of PEAK_FLOPS).
 
     ``products`` (b*h) x (s x s x d) matrix products of 2*s^2*d operations
     each; ``tensors`` (b, s, h, d) tensors in the input type and ``rows``
@@ -119,7 +126,7 @@ def attention_bound_ms(shape, dtype_name: str, products: int = 2,
     itemsize = 4 if dtype_name == "float32" else 2
     nbytes = tensors * b * s * h * d * itemsize + rows * b * h * s * 4
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = products * 2 * b * h * s * s * d / PEAK_FLOPS[dtype_name] * 1e3
+    ops_ms = products * 2 * b * h * s * s * d / PEAK_FLOPS[rate or dtype_name] * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
@@ -194,8 +201,83 @@ def check_backward(shape, dtype, kwargs, seed):
     return errs
 
 
+def check_split_tf32(shape, seed):
+    """The backward kernels compute each f32 product as three TF32 products
+    (operands split in a TF32 value and its TF32 remainder). With inputs x4
+    (a peaked softmax) their gradients must be at least 10x closer to the
+    f32 plain backward than that plain backward run with TF32 products.
+    Returns the kernels' max abs errors of (dQ, dK, dV)."""
+    import torch
+
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+    )
+
+    fused = fused_qkv(shape, torch.float32, seed) * 4
+    q, k, v = views(fused, shape)
+    do = cotangent(shape, torch.float32, seed)
+    leaf = fused.clone().requires_grad_()
+    flash_attention(*views(leaf, shape)).backward(do)
+    got = views(leaf.grad, shape)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        single = flash_attention_bwd_reference(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = []
+    for name, g, w, one in zip("qkv", got, want, single):
+        err = (g - w).abs().max().item()
+        single_err = (one - w).abs().max().item()
+        log(f"  d{name}: kernels {err:.3e}, plain backward in TF32 {single_err:.3e} "
+            f"({single_err / max(err, 1e-30):.0f}x)")
+        if not 10 * err <= single_err:
+            raise AssertionError(f"d{name}: split-TF32 error {err:.3e} is not 10x "
+                                 f"under single TF32's {single_err:.3e}")
+        errs.append(err)
+    return errs
+
+
+def float64_errors(shape, seed):
+    """The backward kernels and the plain f32 backward against a float64
+    backward of the same f32 inputs (its own softmax, out and delta):
+    relative errors in norm of (dQ, dK, dV) for each. Logged, not held to a
+    limit: it shows how near f32 the split-TF32 products come."""
+    import torch
+
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_reference,
+    )
+
+    q, k, v = qkv_views(shape, torch.float32, seed)
+    do = cotangent(shape, torch.float32, seed)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    plain = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    scale = shape[3] ** -0.5
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q64 * scale, k64), dim=-1)
+    out64 = torch.einsum("bhqk,bkhd->bqhd", p, v64)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do64, v64)
+    ds = p * (dp - (do64 * out64).sum(-1).transpose(1, 2)[..., None])
+    exact = (torch.einsum("bhqk,bkhd->bqhd", ds, k64) * scale,
+             torch.einsum("bhqk,bqhd->bkhd", ds, q64 * scale),
+             torch.einsum("bhqk,bqhd->bkhd", p, do64))
+    errs = {name: [((g.double() - w).norm() / w.norm()).item() for g, w in zip(grads, exact)]
+            for name, grads in (("kernels", got), ("plain f32", plain))}
+    for name, e in errs.items():
+        log(f"  {name}: dq/dk/dv relative error {e[0]:.3e}/{e[1]:.3e}/{e[2]:.3e}")
+    return errs
+
+
 def check_kernel(shape, dtype, kwargs, seed):
-    """Kernel vs plain version on the card; returns the output's max abs err."""
+    """Kernel vs plain version on the card; returns the max abs errs of the
+    output and of the lse."""
     import torch
 
     from sparkdl_tpu_torch.ops.flash_attention import (
@@ -214,7 +296,7 @@ def check_kernel(shape, dtype, kwargs, seed):
     lse_err = (lse - want_lse).abs().max().item()
     log(f"  {str(dtype):15s} {str(shape):20s} {str(kwargs):16s} "
         f"max_abs_err={err:.3e} lse_max_abs_err={lse_err:.3e}")
-    return err
+    return err, lse_err
 
 
 def flax_layout_vit_params(seed: int, classes: int = 1000):
@@ -394,7 +476,7 @@ def main() -> int:
 
     # phase 2: build, one nvcc per source, all started together; the
     # launchers then load the libraries from the build directory
-    from sparkdl_tpu_torch.ops.cuda_build import build_library
+    from sparkdl_tpu_torch.ops.cuda_build import build_library, ptxas_usage, sass_opcodes
 
     t0 = time.perf_counter()
     sources = sorted({kernel.source for kernel in kernels})
@@ -404,10 +486,22 @@ def main() -> int:
         kernel.build()
     log(f"build: {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for _, build_log in built:
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  {line.strip()}")
+    # registers and spills from nvcc's -Xptxas -v (empty for a cached
+    # build), tensor-core products and cp.async copies from the SASS
+    for library, build_log in built:
+        usage = ptxas_usage(build_log)
+        opcodes = sass_opcodes(library, ("HMMA", "LDGSTS", ""))
+        for kname in sorted(opcodes):
+            u = usage.get(kname, {})
+            log(f"  {kname}: {u.get('registers', '?')} registers, spill stores/loads "
+                f"{u.get('spill_stores', '?')}/{u.get('spill_loads', '?')} bytes; "
+                f"SASS HMMA {opcodes[kname]['HMMA']}, LDGSTS {opcodes[kname]['LDGSTS']} "
+                f"of {opcodes[kname]['']} instructions")
+            if kname.startswith("flash_bwd_"):
+                if not (opcodes[kname]["HMMA"] and opcodes[kname]["LDGSTS"]):
+                    raise AssertionError(f"{kname}: no tensor-core products or cp.async copies")
+                if kname.endswith(",64>") and u.get("spill_stores", 0) + u.get("spill_loads", 0):
+                    raise AssertionError(f"{kname} spills at head_dim 64: {u}")
 
     # phase 3: kernel vs plain (forward f32 2e-4 and gradients f32 1e-3 as
     # tests/test_ops.py; bf16 forward 2e-2, bf16 gradients 8e-3 relative)
@@ -416,7 +510,7 @@ def main() -> int:
         ((1, 197, 2, 64), {"causal": True}), ((1, 256, 2, 64), {"kv_len": 200}),
     ]
     log("kernel vs plain (flash_attention_fwd, with and without lse):")
-    fwd_err = check_kernel(VIT_SHAPE, torch.float32, {}, seed=0)
+    fwd_err, lse_err = check_kernel(VIT_SHAPE, torch.float32, {}, seed=0)
     check_kernel(VIT_SHAPE, torch.bfloat16, {}, seed=1)
     for shape, kwargs in test_shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -427,6 +521,10 @@ def main() -> int:
     for shape, kwargs in test_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             check_backward(shape, dtype, kwargs, seed=3)
+    log(f"split TF32 vs single TF32 (backward kernels, inputs x4, {VIT_SHAPE} float32):")
+    check_split_tf32(VIT_SHAPE, seed=5)
+    log(f"against a float64 backward ({VIT_SHAPE} float32 inputs):")
+    float64_errors(VIT_SHAPE, seed=6)
 
     # phase 4: the inference slice, ViT-B/16 at full width
     state = vit_state_dict_from_flax(flax_layout_vit_params(seed=0))
@@ -677,11 +775,16 @@ def main() -> int:
     bwd_library_ms = time_ms(
         lambda: torch.autograd.grad(sdpa_out, t_leaves, do_t, retain_graph=True), iters=20
     )
-    dq_bound, dq_by = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2)
-    dkv_bound, dkv_by = attention_bound_ms(VIT_SHAPE, "float32", 4, 6, 2)
+    # the least time: f32 work as split TF32 on the tensor cores, as the
+    # kernels do it; beside it the bound on the CUDA cores (67 TFLOP/s f32)
+    dq_bound, dq_by = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2, "split_tf32")
+    dkv_bound, dkv_by = attention_bound_ms(VIT_SHAPE, "float32", 4, 6, 2, "split_tf32")
+    dq_core = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2)[0]
+    dkv_core = attention_bound_ms(VIT_SHAPE, "float32", 4, 6, 2)[0]
     log(f"backward timing at {VIT_SHAPE} float32 ({card}): dQ kernel {dq_ms:.4f} ms "
-        f"(bound {dq_bound:.4f} ms, {dq_by}), dK/dV kernel {dkv_ms:.4f} ms "
-        f"(bound {dkv_bound:.4f} ms, {dkv_by}), delta {delta_ms:.4f} ms; "
+        f"(bound {dq_bound:.4f} ms split TF32, {dq_by}; {dq_core:.4f} ms CUDA cores), "
+        f"dK/dV kernel {dkv_ms:.4f} ms (bound {dkv_bound:.4f} ms split TF32, {dkv_by}; "
+        f"{dkv_core:.4f} ms CUDA cores), delta {delta_ms:.4f} ms; "
         f"backward through autograd {bwd_ms:.4f} ms vs scaled_dot_product_attention's "
         f"backward {bwd_library_ms:.4f} ms; plain backward {bwd_plain_ms:.4f} ms")
     ob, lseb = flash_attention(qb, kb, vb, return_lse=True)
@@ -701,14 +804,23 @@ def main() -> int:
 
     source = "sparkdl_tpu_torch/ops/csrc/flash_attention_{}.cu"
     common = {"route": "cuda"}
+    # the forward runs on the CUDA cores: its bound is theirs
     records.append({
         "name": "flash_attention_fwd", **common, "source": source.format("fwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:284",
-        # both paths: inference, then fit (with lse) and the fitted transform
-        "launches": serve_counts["flash_attention_fwd"]
-        + fit_counts["flash_attention_fwd+lse"] + tuned_counts["flash_attention_fwd"],
+        # the lse-free launches: inference and the fitted transform
+        "launches": serve_counts["flash_attention_fwd"] + tuned_counts["flash_attention_fwd"],
         "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": bound_ms,
+        "library_ms": library_ms,
+    })
+    records.append({
+        "name": "flash_attention_fwd_lse", **common, "source": source.format("fwd"),
+        "replaces": "sparkdl_tpu/ops/flash_attention.py:259",
+        "launches": fit_counts["flash_attention_fwd+lse"],
+        "max_abs_err": max(fwd_err, lse_err), "ms": lse_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": bound_ms,
+        "library_ms": library_ms,
     })
     # no single library call computes dQ or dK/dV alone: library_ms is the
     # backward of scaled_dot_product_attention, set against dQ + dK/dV + delta
@@ -719,14 +831,15 @@ def main() -> int:
         "replaces": "sparkdl_tpu/ops/flash_attention.py:317",
         "launches": fit_counts["flash_attention_bwd_dq"], "max_abs_err": dq_err,
         "ms": dq_ms, "plain_ms": bwd_plain_ms, "bound_ms": dq_bound,
-        "bound_by": dq_by, "library_ms": bwd_library_ms,
+        "bound_by": dq_by, "cuda_core_bound_ms": dq_core, "library_ms": bwd_library_ms,
     })
     records.append({
         "name": "flash_attention_bwd_dkv", **common, "source": source.format("bwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:340",
         "launches": fit_counts["flash_attention_bwd_dkv"],
         "max_abs_err": max(dk_err, dv_err), "ms": dkv_ms, "plain_ms": bwd_plain_ms,
-        "bound_ms": dkv_bound, "bound_by": dkv_by, "library_ms": bwd_library_ms,
+        "bound_ms": dkv_bound, "bound_by": dkv_by, "cuda_core_bound_ms": dkv_core,
+        "library_ms": bwd_library_ms,
     })
 
     print(card, flush=True)

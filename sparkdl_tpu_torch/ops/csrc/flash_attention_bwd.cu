@@ -1,55 +1,67 @@
-// Flash-attention backward for Hopper (sm_90a), plain CUDA C++.
+// Flash-attention backward for Hopper (sm_90a): tensor-core CUDA C++.
 //
-// Replaces the Pallas kernels `_dq_kernel` (flash_attention_bwd_dq) and
-// `_dkv_kernel` (flash_attention_bwd_dkv) of sparkdl_tpu/ops/flash_attention.py,
-// the two halves of the custom VJP's `bwd`. With Qs = scale * Q and the lse
-// that the forward saved:
+// Replaces the Pallas kernels `_dq_kernel` (flash_attention.py:115, called at
+// :317; here flash_attention_bwd_dq) and `_dkv_kernel` (:161, called at :340;
+// here flash_attention_bwd_dkv) of sparkdl_tpu/ops/flash_attention.py, the two
+// halves of the custom VJP's `bwd`. With S = scale * Q K^T and the lse that
+// the forward saved:
 //
-//   P  = exp(Qs K^T - lse)   where kept, else 0
+//   P  = exp(S - lse)   where kept, else 0
 //   dS = P * (dO V^T - delta),   delta = rowsum(dO * O)   (computed outside)
-//   dQ = scale * dS K,   dK = dS^T Qs,   dV = P^T dO
+//   dQ = scale * dS K,   dK = scale * dS^T Q,   dV = P^T dO
 //
 // A score is kept where its key is < kv_len and, when causal, not after its
 // query. Inputs are (batch, seq, heads, head_dim) with any batch / seq / head
-// strides and a contiguous head_dim, so the q/k/v views of a fused qkv
-// projection are read in place; lse and delta are contiguous
-// (batch, heads, seq) float32; dQ, dK and dV are contiguous
+// strides that keep rows 16-byte aligned and a contiguous head_dim, so the
+// q/k/v views of a fused qkv projection are read in place; lse and delta are
+// contiguous (batch, heads, seq) float32; dQ, dK and dV are contiguous
 // (batch, seq, heads, head_dim) tensors in the input type.
 //
-// Design. As in the TPU design, each gradient row is owned by one CTA, which
-// walks the other operand's tiles in a loop and writes its rows once: no
-// atomics, so the result is the same bytes on every run.
-// - dQ: one CTA of 128 threads per (64-row Q tile, head, batch). Qs, dO, lse
-//   and delta stay in shared memory; each 64-row K/V tile is staged in turn.
-// - dK/dV: one CTA of 128 threads per (64-row K/V tile, head, batch). K and
-//   V stay in shared memory; each 64-row Q tile (with dO, lse, delta) is
-//   staged in turn. Thread (ty, tx) owns key rows 4*ty .. 4*ty+3 of both
-//   accumulators and the transposed scores of those keys against queries
-//   tx + 8*j, so the score tile is computed as S^T and never transposed.
-// Tiles are fp32 in shared memory, rows padded to head_dim + 1 floats so the
-// column walks touch 32 distinct banks (as the forward does). P and dS go
-// through shared memory between the score products and the accumulating
-// ones. The ragged edge (197 = 3*64 + 5) is masked in the kernel, and tiles
-// wholly masked (past kv_len, or on the far side of the diagonal when causal)
-// are skipped, which is exact because a masked P is 0.
-//
-// Bound. At the ViT-B/16 shape (b=32, s=197, h=12, d=64), f32: dQ does
+// Bound. At the ViT-B/16 shape (b=32, s=197, h=12, d=64), f32, dQ does
 // 6*b*h*s^2*d = 5.7 GFLOP on 97 MB and dK/dV 8*b*h*s^2*d = 7.6 GFLOP on
-// 116 MB, so both are bound by operations: the fp32 FMA rate of the CUDA
-// cores. Like the forward, this first version stages tiles synchronously and
-// uses neither the tensor cores (wgmma) nor TMA.
+// 117 MB: both are bound by operations. On the CUDA cores (67 TFLOP/s f32)
+// that is 0.085 and 0.114 ms; done as split TF32 on the tensor cores, three
+// TF32 products per f32 product at 495 TFLOP/s, it is 0.035 and 0.046 ms.
+//
+// Design.
+// - Ownership as in the TPU design: a CTA owns a tile of gradient rows (a Q
+//   tile in dQ, a K/V tile in dK/dV), walks the other operand's tiles in a
+//   loop and writes its rows once. No atomics: every run gives the same bytes.
+// - Products on the tensor cores with mma.sync m16n8k8 TF32, f32 accumulators
+//   in registers; each warp owns 16 rows of its CTA's tile.
+// - f32 accuracy from TF32 units: an f32 operand x is split into
+//   hi = tf32(x) and lo = tf32(x - hi), and each product is computed as
+//   lo*hi' + hi*lo' + hi*hi' (small terms first, into accumulators of their
+//   own; see Accum), which leaves an error near f32's. bf16 inputs are exact
+//   in TF32, so for them only P and dS (f32 in registers) are split; the
+//   choice is made at compile time on the type.
+// - P and dS never leave the registers. The m16n8 accumulator gives a thread
+//   columns 2t and 2t+1 of its rows; the m16k8 A operand wants columns t and
+//   t+4. A sum over keys (queries in dK/dV) does not care about their order,
+//   so the accumulator is reused as the A operand under the permutation
+//   k <-> {2t, 2t+1}, and the B operand's rows (K in dQ; dO and Q in dK/dV)
+//   are read from shared memory under the same permutation. dK/dV computes
+//   S^T = K Q^T directly, so P^T and dS^T come out as A operands as they are.
+// - Streamed tiles (K/V in dQ; Q, dO and their lse / delta rows in dK/dV)
+//   are staged by cp.async in 16-byte pieces, two stages deep, so the next
+//   tile's copy overlaps this tile's products. Tiles keep the input type in
+//   shared memory, rows padded by 16 bytes so that fragment reads hit 32
+//   distinct banks and rows stay 16-byte aligned.
+// - Padding is skipped at the mma's grain: a warp whose 16 rows all lie past
+//   the sequence (or, in dK/dV, past kv_len) does no products, and an 8-wide
+//   fragment of keys (queries) that is wholly masked is skipped. At s = 197
+//   that is about 208 x 200 of work per head instead of 256 x 256. Rows past
+//   the sequence are zero in shared memory; query rows past it add nothing to
+//   dK/dV; keys past kv_len get zero gradients. Tiles with every score kept
+//   run an instance of the tile body with no per-fragment tests.
+// - wgmma is not used yet: for TF32 it takes both operands K-major, so
+//   dV = P^T dO and dK = dS^T Q would need transposed copies of dO and Q.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BLOCK = 64;          // rows of every Q and K/V tile
-constexpr int THREADS = 128;       // 16 row groups x 8 lanes
-constexpr int ROWS = BLOCK / 16;   // rows per thread
-constexpr int COLS = BLOCK / 8;    // score columns per thread
-constexpr int LDP = BLOCK + 1;     // padded row of a P / dS tile
 
 struct Params {
   const void* q;
@@ -72,78 +84,361 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+// Tile sizes per head_dim, from the sweep in PERF.md
+// (python -m sparkdl_tpu_torch.ops.tile_sweep): rows per CTA and rows of each
+// streamed tile, for dQ (Q rows, K/V tile) and for dK/dV (K/V rows, Q tile).
+#ifdef FLASH_BWD_DQ_ROWS  // a sweep's build: the same tiles at every head_dim
+template <int D>
+struct Tiles {
+  static constexpr int kDqRows = FLASH_BWD_DQ_ROWS, kDqKv = FLASH_BWD_DQ_KV;
+  static constexpr int kDkvRows = FLASH_BWD_DKV_ROWS, kDkvQ = FLASH_BWD_DKV_Q;
+};
+#else
+template <int D>
+struct Tiles;
+template <>
+struct Tiles<32> {
+  static constexpr int kDqRows = 32, kDqKv = 32, kDkvRows = 64, kDkvQ = 16;
+};
+template <>
+struct Tiles<64> {
+  static constexpr int kDqRows = 32, kDqKv = 16, kDkvRows = 64, kDkvQ = 16;
+};
+template <>
+struct Tiles<128> {
+  static constexpr int kDqRows = 64, kDqKv = 16, kDkvRows = 64, kDkvQ = 16;
+};
+#endif
+
+// f32 operands are split in two TF32 values; bf16 ones are exact in TF32.
+// A shared row is padded by 16 bytes.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr bool kSplit = true;
+  static constexpr int kPad = 4;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kSplit = false;
+  static constexpr int kPad = 8;
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// ---------------------------------------------------------------- copies
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-// Stage rows row0 .. row0+63 of one (seq, head_dim) slice into dst as fp32,
-// multiplied by mul; rows at or past `valid` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows row0 .. row0+ROWS-1 of one (seq, D) slice into a padded tile;
+// rows at or past seq are zero-filled.
+template <typename T, int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           int64_t row_stride, int row0,
-                                          int valid, float mul) {
-  for (int idx = threadIdx.x; idx < BLOCK * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    float x = 0.f;
-    if (r < valid) x = to_float(src[(int64_t)(row0 + r) * row_stride + c]) * mul;
-    dst[r * (D + 1) + c] = x;
+                                          int seq) {
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr int PER = 16 / sizeof(T);  // elements per 16-byte piece
+  constexpr int PIECES = ROWS * D / PER;
+#pragma unroll
+  for (int i = threadIdx.x; i < PIECES; i += THREADS) {
+    const int r = i / (D / PER);
+    const int c = (i % (D / PER)) * PER;
+    const bool valid = row0 + r < seq;
+    const T* from = valid ? src + (int64_t)(row0 + r) * row_stride + c : src;
+    cp_async16(dst + r * LD + c, from, valid);
   }
 }
 
-// Stage lse and delta of rows row0 .. row0+63 (zero past seq).
-__device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
-                                          const float* lse, const float* delta,
+// Stage ROWS floats of a (seq,) row; zero past seq.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int seq) {
-  for (int r = threadIdx.x; r < BLOCK; r += THREADS) {
-    const bool in = row0 + r < seq;
-    s_lse[r] = in ? lse[row0 + r] : 0.f;
-    s_delta[r] = in ? delta[row0 + r] : 0.f;
+  for (int r = threadIdx.x; r < ROWS; r += THREADS) {
+    const bool valid = row0 + r < seq;
+    cp_async4(dst + r, valid ? src + row0 + r : src, valid);
   }
 }
 
-// Write rows of a (ROWS x D/8) register tile into a contiguous
-// (batch, seq, heads, D) output, rows at or past seq skipped.
+// ------------------------------------------------------------ fragments
+
+// An m16k8 A operand and a k8n8 B operand, as TF32 values: hi, and lo where
+// the operand is split (lo = 0 otherwise, and unused).
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// x = hi + lo as TF32 values, each rounded to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds: add half of the 13 dropped mantissa bits
+// to the magnitude, then drop them. hi is masked, since lo = x - hi needs its
+// value; lo is not, since the mma ignores the 13 low bits of a TF32 operand.
+// (cvt.rna.tf32.f32 itself compiles to a longer sequence that also handles
+// NaN and infinity; the split is on the hot path of every product.)
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (SPLIT) {
+    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+  } else {
+    hi = __float_as_uint(x);  // a widened bf16 is a TF32 value
+    lo = 0;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// N m16n8 accumulators. The small terms of split products, lo*hi' and
+// hi*lo', go first and, with APART, into accumulators of their own; hi*hi'
+// goes into c. The tensor cores round each mma's sum toward zero: the small
+// sums stay about 2^-11 of c, so their roundings are negligible, and c takes
+// one rounding per k-step where a shared accumulator takes three, which
+// brings the kernels' error against float64 nearer the plain f32 backward's.
+// fold() adds them once, when the sum is complete. Without APART (where registers are short) the small
+// terms go into c itself.
+template <int N, bool APART>
+struct Accum {
+  float c[N][4];
+  float lo[APART ? N : 1][4];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[i][e] = 0.f;
+        if (APART) lo[i][e] = 0.f;
+      }
+  }
+
+  // c[i] += a b
+  template <bool SPLIT_A, bool SPLIT_B>
+  __device__ __forceinline__ void mma(int i, const FragA& a, const FragB& b) {
+    float(&small)[4] = APART ? lo[APART ? i : 0] : c[i];
+    if (SPLIT_A) mma_tf32(small, a.lo, b.hi);
+    if (SPLIT_B) mma_tf32(small, a.hi, b.lo);
+    mma_tf32(c[i], a.hi, b.hi);
+  }
+
+  __device__ __forceinline__ void fold() {
+    if (!APART) return;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[i][e] += lo[i][e];
+  }
+};
+
+// The output accumulators (dQ; dK and dV) keep their small terms apart up
+// to head_dim 64. At 128, dK and dV alone take 128 registers a thread.
+template <int D>
+using OutAccum = Accum<D / 8, D <= 64>;
+
+// A = X[row0 .. row0+15][col0 .. col0+7] of a row-major tile. Thread
+// (g, t) = (lane / 4, lane % 4) holds rows g, g+8 and columns t, t+4.
+template <typename T, bool SPLIT, int LD>
+__device__ __forceinline__ FragA load_a(const T* x, int row0, int col0, int g,
+                                        int t) {
+  FragA f;
+  const T* p = x + (row0 + g) * LD + col0 + t;
+  split<SPLIT>(widen(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(widen(p[8 * LD]), f.hi[1], f.lo[1]);
+  split<SPLIT>(widen(p[4]), f.hi[2], f.lo[2]);
+  split<SPLIT>(widen(p[8 * LD + 4]), f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B = X^T for rows n0 .. n0+7 and columns k0 .. k0+7 of a row-major X:
+// B[k][n] = X[n0 + n][k0 + k]; thread (g, t) holds n = g, k = t and t+4.
+template <typename T, bool SPLIT, int LD>
+__device__ __forceinline__ FragB load_b_t(const T* x, int n0, int k0, int g,
+                                          int t) {
+  FragB f;
+  const T* p = x + (n0 + g) * LD + k0 + t;
+  split<SPLIT>(widen(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(widen(p[4]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B = X[k0 .. k0+7][n0 .. n0+7] with its k rows permuted as acc_as_a permutes
+// the A operand's columns: thread (g, t) holds n = g and rows 2t, 2t+1.
+template <typename T, bool SPLIT, int LD>
+__device__ __forceinline__ FragB load_b_perm(const T* x, int k0, int n0,
+                                             int g, int t) {
+  FragB f;
+  const T* p = x + (k0 + 2 * t) * LD + n0 + g;
+  split<SPLIT>(widen(p[0]), f.hi[0], f.lo[0]);
+  split<SPLIT>(widen(p[LD]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// An m16n8 accumulator (rows g, g+8; columns 2t, 2t+1) as an m16k8 A operand
+// (columns t, t+4), split: column 2t plays k = t and 2t+1 plays k = t+4.
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
+  FragA f;
+  split<true>(c[0], f.hi[0], f.lo[0]);
+  split<true>(c[2], f.hi[1], f.lo[1]);
+  split<true>(c[1], f.hi[2], f.lo[2]);
+  split<true>(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// Write a warp's (16 x D) accumulators, rows row and row+8 of thread (g, t)
+// at `row`, into a contiguous (batch, seq, heads, D) output, times mul; rows
+// at or past seq are skipped.
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(void* out, const Params& p, int b,
-                                           int h, int row0, int tx,
-                                           const float (&acc)[ROWS][D / 8],
+                                           int h, int row, int t,
+                                           const float (&acc)[D / 8][4],
                                            float mul) {
   T* o = static_cast<T*>(out);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int pos = row0 + i;
+  for (int half = 0; half < 2; ++half) {
+    const int pos = row + 8 * half;
     if (pos >= p.seq) continue;
-    T* row = o + (((int64_t)b * p.seq + pos) * p.heads + h) * D;
+    T* dst = o + (((int64_t)b * p.seq + pos) * p.heads + h) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) store(row + tx + 8 * c, acc[i][c] * mul);
+    for (int n = 0; n < D / 8; ++n)
+      store2(dst + 8 * n, acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------- kernels
+
+// One K/V tile for a warp's 16 rows of dQ: S = Q K^T and dP = dO V^T over
+// the key fragments [0, nf), dS = P (dP - delta) in place of S, dQ += dS K.
+// FULL: a tile with every score of the warp kept, so nf = NF and nothing is
+// tested per fragment or per score; edge tiles take the other instance.
+template <typename T, int D, int BK, bool FULL>
+__device__ __forceinline__ void dq_tile(OutAccum<D>& acc, const T* sQ,
+                                        const T* sO, const float* sL,
+                                        const float* sD, const T* cK,
+                                        const T* cV, int wr, int qw,
+                                        int k_start, int nf, const Params& p,
+                                        int g, int t) {
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr bool S = Elem<T>::kSplit;
+  constexpr int NF = BK / 8;  // key fragments per K/V tile
+  constexpr int DF = D / 8;   // head_dim fragments
+  Accum<NF, S> sa, dpa;
+  sa.clear();
+  dpa.clear();
+#pragma unroll
+  for (int kk = 0; kk < DF; ++kk) {
+    const FragA qa = load_a<T, S, LD>(sQ, wr, 8 * kk, g, t);
+    const FragA oa = load_a<T, S, LD>(sO, wr, 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (FULL || j < nf) {
+        const FragB kb = load_b_t<T, S, LD>(cK, 8 * j, 8 * kk, g, t);
+        const FragB vb = load_b_t<T, S, LD>(cV, 8 * j, 8 * kk, g, t);
+        sa.template mma<S, S>(j, qa, kb);
+        dpa.template mma<S, S>(j, oa, vb);
+      }
+    }
+  }
+  sa.fold();
+  dpa.fold();
+  float(&s)[NF][4] = sa.c;
+  const float(&dp)[NF][4] = dpa.c;
+
+  // thread rows wr+g and wr+g+8
+  const float lse[2] = {sL[wr + g], sL[wr + g + 8]};
+  const float delta[2] = {sD[wr + g], sD[wr + g + 8]};
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    if (FULL || j < nf) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = qw + g + 8 * (e >> 1);
+        const int kpos = k_start + 8 * j + 2 * t + (e & 1);
+        const bool keep =
+            FULL || (kpos < p.kv_len && (!p.causal || qpos >= kpos));
+        const float pv = keep ? expf(s[j][e] * p.scale - lse[e >> 1]) : 0.f;
+        s[j][e] = pv * (dp[j][e] - delta[e >> 1]);
+      }
+    }
+  }
+
+  // dQ += dS K, dS straight from its registers
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    if (FULL || j < nf) {
+      const FragA da = acc_as_a(s[j]);
+#pragma unroll
+      for (int n = 0; n < DF; ++n) {
+        const FragB kb = load_b_perm<T, S, LD>(cK, 8 * j, 8 * n, g, t);
+        acc.template mma<true, S>(n, da, kb);
+      }
+    }
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int OC = D / 8;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;               // Qs, resident
-  float* sO = sQ + BLOCK * LD;    // dO, resident
-  float* sK = sO + BLOCK * LD;
-  float* sV = sK + BLOCK * LD;
-  float* sS = sV + BLOCK * LD;    // dS tile
-  float* sL = sS + BLOCK * LDP;   // lse of the Q rows
-  float* sD = sL + BLOCK;         // delta of the Q rows
+__global__ void __launch_bounds__(Tiles<D>::kDqRows / 16 * 32)
+    flash_bwd_dq_kernel(Params p) {
+  constexpr int BQ = Tiles<D>::kDqRows;
+  constexpr int BK = Tiles<D>::kDqKv;
+  constexpr int THREADS = BQ / 16 * 32;
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr int NF = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);  // Q, resident
+  T* sO = sQ + BQ * LD;                // dO, resident
+  T* sK = sO + BQ * LD;                // K, two stages
+  T* sV = sK + 2 * BK * LD;            // V, two stages
+  float* sL = reinterpret_cast<float*>(sV + 2 * BK * LD);  // lse of the Q rows
+  float* sD = sL + BQ;                                     // delta
 
-  const int q_start = blockIdx.x * BLOCK;
+  const int q_start = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int ty = threadIdx.x >> 3;
-  const int tx = threadIdx.x & 7;
-  const int r0 = ty * ROWS;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = 16 * (threadIdx.x >> 5);  // the warp's first row in the tile
+  const int qw = q_start + wr;             // ... in the sequence
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
@@ -151,265 +446,287 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const int64_t row_base = ((int64_t)b * p.heads + h) * p.seq;
 
-  load_tile<T, D>(sQ, q, p.q_ss, q_start, p.seq - q_start, p.scale);
-  load_tile<T, D>(sO, dout, p.o_ss, q_start, p.seq - q_start, 1.f);
-  load_rows(sL, sD, p.lse + row_base, p.delta + row_base, q_start, p.seq);
+  // K/V tiles wholly past kv_len, or wholly after this Q tile's last row
+  // when causal, have P = 0 and add nothing
+  int n_tiles = (p.kv_len + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (q_start + BQ - 1) / BK + 1);
 
-  float acc[ROWS][OC];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  load_tile<T, D, BQ, THREADS>(sQ, q, p.q_ss, q_start, p.seq);
+  load_tile<T, D, BQ, THREADS>(sO, dout, p.o_ss, q_start, p.seq);
+  load_rows<BQ, THREADS>(sL, p.lse + row_base, q_start, p.seq);
+  load_rows<BQ, THREADS>(sD, p.delta + row_base, q_start, p.seq);
+  load_tile<T, D, BK, THREADS>(sK, k, p.k_ss, 0, p.seq);
+  load_tile<T, D, BK, THREADS>(sV, v, p.v_ss, 0, p.seq);
+  cp_async_commit();
 
-  // as in the forward: tiles wholly past kv_len, or wholly after this Q
-  // tile's last row when causal, have P = 0 and add nothing
-  int n_tiles = (p.kv_len + BLOCK - 1) / BLOCK;
-  if (p.causal) n_tiles = min(n_tiles, q_start / BLOCK + 1);
+  // keys at or past `limit` are masked for all 16 rows of this warp
+  int limit = p.kv_len;
+  if (p.causal) limit = min(limit, qw + 16);
+  const bool active = qw < p.seq;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k_start = t * BLOCK;
-    __syncthreads();  // the previous tile's sK / sV / sS reads are done
-    load_tile<T, D>(sK, k, p.k_ss, k_start, p.seq - k_start, 1.f);
-    load_tile<T, D>(sV, v, p.v_ss, k_start, p.seq - k_start, 1.f);
+  OutAccum<D> acc;
+  acc.clear();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_tiles) {
+      const int next = (it + 1) * BK;
+      load_tile<T, D, BK, THREADS>(sK + (stage ^ 1) * BK * LD, k, p.k_ss, next, p.seq);
+      load_tile<T, D, BK, THREADS>(sV + (stage ^ 1) * BK * LD, v, p.v_ss, next, p.seq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the copy just issued are done
     __syncthreads();
 
-    // S = Qs K^T and dP = dO V^T, the same 4 x 8 cells of each
-    float s[ROWS][COLS], dp[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = dp[i][j] = 0.f;
+    const int k_start = it * BK;
+    const T* cK = sK + stage * BK * LD;
+    const T* cV = sV + stage * BK * LD;
+    const int nf = limit > k_start ? min(NF, (limit - k_start + 7) / 8) : 0;
+    // every key of the tile is kept for every row of the warp
+    const bool full = k_start + BK <= p.kv_len &&
+                      (!p.causal || k_start + BK - 1 <= qw);
+    if (active && full)
+      dq_tile<T, D, BK, true>(acc, sQ, sO, sL, sD, cK, cV, wr, qw, k_start, nf, p, g, t);
+    else if (active && nf > 0)
+      dq_tile<T, D, BK, false>(acc, sQ, sO, sL, sD, cK, cV, wr, qw, k_start, nf, p, g, t);
+    __syncthreads();  // this stage is read; the next copy may overwrite it
+  }
+  cp_async_wait<0>();
 
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS], ov[ROWS], kv[COLS], vv[COLS];
+  acc.fold();
+  store_rows<T, D>(p.dq, p, b, h, qw + g, t, acc.c, p.scale);
+}
+
+// One Q tile for a warp's 16 keys of dK/dV: S^T = K Q^T and dP^T = V dO^T
+// over the query fragments [jlo, jhi), P^T in place of S^T and dS^T in place
+// of dP^T, dV += P^T dO and dK += dS^T Q. FULL: a tile with every score of
+// the warp kept (jlo = 0, jhi = NF), with nothing tested per fragment or
+// per score.
+template <typename T, int D, int BQ, bool FULL>
+__device__ __forceinline__ void dkv_tile(OutAccum<D>& dk, OutAccum<D>& dv,
+                                         const T* sK,
+                                         const T* sV, const T* cQ, const T* cO,
+                                         const float* cL, const float* cD,
+                                         int wr, int kw, int q_start, int jlo,
+                                         int jhi, const Params& p, int g,
+                                         int t) {
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr bool S = Elem<T>::kSplit;
+  constexpr int NF = BQ / 8;  // query fragments per Q tile
+  constexpr int DF = D / 8;
+  Accum<NF, S> sa, dpa;
+  sa.clear();
+  dpa.clear();
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        qv[i] = sQ[(r0 + i) * LD + d];
-        ov[i] = sO[(r0 + i) * LD + d];
+  for (int kk = 0; kk < DF; ++kk) {
+    const FragA ka = load_a<T, S, LD>(sK, wr, 8 * kk, g, t);
+    const FragA va = load_a<T, S, LD>(sV, wr, 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      if (FULL || (j >= jlo && j < jhi)) {
+        const FragB qb = load_b_t<T, S, LD>(cQ, 8 * j, 8 * kk, g, t);
+        const FragB ob = load_b_t<T, S, LD>(cO, 8 * j, 8 * kk, g, t);
+        sa.template mma<S, S>(j, ka, qb);
+        dpa.template mma<S, S>(j, va, ob);
       }
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        kv[j] = sK[(tx + 8 * j) * LD + d];
-        vv[j] = sV[(tx + 8 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
     }
+  }
+  sa.fold();
+  dpa.fold();
+  float(&s)[NF][4] = sa.c;
+  float(&dp)[NF][4] = dpa.c;
 
+  // thread keys kw+g and kw+g+8
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q_start + r0 + i;
-      const float lse = sL[r0 + i];
-      const float delta = sD[r0 + i];
+  for (int j = 0; j < NF; ++j) {
+    if (FULL || (j >= jlo && j < jhi)) {
 #pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int kpos = k_start + tx + 8 * j;
-        const bool keep = kpos < p.kv_len && (!p.causal || qpos >= kpos);
-        const float pv = keep ? expf(s[i][j] - lse) : 0.f;
-        sS[(r0 + i) * LDP + tx + 8 * j] = pv * (dp[i][j] - delta);
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kw + g + 8 * (e >> 1);
+        const int qi = 8 * j + 2 * t + (e & 1);
+        const int qpos = q_start + qi;
+        // query rows past seq are padding: they must add nothing
+        const bool keep = FULL || (qpos < p.seq && kpos < p.kv_len &&
+                                   (!p.causal || qpos >= kpos));
+        const float pv = keep ? expf(s[j][e] * p.scale - cL[qi]) : 0.f;
+        s[j][e] = pv;
+        dp[j][e] = pv * (dp[j][e] - cD[qi]);
       }
-    }
-    __syncthreads();  // the whole dS tile is written
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int n = 0; n < BLOCK; ++n) {
-      float dsv[ROWS], kv[OC];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) dsv[i] = sS[(r0 + i) * LDP + n];
-#pragma unroll
-      for (int c = 0; c < OC; ++c) kv[c] = sK[n * LD + tx + 8 * c];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(dsv[i], kv[c], acc[i][c]);
     }
   }
 
-  store_rows<T, D>(p.dq, p, b, h, q_start + r0, tx, acc, p.scale);
+  // dV += P^T dO and dK += dS^T Q, both A operands from registers
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    if (FULL || (j >= jlo && j < jhi)) {
+      const FragA pa = acc_as_a(s[j]);
+      const FragA da = acc_as_a(dp[j]);
+#pragma unroll
+      for (int n = 0; n < DF; ++n) {
+        const FragB ob = load_b_perm<T, S, LD>(cO, 8 * j, 8 * n, g, t);
+        const FragB qb = load_b_perm<T, S, LD>(cQ, 8 * j, 8 * n, g, t);
+        dv.template mma<true, S>(n, pa, ob);
+        dk.template mma<true, S>(n, da, qb);
+      }
+    }
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
-  constexpr int LD = D + 1;
-  constexpr int OC = D / 8;
-  extern __shared__ float smem[];
-  float* sK = smem;               // K, resident
-  float* sV = sK + BLOCK * LD;    // V, resident
-  float* sQ = sV + BLOCK * LD;    // Qs of the current Q tile
-  float* sO = sQ + BLOCK * LD;    // dO of the current Q tile
-  float* sP = sO + BLOCK * LD;    // P^T tile: rows keys, columns queries
-  float* sS = sP + BLOCK * LDP;   // dS^T tile
-  float* sL = sS + BLOCK * LDP;
-  float* sD = sL + BLOCK;
+__global__ void __launch_bounds__(Tiles<D>::kDkvRows / 16 * 32)
+    flash_bwd_dkv_kernel(Params p) {
+  constexpr int BK = Tiles<D>::kDkvRows;
+  constexpr int BQ = Tiles<D>::kDkvQ;
+  constexpr int THREADS = BK / 16 * 32;
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr int NF = BQ / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);  // K, resident
+  T* sV = sK + BK * LD;                // V, resident
+  T* sQ = sV + BK * LD;                // Q, two stages
+  T* sO = sQ + 2 * BQ * LD;            // dO, two stages
+  float* sL = reinterpret_cast<float*>(sO + 2 * BQ * LD);  // lse, two stages
+  float* sD = sL + 2 * BQ;                                 // delta, two stages
 
-  const int k_start = blockIdx.x * BLOCK;
+  const int k_start = blockIdx.x * BK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int ty = threadIdx.x >> 3;
-  const int tx = threadIdx.x & 7;
-  const int r0 = ty * ROWS;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = 16 * (threadIdx.x >> 5);
+  const int kw = k_start + wr;  // the warp's first key
 
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
   const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const int64_t row_base = ((int64_t)b * p.heads + h) * p.seq;
+  const float* lse = p.lse + row_base;
+  const float* delta = p.delta + row_base;
 
-  load_tile<T, D>(sK, k, p.k_ss, k_start, p.seq - k_start, 1.f);
-  load_tile<T, D>(sV, v, p.v_ss, k_start, p.seq - k_start, 1.f);
+  // A K/V tile wholly past kv_len has every score masked: its dK and dV are
+  // 0. When causal, Q tiles that end before this tile's first key see none
+  // of its keys.
+  const int t_begin = p.causal ? k_start / BQ : 0;
+  const int t_end = k_start < p.kv_len ? (p.seq + BQ - 1) / BQ : 0;
 
-  float dk[ROWS][OC], dv[ROWS][OC];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int c = 0; c < OC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  auto load_q_tile = [&](int stage, int tile) {
+    const int row0 = tile * BQ;
+    load_tile<T, D, BQ, THREADS>(sQ + stage * BQ * LD, q, p.q_ss, row0, p.seq);
+    load_tile<T, D, BQ, THREADS>(sO + stage * BQ * LD, dout, p.o_ss, row0, p.seq);
+    load_rows<BQ, THREADS>(sL + stage * BQ, lse, row0, p.seq);
+    load_rows<BQ, THREADS>(sD + stage * BQ, delta, row0, p.seq);
+  };
 
-  // A K/V tile wholly past kv_len has every score masked: its dK and dV
-  // are 0. When causal, Q tiles that end before this tile's first key see
-  // none of its keys.
-  int t_begin = p.causal ? k_start / BLOCK : 0;
-  int t_end = k_start < p.kv_len ? (p.seq + BLOCK - 1) / BLOCK : 0;
+  load_tile<T, D, BK, THREADS>(sK, k, p.k_ss, k_start, p.seq);
+  load_tile<T, D, BK, THREADS>(sV, v, p.v_ss, k_start, p.seq);
+  if (t_begin < t_end) load_q_tile(0, t_begin);
+  cp_async_commit();
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int q_start = t * BLOCK;
-    __syncthreads();  // the previous tile's sQ / sO / sP / sS reads are done
-    load_tile<T, D>(sQ, q, p.q_ss, q_start, p.seq - q_start, p.scale);
-    load_tile<T, D>(sO, dout, p.o_ss, q_start, p.seq - q_start, 1.f);
-    load_rows(sL, sD, p.lse + row_base, p.delta + row_base, q_start, p.seq);
+  // a warp whose keys are all at or past kv_len keeps zero gradients
+  const bool active = kw < p.kv_len;
+
+  OutAccum<D> dk, dv;
+  dk.clear();
+  dv.clear();
+
+  for (int it = t_begin; it < t_end; ++it) {
+    const int stage = (it - t_begin) & 1;
+    if (it + 1 < t_end) load_q_tile(stage ^ 1, it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // S^T = K Qs^T, then P^T into sP
-    float s[ROWS][COLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kr[ROWS], qc[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) kr[i] = sK[(r0 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) qc[j] = sQ[(tx + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int kpos = k_start + r0 + i;
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int qpos = q_start + tx + 8 * j;
-        // query rows past seq are padding: they must add nothing to dK/dV
-        const bool keep = qpos < p.seq && kpos < p.kv_len &&
-                          (!p.causal || qpos >= kpos);
-        sP[(r0 + i) * LDP + tx + 8 * j] =
-            keep ? expf(s[i][j] - sL[tx + 8 * j]) : 0.f;
-      }
-    }
-
-    // dP^T = V dO^T in the same registers, then dS^T into sS. Each thread
-    // reads back only the P^T cells it wrote, so no barrier is needed yet.
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float vr[ROWS], oc[COLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) vr[i] = sV[(r0 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) oc[j] = sO[(tx + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS; ++j) s[i][j] = fmaf(vr[i], oc[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS; ++j) {
-        const int cell = (r0 + i) * LDP + tx + 8 * j;
-        sS[cell] = sP[cell] * (s[i][j] - sD[tx + 8 * j]);
-      }
-    __syncthreads();  // the whole P^T and dS^T tiles are written
-
-    // dV += P^T dO, dK += dS^T Qs (Qs carries the scale of dK)
-#pragma unroll 2
-    for (int m = 0; m < BLOCK; ++m) {
-      float pv[ROWS], dsv[ROWS], ov[OC], qv[OC];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        pv[i] = sP[(r0 + i) * LDP + m];
-        dsv[i] = sS[(r0 + i) * LDP + m];
-      }
-#pragma unroll
-      for (int c = 0; c < OC; ++c) {
-        ov[c] = sO[m * LD + tx + 8 * c];
-        qv[c] = sQ[m * LD + tx + 8 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) {
-          dv[i][c] = fmaf(pv[i], ov[c], dv[i][c]);
-          dk[i][c] = fmaf(dsv[i], qv[c], dk[i][c]);
-        }
-    }
+    const int q_start = it * BQ;
+    const T* cQ = sQ + stage * BQ * LD;
+    const T* cO = sO + stage * BQ * LD;
+    const float* cL = sL + stage * BQ;
+    const float* cD = sD + stage * BQ;
+    // query fragments [jlo, jhi) hold a kept score for some key of the warp:
+    // those before the warp's first key are masked when causal, and those
+    // past seq are padding
+    const int jlo = p.causal && kw > q_start ? (kw - q_start) / 8 : 0;
+    const int jhi = min(NF, (p.seq - q_start + 7) / 8);
+    // every query of the tile is kept for every key of the warp
+    const bool full = q_start + BQ <= p.seq && kw + 16 <= p.kv_len &&
+                      (!p.causal || q_start >= kw + 15);
+    if (active && full)
+      dkv_tile<T, D, BQ, true>(dk, dv, sK, sV, cQ, cO, cL, cD, wr, kw, q_start,
+                               jlo, jhi, p, g, t);
+    else if (active && jlo < jhi)
+      dkv_tile<T, D, BQ, false>(dk, dv, sK, sV, cQ, cO, cL, cD, wr, kw, q_start,
+                                jlo, jhi, p, g, t);
+    __syncthreads();  // this stage is read; the next copy may overwrite it
   }
+  cp_async_wait<0>();
 
-  store_rows<T, D>(p.dk, p, b, h, k_start + r0, tx, dk, 1.f);
-  store_rows<T, D>(p.dv, p, b, h, k_start + r0, tx, dv, 1.f);
+  dk.fold();
+  dv.fold();
+  store_rows<T, D>(p.dk, p, b, h, kw + g, t, dk.c, p.scale);
+  store_rows<T, D>(p.dv, p, b, h, kw + g, t, dv.c, 1.f);
 }
 
-constexpr int dq_smem_bytes(int d) {
-  return (4 * BLOCK * (d + 1) + BLOCK * LDP + 2 * BLOCK) * (int)sizeof(float);
+// ---------------------------------------------------------------- launch
+
+template <typename T, int D>
+constexpr int dq_smem_bytes() {
+  constexpr int LD = D + Elem<T>::kPad;
+  return (2 * Tiles<D>::kDqRows + 4 * Tiles<D>::kDqKv) * LD * (int)sizeof(T) +
+         2 * Tiles<D>::kDqRows * (int)sizeof(float);
 }
-constexpr int dkv_smem_bytes(int d) {
-  return (4 * BLOCK * (d + 1) + 2 * BLOCK * LDP + 2 * BLOCK) * (int)sizeof(float);
+
+template <typename T, int D>
+constexpr int dkv_smem_bytes() {
+  constexpr int LD = D + Elem<T>::kPad;
+  return (2 * Tiles<D>::kDkvRows + 4 * Tiles<D>::kDkvQ) * LD * (int)sizeof(T) +
+         4 * Tiles<D>::kDkvQ * (int)sizeof(float);
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const Params& p, int batch,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int rows, int threads, int smem,
+                   const Params& p, int batch, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + BLOCK - 1) / BLOCK, p.heads, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  const dim3 grid((p.seq + rows - 1) / rows, p.heads, batch);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
-  return launch(flash_bwd_dq_kernel<T, D>, dq_smem_bytes(D), p, batch, stream);
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int batch, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes(D), p, batch, stream);
-}
-
 // which: 0 dQ, 1 dK/dV
+template <typename T, int D>
+cudaError_t launch_one(int which, const Params& p, int batch,
+                       cudaStream_t stream) {
+  if (which == 0)
+    return launch(flash_bwd_dq_kernel<T, D>, Tiles<D>::kDqRows,
+                  Tiles<D>::kDqRows / 16 * 32, dq_smem_bytes<T, D>(), p, batch,
+                  stream);
+  return launch(flash_bwd_dkv_kernel<T, D>, Tiles<D>::kDkvRows,
+                Tiles<D>::kDkvRows / 16 * 32, dkv_smem_bytes<T, D>(), p, batch,
+                stream);
+}
+
 template <typename T>
 cudaError_t dispatch_head_dim(int which, const Params& p, int batch,
                               int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 32: return which ? launch_dkv<T, 32>(p, batch, stream) : launch_dq<T, 32>(p, batch, stream);
-    case 64: return which ? launch_dkv<T, 64>(p, batch, stream) : launch_dq<T, 64>(p, batch, stream);
-    case 128: return which ? launch_dkv<T, 128>(p, batch, stream) : launch_dq<T, 128>(p, batch, stream);
+    case 32: return launch_one<T, 32>(which, p, batch, stream);
+    case 64: return launch_one<T, 64>(which, p, batch, stream);
+    case 128: return launch_one<T, 128>(which, p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// cp.async copies rows in 16-byte pieces: the base and every stride of a
+// dimension longer than 1 must keep them 16-byte aligned.
+bool rows_aligned(const void* ptr, const int64_t* strides, int batch, int seq,
+                  int heads, int itemsize) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  const int sizes[3] = {batch, seq, heads};
+  for (int i = 0; i < 3; ++i)
+    if (sizes[i] > 1 && (strides[i] * itemsize) % 16 != 0) return false;
+  return true;
 }
 
 int run(int which, const void* q, const void* k, const void* v,
@@ -417,6 +734,12 @@ int run(int which, const void* q, const void* k, const void* v,
         void* dk, void* dv, const int64_t* strides, int batch, int seq,
         int heads, int head_dim, int dtype, int causal, float scale,
         int kv_len, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  const void* inputs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i)
+    if (!rows_aligned(inputs[i], strides + 3 * i, batch, seq, heads, itemsize))
+      return (int)cudaErrorMisalignedAddress;
   Params p;
   p.q = q;
   p.k = k;
@@ -437,19 +760,16 @@ int run(int which, const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch_head_dim<float>(which, p, batch, head_dim, s);
-    case 1: return (int)dispatch_head_dim<__nv_bfloat16>(which, p, batch, head_dim, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0) return (int)dispatch_head_dim<float>(which, p, batch, head_dim, s);
+  return (int)dispatch_head_dim<__nv_bfloat16>(which, p, batch, head_dim, s);
 }
 
 }  // namespace
 
 // strides: the batch / seq / head element strides of q, k, v and dout, in
-// that order (12 values). dtype: 0 float32, 1 bfloat16. Each returns a
-// cudaError_t (0 on success): the launch is checked with cudaGetLastError
-// and nothing is synchronised.
+// that order (12 values); rows must be 16-byte aligned. dtype: 0 float32,
+// 1 bfloat16. Each returns a cudaError_t (0 on success): the launch is
+// checked with cudaGetLastError and nothing is synchronised.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const int64_t* strides,

@@ -15,8 +15,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -59,21 +61,24 @@ def find_nvcc() -> str:
     return found
 
 
-def build_library(source: Path) -> tuple:
+def build_library(source: Path, defines: Sequence[str] = ()) -> tuple:
     """Compile ``source`` into ``_build/`` unless an up-to-date library is
-    there. Returns ``(path, log)``: ``log`` is nvcc's output (register and
-    spill counts from ``-Xptxas -v``), empty when the library was cached."""
+    there. ``defines`` are extra ``-D`` flags (``NAME=VALUE``), for a tile
+    sweep's variants. Returns ``(path, log)``: ``log`` is nvcc's output
+    (register and spill counts from ``-Xptxas -v``), empty when the library
+    was cached."""
     nvcc = find_nvcc()
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256()
     digest.update(source.read_bytes())
-    digest.update("\0".join((nvcc, *NVCC_FLAGS)).encode())
+    digest.update("\0".join((nvcc, *flags)).encode())
     out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc, *flags, "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )
@@ -85,16 +90,77 @@ def build_library(source: Path) -> tuple:
     return out, log
 
 
-_LIBRARIES: Dict[Path, ctypes.CDLL] = {}
+# a kernel template of this package in a mangled name: name, element type, head_dim
+_KERNEL_NAME = re.compile(r"\d([a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
 
 
-def load_library(source: Path) -> ctypes.CDLL:
-    """The loaded library of ``source``, built once per process however
-    many launchers it exports."""
-    if source not in _LIBRARIES:
-        path, _ = build_library(source)
-        _LIBRARIES[source] = ctypes.CDLL(str(path))
-    return _LIBRARIES[source]
+def kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_kernel<f32,64>`` for the mangled name of an
+    instantiation of this package's kernels; other names as they are."""
+    m = _KERNEL_NAME.search(mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'},{m.group(3)}>"
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Registers and spilled bytes of each kernel in a ``-Xptxas -v`` log,
+    keyed by :func:`kernel_name`."""
+    usage: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            usage[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                usage[name]["spill_stores"] = int(m.group(1))
+                usage[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[name]["registers"] = int(m.group(1))
+    return usage
+
+
+def sass_opcodes(library: Path, prefixes: Sequence[str]) -> Dict[str, Counter]:
+    """How many SASS instructions of each kernel in ``library`` start with
+    each of ``prefixes`` (``HMMA``: tensor-core products, ``LDGSTS``:
+    ``cp.async`` copies, ``""``: all), from ``cuobjdump -sass``; keyed by
+    :func:`kernel_name`."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run(
+        [str(cuobjdump), "-sass", str(library)],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    counts: Dict[str, Counter] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = Counter({prefix: 0 for prefix in prefixes})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name is not None:
+            for prefix in prefixes:
+                if m.group(1).startswith(prefix):
+                    counts[name][prefix] += 1
+    return counts
+
+
+_LIBRARIES: Dict[tuple, ctypes.CDLL] = {}
+
+
+def load_library(source: Path, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``source`` (with ``defines``), built once per
+    process however many launchers it exports."""
+    key = (source, tuple(defines))
+    if key not in _LIBRARIES:
+        path, _ = build_library(source, defines)
+        _LIBRARIES[key] = ctypes.CDLL(str(path))
+    return _LIBRARIES[key]
 
 
 class CudaKernel:
@@ -104,8 +170,10 @@ class CudaKernel:
     the wrapper that owns the kernel advances it nowhere else.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 defines: Sequence[str] = ()):
         self.source = CSRC / source
+        self.defines = tuple(defines)
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -115,7 +183,7 @@ class CudaKernel:
     def build(self) -> None:
         if self._fn is not None:
             return
-        lib = load_library(self.source)
+        lib = load_library(self.source, self.defines)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

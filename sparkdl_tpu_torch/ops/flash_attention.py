@@ -205,6 +205,18 @@ def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
     return (out, lse) if return_lse else out
 
 
+def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy of it where its rows are not 16-byte
+    aligned: the backward kernels stage rows with 16-byte ``cp.async``
+    copies. ViT's fused-qkv views and contiguous tensors pass as they are."""
+    item = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(
+        x.stride(i) * item % 16 == 0 for i in range(3) if x.shape[i] > 1
+    ):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_bwd(kernel, q, k, v, do, lse, delta, grads, causal, scale, kv_len):
     b, s, h, d = q.shape
     strides = (_I64 * 12)(*(x.stride(i) for x in (q, k, v, do) for i in range(3)))
@@ -220,7 +232,8 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, grads, causal, scale, kv_len):
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale, kv_len):
     """One launch of the dQ kernel (``FLASH_BWD_DQ``): ``dQ`` from CUDA
     tensors as :func:`_backward` prepares them (``do`` of q's type and
-    contiguous along head_dim, ``delta`` from :func:`attention_delta`)."""
+    contiguous along head_dim, rows 16-byte aligned, ``delta`` from
+    :func:`attention_delta`)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch_bwd(FLASH_BWD_DQ, q, k, v, do, lse, delta, (dq,), causal, scale, kv_len)
     return dq
@@ -238,7 +251,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale, kv_len):
 def _backward(q, k, v, out, lse, do, causal, scale, kv_len) -> Grads:
     """The dQ and dK/dV kernels, or their plain version for CPU tensors.
     ``dO`` is read through its strides; one that is not contiguous along
-    head_dim is copied to a contiguous tensor first."""
+    head_dim is copied to a contiguous tensor first, as is any input whose
+    rows are not 16-byte aligned."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal, scale=scale, kv_len=kv_len
@@ -250,6 +264,7 @@ def _backward(q, k, v, out, lse, do, causal, scale, kv_len) -> Grads:
         return tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                      for _ in range(3))
     delta = attention_delta(out, do)
+    q, k, v, do = (_rows_aligned(x) for x in (q, k, v, do))
     args = (q, k, v, do, lse, delta, causal, scale, kv_len)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)

@@ -30,7 +30,10 @@ GRAD_TOL = dict(atol=1e-3, rtol=1e-3)  # tests/test_ops.py's flash-gradient tole
 # at the store, as in the plain backward)
 BF16_GRAD_TOL = dict(atol=1e-3, rtol=8e-3)
 
-# (shape, kwargs): the cases of tests/test_ops.py:21-46 and the ViT-B/16 shape
+# (shape, kwargs): the cases of tests/test_ops.py:21-46, the ViT-B/16 shape,
+# and ragged cases that reach the backward kernels' skips of padding: a last
+# 64-row Q tile with one valid row, kv_len short of the sequence by more than
+# one 8-key fragment, and causal over a ragged sequence
 CASES = [
     ((2, 197, 3, 64), {}),
     ((1, 128, 2, 32), {}),
@@ -38,8 +41,12 @@ CASES = [
     ((1, 197, 2, 64), {"causal": True}),
     ((1, 256, 2, 64), {"kv_len": 200}),
     ((4, 197, 12, 64), {}),
+    ((2, 193, 3, 64), {}),
+    ((1, 256, 2, 64), {"kv_len": 197}),
+    ((1, 300, 2, 128), {"causal": True}),
 ]
-IDS = ["vit_ti", "block_multiple", "ragged_d128", "causal", "kv_len", "vit_b"]
+IDS = ["vit_ti", "block_multiple", "ragged_d128", "causal", "kv_len", "vit_b",
+       "one_row_tile", "kv_len_197", "causal_300"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -99,12 +106,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention(w, w, w)
 
 
-def _qkv_views(shape, dtype, seed, cuda):
+def _qkv_views(shape, dtype, seed, cuda, mul=1.0):
     """q, k, v as views into one fused (b, s, 3*h*d) projection, as ViT
-    passes them, and a random cotangent."""
+    passes them, times ``mul``, and a random cotangent."""
     b, s, h, d = shape
     rng = np.random.RandomState(seed)
-    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32))
+    qkv = torch.from_numpy(rng.randn(b, s, 3 * h * d).astype(np.float32) * mul)
     qkv = qkv.to(cuda, dtype)
     q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
     do = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda, dtype)
@@ -154,6 +161,50 @@ def test_backward_is_deterministic(cuda):
             for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_backward_is_split_tf32_not_single_tf32(cuda):
+    """The kernels compute each f32 product as three TF32 products (operands
+    split in a TF32 value and its TF32 remainder), which keeps an error near
+    f32's. With inputs x4 at the ViT-B shape (a peaked softmax), their
+    gradients are at least 10x closer to the f32 plain backward than that
+    plain backward run with TF32 products is."""
+    q, k, v, do = _qkv_views((4, 197, 12, 64), torch.float32, seed=10, cuda=cuda, mul=4.0)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = flash_attention_bwd_reference(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    for name, g, w, single in zip("qkv", got, want, tf32):
+        err = (g - w).abs().max().item()
+        single_err = (single - w).abs().max().item()
+        assert 10 * err <= single_err, f"d{name}: {err:.3e} vs TF32 {single_err:.3e}"
+
+
+def test_backward_takes_rows_that_are_not_16_byte_aligned(cuda):
+    """q/k/v one element into a wider buffer, so their rows are 4 bytes off a
+    16-byte boundary: the kernels stage rows in 16-byte copies, so the
+    wrapper hands them aligned copies, and the gradients still match the
+    plain backward."""
+    b, s, h, d = 2, 197, 3, 64
+    rng = np.random.RandomState(12)
+    buf = torch.from_numpy(rng.randn(b, s, 3 * h * d + 1).astype(np.float32)).to(cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in buf[..., 1:].chunk(3, dim=-1))
+    assert q.data_ptr() % 16 and q.stride(1) % 4
+    do = torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32)).to(cuda)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **GRAD_TOL)
 
 
 def test_no_grad_call_takes_the_lse_free_forward(cuda):

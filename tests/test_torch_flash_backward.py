@@ -23,6 +23,7 @@ from sparkdl_tpu_torch.ops.flash_attention import (
     FLASH_FWD,
     FLASH_FWD_LSE,
     FlashAttention,
+    _rows_aligned,
     attention_delta,
     flash_attention,
     flash_attention_bwd_reference,
@@ -104,6 +105,86 @@ def test_cpu_gradient_matches_jax_vjp(jax_grads, request, shape, kwargs):
     want = jax_grads(request.node.callspec.id)
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL, err_msg=f"d{name}")
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the dropped range
+    to the magnitude bits, then clear the 13 dropped bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split_tf32(a, b):
+    """``a @ b`` as the backward kernels compute it on the tensor cores: each
+    operand split as ``hi = tf32(x)``, ``lo = tf32(x - hi)``, the product
+    summed as ``lo hi' + hi lo' + hi hi'``. Products of two TF32 values are
+    exact in float32, so the CPU's float32 matmul emulates the TF32 units."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_single_tf32(a, b):
+    """``a @ b`` with one TF32 product: what TF32 without the split gives."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated_backward(q, k, v, out, lse, do, mm, causal=False, kv_len=None):
+    """The backward kernels' formulas with every matrix product done by
+    ``mm``, in (b, h, s, d) layout: ``S = scale (Q K^T)``, ``P = exp(S - lse)``
+    where kept, ``dS = P (dO V^T - delta)``, ``dQ = scale (dS K)``,
+    ``dK = scale (dS^T Q)``, ``dV = P^T dO``."""
+    s, d = q.shape[1], q.shape[3]
+    scale = d ** -0.5
+    kv_len = s if kv_len is None else kv_len
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    pos = torch.arange(s)
+    keep = (pos < kv_len)[None, :] & ((pos[:, None] >= pos[None, :]) | (not causal))
+    scores = mm(qt, kt.transpose(-1, -2)) * scale
+    p = torch.where(keep, torch.exp(scores - lse[..., None]), 0.0)
+    ds = p * (mm(dot, vt.transpose(-1, -2)) - attention_delta(out, do)[..., None])
+    dq = mm(ds, kt) * scale
+    dk = mm(ds.transpose(-1, -2), qt) * scale
+    dv = mm(p.transpose(-1, -2), dot)
+    return [g.transpose(1, 2).numpy() for g in (dq, dk, dv)]
+
+
+def _emulated_grads(shape, kwargs, mm):
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(shape, seed=11))
+    out, lse = flash_attention_reference(q, k, v, return_lse=True, **kwargs)
+    return _emulated_backward(q, k, v, out, lse, do, mm, **kwargs)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 value after 1.0
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -12, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12])
+    assert torch.equal(_tf32(x), torch.tensor([1.0, 1.0, one, -one, one]))
+
+
+@pytest.mark.parametrize("shape,kwargs", CASES, ids=IDS)
+def test_split_tf32_backward_matches_jax_vjp(jax_grads, request, shape, kwargs):
+    """The precision design of the CUDA backward kernels, each f32 product
+    as three TF32 products, keeps the gradients within the flash-gradient
+    tolerance of ``jax.vjp`` of the Pallas kernels."""
+    got = _emulated_grads(shape, kwargs, _mm_split_tf32)
+    want = jax_grads(request.node.callspec.id)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g, w, **GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape,kwargs", CASES, ids=IDS)
+def test_single_tf32_backward_is_10x_further_from_jax_vjp(jax_grads, request, shape, kwargs):
+    """One TF32 product per f32 product (about 3 decimal digits) lands at
+    least 10x further from ``jax.vjp`` than the split does: the split is
+    what keeps the kernels near f32."""
+    split = _emulated_grads(shape, kwargs, _mm_split_tf32)
+    single = _emulated_grads(shape, kwargs, _mm_single_tf32)
+    want = jax_grads(request.node.callspec.id)
+    for name, g, one, w in zip("qkv", split, single, want):
+        err, single_err = np.abs(g - w).max(), np.abs(one - w).max()
+        assert single_err >= 10 * err, f"d{name}: split {err:.3e}, single {single_err:.3e}"
 
 
 def test_bwd_reference_is_autograd_of_the_forward():
@@ -189,6 +270,22 @@ def test_bf16_gradients_keep_the_input_type():
         assert g.dtype == torch.bfloat16
         # one bf16 rounding of each gradient (2**-8 relative)
         torch.testing.assert_close(g.float(), w, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_rows_not_16_byte_aligned_are_copied(dtype):
+    """The backward kernels stage rows in 16-byte copies: ViT's fused-qkv
+    views go to them as they are, and a view whose rows are not 16-byte
+    aligned as a contiguous copy."""
+    b, s, h, d = 2, 5, 3, 32
+    fused = torch.randn(b, s, 3 * h * d).to(dtype)
+    for view in (t.reshape(b, s, h, d) for t in fused.chunk(3, dim=-1)):
+        assert _rows_aligned(view) is view
+    wide = torch.randn(b, s, h * d + 1).to(dtype)
+    for view in (wide[..., 1:].reshape(b, s, h, d), wide[..., :-1].reshape(b, s, h, d)):
+        copy = _rows_aligned(view)
+        assert copy is not view and copy.is_contiguous()
+        assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
 
 
 def test_function_is_the_autograd_node():
