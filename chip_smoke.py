@@ -3,26 +3,34 @@
 
     python3 chip_smoke.py
 
+Run it from the repository's tree: it imports the package
+``sparkdl_tpu_torch`` that lies beside it and builds the kernels from the
+sources there. Alone, without the package, it stops in phase 1 and says so.
+
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
 
-1. device: a CUDA card is present; its name and power limit (nvidia-smi);
+1. device: the package imports from beside the script; a CUDA card is
+   present; its name and power limit (nvidia-smi);
 2. build: every kernel of the main path, from the sources in this checkout,
    one nvcc per source, all started together; each kernel's registers and
-   spills (none allowed in the backward kernels at head_dim 64) and its
-   tensor-core products (HMMA) and cp.async copies (LDGSTS) in its SASS
-   (both required in the backward kernels);
+   spills (none allowed at head_dim 64) and its tensor-core products (HMMA)
+   and cp.async copies (LDGSTS) in its SASS (both required in every forward
+   and backward instance, and the head_dim 64 instances must be there);
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at the test shapes, q/k/v as views
    of one qkv tensor; gradients through the autograd Function against
-   autograd of the plain forward; the backward kernels' split-TF32 products
-   at least 10x closer to the f32 plain backward than single TF32 products,
-   and their error and the plain backward's against a float64 backward;
+   autograd of the plain forward; the forward's and the backward kernels'
+   split-TF32 products at least 10x closer to the f32 plain version than
+   single TF32 products, and their errors and the plain versions' against
+   float64;
 4. inference slice: ViT-B/16 image-file inference at full width through
    ``TorchImageFileTransformer`` over 64 generated 224x224 images, with
    random weights in the Flax layout carried across by
    ``vit_state_dict_from_flax``; flash rows held to the dense-attention rows
    and to a CPU run on two images; the kernel's launches on that run counted;
+   the same in bfloat16 (``ViT(dtype=torch.bfloat16)``), held to the dense
+   bfloat16 run, its launches counted and its forward timed;
 5. training slice: ``TorchImageFileEstimator.fit`` of ViT-B/16 (10 classes,
    adam, 2 epochs of 2 steps at batch 32) over the same images; the forward
    with lse, dQ and dK/dV launches counted, and the lse-free forward's on
@@ -30,9 +38,10 @@ prints no result):
    four losses held to the dense-attention fit, one step at 2 images to a
    CPU fit; the caller's module unchanged by a fit with the defaults;
 6. timing: each kernel, its plain version and the PyTorch library call that
-   computes the same function, with CUDA events; the model forward and the
-   training step with the kernels and with dense attention; the inference
-   slice's images/s and the training images/s of a second fit.
+   computes the same function (in float32 and bfloat16), with CUDA events;
+   the model forward and the training step with the kernels and with dense
+   attention; the inference slice's images/s and the training images/s of a
+   second fit.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -64,6 +73,13 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output rounding
 # float32 as the plain backward does, and round once at the store)
 BF16_GRAD_TOL = dict(atol=1e-3, rtol=8e-3)
 SLICE_TOL = dict(atol=5e-4, rtol=5e-3)  # tests/test_ops.py's ViT tolerance
+# bf16 ViT-B/16 rows, flash against dense attention, both bf16 on the card:
+# the flash kernel keeps scores, P and the sums in float32 and rounds once at
+# its output, the dense path rounds its scores and probabilities to bf16, so
+# the two part by bf16 roundings (2**-9) compounded through 12 blocks:
+# tests/test_torch_vit.py's bf16 bound, about 50 roundoffs at unit scale plus
+# 2% of the value
+BF16_SLICE_TOL = dict(atol=0.1, rtol=2e-2)
 # flash vs dense training on the card, both float32: each gradient tensor to
 # 1e-4 of its norm (of at least 1e-3 of the largest norm: the key bias's
 # gradient is exactly zero, so float noise); the losses of 4 adam steps to
@@ -241,6 +257,70 @@ def check_split_tf32(shape, seed):
     return errs
 
 
+def check_split_tf32_forward(shape, seed):
+    """The forward kernel computes each f32 product as three TF32 products.
+    With inputs x4 (a peaked softmax) its output and lse must be at least
+    10x closer to the f32 plain forward than that plain forward run with
+    TF32 products. Returns the kernel's max abs errors of (out, lse)."""
+    import torch
+
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v = views(fused_qkv(shape, torch.float32, seed) * 4, shape)
+    got = flash_attention(q, k, v, return_lse=True)
+    want = flash_attention_reference(q, k, v, return_lse=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        single = flash_attention_reference(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = []
+    for name, g, w, one in zip(("out", "lse"), got, want, single):
+        err = (g - w).abs().max().item()
+        single_err = (one - w).abs().max().item()
+        log(f"  {name}: kernel {err:.3e}, plain forward in TF32 {single_err:.3e} "
+            f"({single_err / max(err, 1e-30):.0f}x)")
+        if not 10 * err <= single_err:
+            raise AssertionError(f"{name}: split-TF32 error {err:.3e} is not 10x "
+                                 f"under single TF32's {single_err:.3e}")
+        errs.append(err)
+    return errs
+
+
+def forward_float64_errors(shape, seed):
+    """The forward kernel and the plain f32 forward against a float64
+    forward of the same f32 inputs: the output's relative error in norm and
+    its bias (the mean error along the sign of each value, over the mean
+    magnitude: below 0 where the output shrinks), the lse's max abs error
+    and its mean error, for each. Logged, not held to a limit."""
+    import torch
+
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v = qkv_views(shape, torch.float32, seed)
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q64 * shape[3] ** -0.5, k64)
+    lse64 = torch.logsumexp(logits, dim=-1)
+    out64 = torch.einsum("bhqk,bkhd->bqhd", torch.exp(logits - lse64[..., None]), v64)
+    errs = {}
+    for name, (out, lse) in (("kernel", flash_attention(q, k, v, return_lse=True)),
+                             ("plain f32", flash_attention_reference(q, k, v, return_lse=True))):
+        diff, lse_diff = out.double() - out64, lse.double() - lse64
+        errs[name] = ((diff.norm() / out64.norm()).item(),
+                      ((diff * out64.sign()).mean() / out64.abs().mean()).item(),
+                      lse_diff.abs().max().item(), lse_diff.mean().item())
+        log(f"  {name}: out relative error {errs[name][0]:.3e}, bias {errs[name][1]:.3e}; "
+            f"lse max abs error {errs[name][2]:.3e}, mean error {errs[name][3]:.3e}")
+    return errs
+
+
 def float64_errors(shape, seed):
     """The backward kernels and the plain f32 backward against a float64
     backward of the same f32 inputs (its own softmax, out and delta):
@@ -336,14 +416,15 @@ def load_npy(uri):
     return np.load(uri)
 
 
-def run_slice(image_dir: Path, state_dict, attn_impl: str, device: str, uris=None):
+def run_slice(image_dir: Path, state_dict, attn_impl: str, device: str, uris=None,
+              dtype=None):
     from sparkdl_tpu_torch.estimators import TorchImageFileTransformer
     from sparkdl_tpu_torch.models.vit import ViT
     from sparkdl_tpu_torch.sql.session import TorchSession
 
     stage = TorchImageFileTransformer(
         inputCol="uri", outputCol="features", imageLoader=load_npy,
-        module=ViT(variant="ViT-B/16", attn_impl=attn_impl),
+        module=ViT(variant="ViT-B/16", attn_impl=attn_impl, dtype=dtype),
         state_dict=state_dict, batchSize=BATCH, device=device,
     )
     session = TorchSession.builder.appName("chip_smoke").getOrCreate()
@@ -432,10 +513,28 @@ def check_adam_step(got, want, start, steps):
     return worst, worst_leaf
 
 
+def import_package() -> bool:
+    """Phase 1's first check: the port's package imports from beside this
+    script. Says so plainly, naming the package and the directory, if not."""
+    here = Path(__file__).resolve().parent
+    if str(here) not in sys.path:
+        sys.path.insert(0, str(here))
+    try:
+        import sparkdl_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import the package sparkdl_tpu_torch from {here} "
+              f"({exc}); run this script from the repository's tree, where "
+              f"sparkdl_tpu_torch/ lies beside it", file=sys.stderr)
+        return False
+    return True
+
+
 def main() -> int:
     import torch
 
-    # phase 1: device
+    # phase 1: the package, the device
+    if not import_package():
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 1
@@ -488,20 +587,27 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     # registers and spills from nvcc's -Xptxas -v (empty for a cached
     # build), tensor-core products and cp.async copies from the SASS
+    found = set()
     for library, build_log in built:
         usage = ptxas_usage(build_log)
         opcodes = sass_opcodes(library, ("HMMA", "LDGSTS", ""))
+        found.update(opcodes)
         for kname in sorted(opcodes):
             u = usage.get(kname, {})
             log(f"  {kname}: {u.get('registers', '?')} registers, spill stores/loads "
                 f"{u.get('spill_stores', '?')}/{u.get('spill_loads', '?')} bytes; "
                 f"SASS HMMA {opcodes[kname]['HMMA']}, LDGSTS {opcodes[kname]['LDGSTS']} "
                 f"of {opcodes[kname]['']} instructions")
-            if kname.startswith("flash_bwd_"):
+            if kname.startswith(("flash_fwd_", "flash_bwd_")):
                 if not (opcodes[kname]["HMMA"] and opcodes[kname]["LDGSTS"]):
                     raise AssertionError(f"{kname}: no tensor-core products or cp.async copies")
                 if kname.endswith(",64>") and u.get("spill_stores", 0) + u.get("spill_loads", 0):
                     raise AssertionError(f"{kname} spills at head_dim 64: {u}")
+    for kname in (f"{k}<{t},64>" for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                           "flash_bwd_dkv_kernel")
+                  for t in ("f32", "bf16")):
+        if kname not in found:
+            raise AssertionError(f"no {kname} in the built libraries")
 
     # phase 3: kernel vs plain (forward f32 2e-4 and gradients f32 1e-3 as
     # tests/test_ops.py; bf16 forward 2e-2, bf16 gradients 8e-3 relative)
@@ -521,8 +627,12 @@ def main() -> int:
     for shape, kwargs in test_shapes:
         for dtype in (torch.float32, torch.bfloat16):
             check_backward(shape, dtype, kwargs, seed=3)
+    log(f"split TF32 vs single TF32 (forward kernel, inputs x4, {VIT_SHAPE} float32):")
+    check_split_tf32_forward(VIT_SHAPE, seed=5)
     log(f"split TF32 vs single TF32 (backward kernels, inputs x4, {VIT_SHAPE} float32):")
     check_split_tf32(VIT_SHAPE, seed=5)
+    log(f"against a float64 forward ({VIT_SHAPE} float32 inputs):")
+    forward_float64_errors(VIT_SHAPE, seed=6)
     log(f"against a float64 backward ({VIT_SHAPE} float32 inputs):")
     float64_errors(VIT_SHAPE, seed=6)
 
@@ -580,15 +690,44 @@ def main() -> int:
         log("  " + ", ".join(f"{k}={v:.4f}" for k, v in
                              sorted(metrics.snapshot("sparkdl.").items())))
 
+        # the same slice in bfloat16, through the bf16 forward kernel
+        bf16_stage, _ = run_slice(image_dir, state, "flash", "cuda", dtype=torch.bfloat16)
+        reset_counts()
+        t0 = time.perf_counter()
+        bf16 = rows_array(bf16_stage.transform(df).collect())
+        bf16_first_s = time.perf_counter() - t0
+        bf16_counts = counts()
+        log(f"slice in bfloat16: {len(bf16)} rows, launches {bf16_counts} (expected "
+            f"{expected} lse-free), first transform {bf16_first_s:.2f} s")
+        if list(bf16_counts.values()) != [expected, 0, 0, 0]:
+            raise AssertionError(f"bf16 inference launches {bf16_counts}")
+        if bf16.shape != (N_IMAGES, 1000) or not np.isfinite(bf16).all():
+            raise AssertionError(f"bad bf16 slice output: shape {bf16.shape}")
+        full_bf16_stage, _ = run_slice(image_dir, state, "full", "cuda", dtype=torch.bfloat16)
+        full_bf16 = rows_array(full_bf16_stage.transform(df).collect())
+        np.testing.assert_allclose(bf16, full_bf16, **BF16_SLICE_TOL)
+        log(f"  bf16 flash vs bf16 full on the card: "
+            f"max_abs_err={np.abs(bf16 - full_bf16).max():.3e}; bf16 flash vs f32 "
+            f"flash max_abs_err={np.abs(bf16 - flash).max():.3e}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            bf16_stage.transform(df).collect()
+            walls.append(time.perf_counter() - t0)
+        log(f"slice images/s in bfloat16 (ViT-B/16, batch {BATCH}, {N_IMAGES} images, "
+            f"{card}): " + ", ".join(f"{N_IMAGES / w:.1f}" for w in walls))
+
         # the model forward alone, on one resident batch
         images = np.stack([load_npy(u) for u in uris])
         x = torch.from_numpy(images[:BATCH]).cuda()
         with torch.inference_mode():
             forward_ms = {
                 impl: time_ms(lambda m=stage.module: m(x), iters=10)
-                for impl, stage in (("flash", flash_stage), ("full", full_stage))
+                for impl, stage in (("flash", flash_stage), ("full", full_stage),
+                                    ("flash_bf16", bf16_stage),
+                                    ("full_bf16", full_bf16_stage))
             }
-        del flash_stage, full_stage, cpu_stage
+        del flash_stage, full_stage, cpu_stage, bf16_stage, full_bf16_stage
 
         # phase 5: the training slice, ViT-B/16 at full width, 10 classes
         labels = np.arange(N_IMAGES) % N_CLASSES
@@ -735,24 +874,35 @@ def main() -> int:
     ms = time_ms(lambda: flash_attention(q, k, v), iters=20)
     lse_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True), iters=20)
     plain_ms = time_ms(lambda: flash_attention_reference(q, k, v), iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), iters=20
-    )
-    bound_ms, bound_by = attention_bound_ms(VIT_SHAPE, "float32")
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt), iters=20)
+    # the least time: f32 work as split TF32 on the tensor cores, as the
+    # kernels do it; beside it the bound on the CUDA cores (67 TFLOP/s f32)
+    bound_ms, bound_by = attention_bound_ms(VIT_SHAPE, "float32", rate="split_tf32")
+    core_bound_ms = attention_bound_ms(VIT_SHAPE, "float32")[0]
     log(f"forward timing at {VIT_SHAPE} float32 ({card}): kernel {ms:.4f} ms "
         f"(with lse {lse_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"bound {bound_ms:.4f} ms split TF32 ({bound_by}; {core_bound_ms:.4f} ms CUDA cores)")
     log(f"ViT-B/16 forward at batch {BATCH} float32 ({card}): "
         f"flash {forward_ms['flash']:.3f} ms, full {forward_ms['full']:.3f} ms; "
         f"12 kernel launches {12 * ms:.3f} ms = "
         f"{100 * 12 * ms / forward_ms['flash']:.1f}% of the flash forward")
     qb, kb, vb = qkv_views(VIT_SHAPE, torch.bfloat16, seed=1)
     bf16_ms = time_ms(lambda: flash_attention(qb, kb, vb), iters=20)
+    bf16_lse_ms = time_ms(lambda: flash_attention(qb, kb, vb, return_lse=True), iters=20)
+    qbt, kbt, vbt = (t.transpose(1, 2) for t in (qb, kb, vb))
+    bf16_library_ms = time_ms(lambda: sdpa(qbt, kbt, vbt), iters=20)
     bf16_bound, bf16_by = attention_bound_ms(VIT_SHAPE, "bfloat16")
-    log(f"forward timing at {VIT_SHAPE} bfloat16 ({card}): kernel {bf16_ms:.4f} ms, "
-        f"bound {bf16_bound:.4f} ms ({bf16_by})")
+    log(f"forward timing at {VIT_SHAPE} bfloat16 ({card}): kernel {bf16_ms:.4f} ms "
+        f"(with lse {bf16_lse_ms:.4f} ms), scaled_dot_product_attention "
+        f"{bf16_library_ms:.4f} ms, bound {bf16_bound:.4f} ms ({bf16_by})")
+    bf16_share = 12 * bf16_ms / forward_ms["flash_bf16"]
+    log(f"ViT-B/16 forward at batch {BATCH} bfloat16 ({card}): "
+        f"flash {forward_ms['flash_bf16']:.3f} ms, full {forward_ms['full_bf16']:.3f} ms; "
+        f"12 kernel launches {12 * bf16_ms:.3f} ms = {100 * bf16_share:.1f}% of the "
+        f"flash forward")
 
     out, lse = flash_attention(q, k, v, return_lse=True)
     do = cotangent(VIT_SHAPE, torch.float32, seed=0)
@@ -770,13 +920,11 @@ def main() -> int:
         lambda: torch.autograd.grad(flash_out, leaves, do, retain_graph=True), iters=20
     )
     t_leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(*t_leaves)
+    sdpa_out = sdpa(*t_leaves)
     do_t = do.transpose(1, 2)
     bwd_library_ms = time_ms(
         lambda: torch.autograd.grad(sdpa_out, t_leaves, do_t, retain_graph=True), iters=20
     )
-    # the least time: f32 work as split TF32 on the tensor cores, as the
-    # kernels do it; beside it the bound on the CUDA cores (67 TFLOP/s f32)
     dq_bound, dq_by = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2, "split_tf32")
     dkv_bound, dkv_by = attention_bound_ms(VIT_SHAPE, "float32", 4, 6, 2, "split_tf32")
     dq_core = attention_bound_ms(VIT_SHAPE, "float32", 3, 5, 2)[0]
@@ -792,10 +940,25 @@ def main() -> int:
     bf16_args = (qb, kb, vb, dob, lseb, attention_delta(ob, dob), False, scale, s)
     dq_bf16 = time_ms(lambda: flash_attention_bwd_dq(*bf16_args), iters=20)
     dkv_bf16 = time_ms(lambda: flash_attention_bwd_dkv(*bf16_args), iters=20)
+    leaves_bf16 = [t.detach().requires_grad_() for t in (qb, kb, vb)]
+    flash_out_bf16 = flash_attention(*leaves_bf16)
+    bwd_bf16_ms = time_ms(
+        lambda: torch.autograd.grad(flash_out_bf16, leaves_bf16, dob, retain_graph=True),
+        iters=20,
+    )
+    t_leaves_bf16 = [t.detach().transpose(1, 2).requires_grad_() for t in (qb, kb, vb)]
+    sdpa_out_bf16 = sdpa(*t_leaves_bf16)
+    dob_t = dob.transpose(1, 2)
+    bwd_library_bf16_ms = time_ms(
+        lambda: torch.autograd.grad(sdpa_out_bf16, t_leaves_bf16, dob_t, retain_graph=True),
+        iters=20,
+    )
     log(f"backward timing at {VIT_SHAPE} bfloat16 ({card}): dQ {dq_bf16:.4f} ms "
         f"(bound {attention_bound_ms(VIT_SHAPE, 'bfloat16', 3, 5, 2)[0]:.4f} ms), "
         f"dK/dV {dkv_bf16:.4f} ms "
-        f"(bound {attention_bound_ms(VIT_SHAPE, 'bfloat16', 4, 6, 2)[0]:.4f} ms)")
+        f"(bound {attention_bound_ms(VIT_SHAPE, 'bfloat16', 4, 6, 2)[0]:.4f} ms); "
+        f"backward through autograd {bwd_bf16_ms:.4f} ms vs "
+        f"scaled_dot_product_attention's backward {bwd_library_bf16_ms:.4f} ms")
     kernel_ms = 12 * (lse_ms + dq_ms + dkv_ms)
     log(f"ViT-B/16 training step at batch {BATCH} float32, adam ({card}): flash "
         f"{step_ms['flash']:.3f} ms, full {step_ms['full']:.3f} ms; 12 x (forward "
@@ -804,23 +967,26 @@ def main() -> int:
 
     source = "sparkdl_tpu_torch/ops/csrc/flash_attention_{}.cu"
     common = {"route": "cuda"}
-    # the forward runs on the CUDA cores: its bound is theirs
+    # bound_ms: split TF32 on the tensor cores, as the kernels compute;
+    # cuda_core_bound_ms: the same work on the CUDA cores; bf16_ms and
+    # bf16_library_ms: the kernel and the library call on bf16 inputs
     records.append({
         "name": "flash_attention_fwd", **common, "source": source.format("fwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:284",
-        # the lse-free launches: inference and the fitted transform
-        "launches": serve_counts["flash_attention_fwd"] + tuned_counts["flash_attention_fwd"],
+        # the lse-free launches: inference (f32 and bf16) and the fitted transform
+        "launches": (serve_counts["flash_attention_fwd"] + bf16_counts["flash_attention_fwd"]
+                     + tuned_counts["flash_attention_fwd"]),
         "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": bound_ms,
-        "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": core_bound_ms,
+        "library_ms": library_ms, "bf16_ms": bf16_ms, "bf16_library_ms": bf16_library_ms,
     })
     records.append({
         "name": "flash_attention_fwd_lse", **common, "source": source.format("fwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:259",
         "launches": fit_counts["flash_attention_fwd+lse"],
         "max_abs_err": max(fwd_err, lse_err), "ms": lse_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": bound_ms,
-        "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "cuda_core_bound_ms": core_bound_ms,
+        "library_ms": library_ms, "bf16_ms": bf16_lse_ms, "bf16_library_ms": bf16_library_ms,
     })
     # no single library call computes dQ or dK/dV alone: library_ms is the
     # backward of scaled_dot_product_attention, set against dQ + dK/dV + delta
@@ -832,6 +998,7 @@ def main() -> int:
         "launches": fit_counts["flash_attention_bwd_dq"], "max_abs_err": dq_err,
         "ms": dq_ms, "plain_ms": bwd_plain_ms, "bound_ms": dq_bound,
         "bound_by": dq_by, "cuda_core_bound_ms": dq_core, "library_ms": bwd_library_ms,
+        "bf16_ms": dq_bf16, "bf16_library_ms": bwd_library_bf16_ms,
     })
     records.append({
         "name": "flash_attention_bwd_dkv", **common, "source": source.format("bwd"),
@@ -839,7 +1006,8 @@ def main() -> int:
         "launches": fit_counts["flash_attention_bwd_dkv"],
         "max_abs_err": max(dk_err, dv_err), "ms": dkv_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": dkv_bound, "bound_by": dkv_by, "cuda_core_bound_ms": dkv_core,
-        "library_ms": bwd_library_ms,
+        "library_ms": bwd_library_ms, "bf16_ms": dkv_bf16,
+        "bf16_library_ms": bwd_library_bf16_ms,
     })
 
     print(card, flush=True)

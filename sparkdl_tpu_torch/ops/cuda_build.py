@@ -3,8 +3,9 @@
 Each kernel lives in ``csrc/<name>.cu`` and exports an ``extern "C"``
 launcher that takes raw device pointers, sizes and a ``cudaStream_t`` and
 returns a ``cudaError_t``. The source is compiled at first use into a shared
-library under ``ops/_build/``, named by a hash of the source, the flags and
-the compiler, so an edit or a new toolkit rebuilds it and nothing else does.
+library under ``ops/_build/``, named by a hash of the source, the headers it
+includes from ``csrc/``, the flags and the compiler, so an edit (of a shared
+header too) or a new toolkit rebuilds it and nothing else does.
 No ``ninja`` and no PyTorch headers are needed: the build takes seconds.
 
 Nothing here runs at import time; a compile error raises with nvcc's output.
@@ -61,6 +62,34 @@ def find_nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list:
+    """The headers that ``source`` includes with ``#include "..."`` beside
+    it, and those they include, each once, in the order first met."""
+    found: list = []
+    pending = [source]
+    while pending:
+        current = pending.pop(0)
+        for name in _INCLUDE.findall(current.read_text()):
+            header = current.parent / name
+            if header.is_file() and header not in found:
+                found.append(header)
+                pending.append(header)
+    return found
+
+
+def build_key(source: Path, flags: Sequence[str], nvcc: str) -> str:
+    """The hex digest that names ``source``'s library: its bytes, the bytes
+    of every header in :func:`local_headers`, the compiler and the flags."""
+    digest = hashlib.sha256()
+    for path in (source, *local_headers(source)):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update("\0".join((nvcc, *flags)).encode())
+    return digest.hexdigest()
+
+
 def build_library(source: Path, defines: Sequence[str] = ()) -> tuple:
     """Compile ``source`` into ``_build/`` unless an up-to-date library is
     there. ``defines`` are extra ``-D`` flags (``NAME=VALUE``), for a tile
@@ -69,10 +98,7 @@ def build_library(source: Path, defines: Sequence[str] = ()) -> tuple:
     was cached."""
     nvcc = find_nvcc()
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    digest = hashlib.sha256()
-    digest.update(source.read_bytes())
-    digest.update("\0".join((nvcc, *flags)).encode())
-    out = BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{source.stem}-{build_key(source, flags, nvcc)[:16]}.so"
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

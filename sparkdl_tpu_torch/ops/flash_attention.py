@@ -177,7 +177,8 @@ def _check_cuda(q, k, v) -> None:
 def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
     """One launch of the forward kernel (``FLASH_FWD``, or ``FLASH_FWD_LSE``
     with the lse), or its plain version for CPU tensors. ``scale`` and
-    ``kv_len`` are resolved."""
+    ``kv_len`` are resolved. An input whose rows are not 16-byte aligned is
+    copied to a contiguous tensor first."""
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
@@ -191,7 +192,17 @@ def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
     )
     if out.numel() == 0:
         return (out, lse) if return_lse else out
+    q, k, v = (_rows_aligned(x) for x in (q, k, v))
     kernel = FLASH_FWD_LSE if return_lse else FLASH_FWD
+    _launch_fwd(kernel, q, k, v, out, lse, causal, scale, kv_len)
+    return (out, lse) if return_lse else out
+
+
+def _launch_fwd(kernel, q, k, v, out, lse, causal, scale, kv_len) -> None:
+    """One launch of ``kernel`` (``FLASH_FWD``, ``FLASH_FWD_LSE`` or a tile
+    sweep's variant) into ``out`` and, unless it is None, ``lse``: CUDA
+    tensors as :func:`_forward` prepares them (rows 16-byte aligned)."""
+    b, s, h, d = q.shape
     with torch.cuda.device(q.device):
         kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -202,13 +213,12 @@ def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
             b, s, h, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             scale, kv_len, torch.cuda.current_stream(q.device).cuda_stream,
         )
-    return (out, lse) if return_lse else out
 
 
 def _rows_aligned(x: torch.Tensor) -> torch.Tensor:
     """``x``, or a contiguous copy of it where its rows are not 16-byte
-    aligned: the backward kernels stage rows with 16-byte ``cp.async``
-    copies. ViT's fused-qkv views and contiguous tensors pass as they are."""
+    aligned: the kernels stage rows with 16-byte ``cp.async`` copies. ViT's
+    fused-qkv views and contiguous tensors pass as they are."""
     item = x.element_size()
     if x.data_ptr() % 16 == 0 and all(
         x.stride(i) * item % 16 == 0 for i in range(3) if x.shape[i] > 1

@@ -101,12 +101,14 @@ class _PinnedSlot:
 
 
 def _single_output(result) -> torch.Tensor:
+    """The one tensor the loop fetches; bfloat16, which numpy cannot hold,
+    widened (exactly) to float32 where it lies."""
     if isinstance(result, (tuple, list)):
         raise TypeError(
             "run_batched_rows requires a single-output fn "
             f"(got {len(result)} outputs); unwrap the output in the forward"
         )
-    return result
+    return result.float() if result.dtype == torch.bfloat16 else result
 
 
 def run_batched_rows(

@@ -207,6 +207,56 @@ def test_backward_takes_rows_that_are_not_16_byte_aligned(cuda):
         torch.testing.assert_close(g, w, **GRAD_TOL)
 
 
+def test_forward_is_split_tf32_not_single_tf32(cuda):
+    """The forward computes each f32 product as three TF32 products. With
+    inputs x4 at the ViT-B shape (a peaked softmax), its output and lse are
+    at least 10x closer to the f32 plain forward than that plain forward run
+    with TF32 products is."""
+    q, k, v, _ = _qkv_views((4, 197, 12, 64), torch.float32, seed=13, cuda=cuda, mul=4.0)
+    got = flash_attention(q, k, v, return_lse=True)
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want = flash_attention_reference(q, k, v, return_lse=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = flash_attention_reference(q, k, v, return_lse=True)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    for name, g, w, single in zip(("out", "lse"), got, want, tf32):
+        err = (g - w).abs().max().item()
+        single_err = (single - w).abs().max().item()
+        assert 10 * err <= single_err, f"{name}: {err:.3e} vs TF32 {single_err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_forward_takes_rows_that_are_not_16_byte_aligned(cuda, dtype):
+    """q/k/v one element into a wider buffer, so their rows are off a 16-byte
+    boundary: the kernel stages rows in 16-byte copies, so the wrapper hands
+    it aligned copies, and the output and lse still match the plain forward."""
+    b, s, h, d = 2, 197, 3, 64
+    rng = np.random.RandomState(14)
+    buf = torch.from_numpy(rng.randn(b, s, 3 * h * d + 1).astype(np.float32)).to(cuda, dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in buf[..., 1:].chunk(3, dim=-1))
+    assert q.data_ptr() % 16
+    launches = FLASH_FWD_LSE.launches
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    want, want_lse = flash_attention_reference(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert FLASH_FWD_LSE.launches == launches + 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+
+
+def test_forward_is_deterministic(cuda):
+    """No atomics: two forward runs give the same bytes, output and lse."""
+    q, k, v, _ = _qkv_views((4, 197, 12, 64), torch.float32, seed=15, cuda=cuda)
+    runs = [flash_attention(q, k, v, return_lse=True) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 def test_no_grad_call_takes_the_lse_free_forward(cuda):
     q, k, v, _ = _qkv_views((2, 197, 3, 64), torch.float32, seed=9, cuda=cuda)
     leaf = q.detach().requires_grad_()

@@ -117,6 +117,34 @@ def test_transform_matches_jax(
         np.testing.assert_allclose(g["out"].toArray(), w["out"].toArray(), **TOL)
 
 
+def test_bf16_transform_matches_jax(tpu_session, uris, flax_variables):
+    """A bfloat16 ViT (float32 weights, bf16 arithmetic, as Flax's
+    ``dtype``): its bf16 rows come back widened to float32, as the JAX
+    stage's bf16 arrays do, within test_torch_vit.py's bf16 bound."""
+    bf16_tol = dict(atol=0.1, rtol=2e-2)
+    jax_stage = FlaxImageFileTransformer(
+        inputCol="uri", outputCol="out", imageLoader=_loader,
+        module=JaxViT(**GEOMETRY, dtype=jnp.bfloat16), variables=flax_variables,
+        batchSize=2,
+    )
+    want = jax_stage.transform(tpu_session.createDataFrame(
+        [{"uri": u} for u in uris], numPartitions=1
+    )).collect()
+    port_stage = TorchImageFileTransformer(
+        inputCol="uri", outputCol="out", imageLoader=_loader,
+        module=ViT(**GEOMETRY, attn_impl="flash", dtype=torch.bfloat16),
+        state_dict=vit_state_dict_from_flax(flax_variables),
+        batchSize=2, device="cpu",
+    )
+    session = TorchSession.builder.master("local[*]").appName("tests").getOrCreate()
+    got = port_stage.transform(
+        session.createDataFrame([{"uri": u} for u in uris], numPartitions=1)
+    ).collect()
+    assert [r["uri"] for r in got] == uris
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["out"].toArray(), w["out"].toArray(), **bf16_tol)
+
+
 def test_transform_over_partitions_keeps_row_order(uris, flax_variables):
     stage = TorchImageFileTransformer(
         inputCol="uri", outputCol="out", imageLoader=_loader,
@@ -222,6 +250,17 @@ def test_loader_shape_contract_holds_across_chunks():
     with pytest.raises(ValueError, match="one fixed array shape"):
         run_batched_rows(lambda x: x.sum((1, 2, 3)), [0, 1, 2], decode,
                          batch_size=2, device="cpu")
+
+
+def test_run_batched_rows_widens_bf16_outputs():
+    """numpy has no bfloat16: a bf16 output comes back as the float32 array
+    of the same values."""
+    decode = make_loader_decode_plan(lambda i: np.full((2,), i + 0.1, np.float32))
+    out = run_batched_rows(lambda x: x.to(torch.bfloat16), list(range(5)), decode,
+                           batch_size=2, device="cpu")
+    want = torch.tensor([[i + 0.1] * 2 for i in range(5)]).to(torch.bfloat16).float()
+    assert out.dtype == np.float32
+    np.testing.assert_array_equal(out, want.numpy())
 
 
 def test_run_batched_rows_keeps_every_row_in_order():
