@@ -41,7 +41,34 @@ prints no result):
    computes the same function (in float32 and bfloat16), with CUDA events;
    the model forward and the training step with the kernels and with dense
    attention; the inference slice's images/s and the training images/s of a
-   second fit.
+   second fit;
+7. CNN pipeline: the transfer-learning flow of
+   ``examples/transfer_learning.py`` at full width,
+   ``Pipeline([DeepImageFeaturizer(InceptionV3, 299x299, 2048-d, bfloat16),
+   LogisticRegression(maxIter=30)]).fit`` over 128 generated red- or
+   blue-dominant image structs in 4 partitions (one of them mixing 96x96 and
+   240x320, so it resizes while packing), split 0.75/0.25 with seed 7, then
+   ``transform``, the evaluator's accuracy (at least 0.75: the classes are
+   apart in any features) and a ``PipelineModel`` save and load that must
+   give the same predictions, accuracy and features bit for bit. Random
+   InceptionV3 weights in the Flax layout (He-normal, so 94 units keep
+   activations of unit order) go in through the converter. The four
+   attention kernels' launches are counted over the path and must be none.
+   Checks: bf16 features within 3% of the largest float32 feature on the card
+   (``CNN_BF16_MAX_REL``: bf16 rounding through 94 units; the CPU tests
+   measure 0.9% against Flax's bf16); float32 card features against a CPU
+   run of the port at ``SLICE_TOL`` on two one-partition frames of the test
+   rows, 4 uniform 96x96 images (uint8, resized in the forward) and 2 96x96
+   with 2 240x320 (float32, resized while packing on the card), so that both
+   resizes are held against the CPU; the LR head fitted on the
+   card against a CPU fit on the same features, each leaf's change in norm
+   within ``ADAM_LEAF_RTOL``; the BGR flip folded into the stem against the
+   flip in the forward at 1e-4. Timed: the InceptionV3 forward per batch of
+   32 in bf16 and float32 and the bf16 forward's share of the bf16 dense
+   peak (operations counted from the convolutions' shapes), the
+   featurizer's images/s (median of 5 transforms) with its
+   ``sparkdl.decode``, ``sparkdl.resize`` and ``sparkdl.forward`` timers,
+   and the LR fit.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -89,6 +116,22 @@ BF16_SLICE_TOL = dict(atol=0.1, rtol=2e-2)
 GRAD_NORM_RTOL = 1e-4
 LOSS_RTOL = 1e-4
 ADAM_LEAF_RTOL = 1e-2
+
+# the CNN pipeline (phase 7): bf16 InceptionV3 features against float32 ones
+# on the card, within 3% of the largest feature: the bf16 run rounds each
+# conv, BN and pool output to bf16 (2**-9) through 94 units. Measured: 0.47%
+# on an H100 at these inputs; the port's bf16 module against Flax's bf16 on
+# the CPU, 0.9% at 75x75 (tests/test_torch_inception.py)
+CNN_BF16_MAX_REL = 3e-2
+# the BGR flip folded into the stem against the flip in the forward, both
+# float32: the same sums in the stem's other channel order, float rounding
+# (tests/test_models.py's Keras-oracle bound)
+CNN_FOLD_TOL = dict(atol=1e-4, rtol=1e-4)
+# red- against blue-dominant images, linearly apart in any features: the
+# fitted head must do better than chance
+CNN_MIN_ACCURACY = 0.75
+CNN_IMAGES = 128
+CNN_BATCH = 32
 
 VIT_SHAPE = (32, 197, 12, 64)  # ViT-B/16 at 224, batch 32: (b, s, h, d)
 N_IMAGES = 64
@@ -511,6 +554,296 @@ def check_adam_step(got, want, start, steps):
                 raise AssertionError(f"{part}: change differs by {err:.3e} of its norm")
             worst_leaf = max(worst_leaf, (err, part))
     return worst, worst_leaf
+
+
+def flax_layout_inception_params(seed: int):
+    """Random InceptionV3 weights (1000 classes) in the Flax layout, made
+    from the shapes of the port's module through the inverse converter:
+    conv kernels He-normal (std sqrt(2 / fan_in)), BN variances 1 + 0.1|n|,
+    means and biases 0.1 n, the Dense at 1/sqrt(in). Unscaled, 94 units
+    drive the activations to inf or 0."""
+    from sparkdl_tpu_torch.models.convert import inception_flax_from_state_dict
+    from sparkdl_tpu_torch.models.inception_v3 import InceptionV3
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, t in InceptionV3().state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith(".var"):
+            state[name] = 1 + 0.1 * np.abs(rng.standard_normal(shape, dtype=np.float32))
+            continue
+        if len(shape) == 4:
+            std = (2.0 / np.prod(shape[1:])) ** 0.5
+        elif len(shape) == 2:
+            std = shape[1] ** -0.5
+        else:
+            std = 0.1
+        state[name] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+    return inception_flax_from_state_dict(state)
+
+
+def cnn_image_rows(n: int, seed: int):
+    """``n`` image-struct rows of two classes, as
+    ``examples/transfer_learning.py::make_dataset`` makes them: label 0
+    red-dominant, label 1 blue-dominant, stored BGR, 96x96; in the last
+    quarter of the rows (the last of 4 partitions) every other pair is
+    240x320, so that partition mixes sizes and resizes while packing."""
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        label = i % 2
+        hw = (240, 320) if i >= 3 * n // 4 and i % 4 >= 2 else (96, 96)
+        bgr = rng.randint(0, 80, (*hw, 3)).astype(np.uint8)
+        bgr[..., 0 if label else 2] += 120
+        rows.append({"image": imageArrayToStruct(bgr, origin=f"flower_{i}"),
+                     "label": label})
+    return rows
+
+
+def conv_flops(module, x) -> float:
+    """Operations of one forward of ``module`` on ``x``: 2 per multiply-add
+    of every convolution (from its weight and output shapes) and of the
+    Dense, when it runs."""
+    import torch
+
+    from sparkdl_tpu_torch.models.inception_v3 import Conv
+
+    total = [0.0]
+
+    def conv_hook(mod, _inp, out):
+        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(conv_hook) for m in module.modules()
+             if isinstance(m, Conv)]
+    try:
+        with torch.inference_mode():
+            module(x, features_only=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def profile_forward(fn, wall_ms: float):
+    """One call of ``fn`` under ``torch.profiler``: the device's busy time
+    (the sum of its kernels' times) and idle share of ``wall_ms`` (the same
+    call timed by CUDA events), the kernels run, and the operators whose
+    kernels took the most device time. Logged; "not measured" when the
+    profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not busy_ms:
+        log("  profile: the profiler saw no device time (not measured)")
+        return None
+    ops = [e for e in events
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:10]
+    log(f"  profile: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms (idle "
+        f"{100 * (1 - busy_ms / wall_ms):.1f}%), {sum(e.count for e in kernels)} "
+        "kernels; by operator: "
+        + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+                    for e in top))
+    return busy_ms
+
+
+def lr_leaf_errors(got, want):
+    """LR weights after the same adam steps from zeros in two runs, as
+    check_adam_step holds them: each leaf (weights, bias) within
+    ADAM_LEAF_RTOL of the other run's change in norm. Returns the errors."""
+    errs = {}
+    for name in ("weights", "bias"):
+        g, w = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
+        errs[name] = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        if not errs[name] <= ADAM_LEAF_RTOL:
+            raise AssertionError(f"LR {name}: change differs by {errs[name]:.3e} of its norm")
+    return errs
+
+
+def cnn_pipeline(card: str, counted):
+    """Phase 7: the transfer-learning pipeline on the card, InceptionV3
+    (299x299, 2048-d features, bf16) -> LogisticRegression in a Pipeline,
+    fitted, scored, evaluated, saved and reloaded, with the checks of the
+    docstring; then its times. ``counted`` is the (reset, read) pair of the
+    kernels' launch counts."""
+    import torch
+
+    from sparkdl_tpu_torch import (
+        DeepImageFeaturizer,
+        LogisticRegression,
+        MulticlassClassificationEvaluator,
+        Pipeline,
+        PipelineModel,
+    )
+    from sparkdl_tpu_torch.models.convert import inception_state_dict_from_flax
+    from sparkdl_tpu_torch.models.registry import fold_bgr_flip_into_stem, preprocess_input
+    from sparkdl_tpu_torch.ml.classification import train_logistic_regression
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.named_image import build_module
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    tree = flax_layout_inception_params(seed=3)
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    df = session.createDataFrame(cnn_image_rows(CNN_IMAGES, seed=0), numPartitions=4)
+    train, test = df.randomSplit([0.75, 0.25], seed=7)
+    featurize = dict(inputCol="image", outputCol="features", modelName="InceptionV3",
+                     modelWeights=tree, batchSize=CNN_BATCH)
+    evaluator = MulticlassClassificationEvaluator(labelCol="label", predictionCol="prediction",
+                                                  metricName="accuracy")
+
+    # the main path, counted
+    counted[0]()
+    t0 = time.perf_counter()
+    model = Pipeline(stages=[
+        DeepImageFeaturizer(**featurize, computeDtype="bfloat16"),
+        LogisticRegression(featuresCol="features", labelCol="label", maxIter=30),
+    ]).fit(train)
+    scored = model.transform(test)
+    pred = scored.collect()
+    accuracy = evaluator.evaluate(scored)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = counted[1]()
+    if any(launches.values()):
+        raise AssertionError(f"the CNN path launched attention kernels: {launches}")
+    feats = rows_array(pred)
+    norms = np.linalg.norm(feats, axis=1)
+    log(f"CNN pipeline: InceptionV3 bf16 -> LogisticRegression(maxIter=30), "
+        f"{train.count()} train / {len(pred)} test rows in 4 partitions, accuracy "
+        f"{accuracy:.4f}, first fit + transform {first_s:.2f} s; attention launches "
+        f"{launches} (none on this path); feature norms {norms.min():.3f}-{norms.max():.3f}")
+    if feats.shape != (len(pred), 2048) or not np.isfinite(feats).all():
+        raise AssertionError(f"bad CNN features: shape {feats.shape}")
+    if not (1.0 < norms.min() and norms.max() < 1e4):
+        raise AssertionError(f"CNN feature norms out of range: {norms.min()}, {norms.max()}")
+    if not accuracy >= CNN_MIN_ACCURACY:
+        raise AssertionError(f"accuracy {accuracy} under {CNN_MIN_ACCURACY}")
+
+    # the fitted PipelineModel, saved and loaded
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cnn-") as tmp:
+        model.write().overwrite().save(tmp)
+        reloaded = PipelineModel.load(tmp)
+        re_scored = reloaded.transform(test)
+        re_pred = re_scored.collect()
+        re_accuracy = evaluator.evaluate(re_scored)
+    if [r["prediction"] for r in re_pred] != [r["prediction"] for r in pred]:
+        raise AssertionError("the reloaded pipeline predicts otherwise")
+    if re_accuracy != accuracy or not np.array_equal(rows_array(re_pred), feats):
+        raise AssertionError("the reloaded pipeline's features or accuracy differ")
+    log(f"  save/load: the reloaded PipelineModel gives the same predictions, accuracy "
+        f"{re_accuracy:.4f} and features bit for bit")
+
+    # bf16 against f32 features on the card, f32 card against f32 CPU
+    f32 = rows_array(DeepImageFeaturizer(**featurize, computeDtype="float32")
+                     .transform(test).collect())
+    bf16_err = np.abs(feats - f32).max()
+    log(f"  bf16 vs float32 features: max abs err {bf16_err:.3e} "
+        f"({bf16_err / np.abs(f32).max():.3e} of the largest; bound {CNN_BF16_MAX_REL})")
+    if not bf16_err <= CNN_BF16_MAX_REL * np.abs(f32).max():
+        raise AssertionError(f"bf16 features {bf16_err:.3e} from float32")
+    # card against CPU on two one-partition frames: one uniform (uint8 at
+    # source size, resized in the forward) and one mixing 96x96 with
+    # 240x320 (float32, resized while packing), so both resizes are held
+    small = [r for r in pred if r["image"]["height"] == 96]
+    large = [r for r in pred if r["image"]["height"] == 240]
+    if len(small) < 4 or len(large) < 2:
+        raise AssertionError(f"the test split holds {len(small)} 96x96 and {len(large)} "
+                             "240x320 rows; the card-vs-CPU check needs 4 and 2")
+    f32_stage = DeepImageFeaturizer(**featurize, computeDtype="float32")
+    cpu_stage = DeepImageFeaturizer(**featurize, computeDtype="float32", device="cpu")
+    for what, picked in (("uniform 96x96", small[:4]),
+                         ("mixed 96x96 + 240x320", small[:2] + large[:2])):
+        few = session.createDataFrame([{"image": r["image"]} for r in picked],
+                                      numPartitions=1)
+        on_card = rows_array(f32_stage.transform(few).collect())
+        on_cpu = rows_array(cpu_stage.transform(few).collect())
+        np.testing.assert_allclose(on_card, on_cpu, **SLICE_TOL)
+        log(f"  float32 features, card vs CPU ({len(picked)} images, one {what} "
+            f"partition): max abs err {np.abs(on_card - on_cpu).max():.3e}")
+
+    # the LR head fitted on the card against a CPU fit of the same features
+    feature_df = model.stages[0].transform(train)
+    cpu_head = LogisticRegression(featuresCol="features", labelCol="label", maxIter=30,
+                                  device="cpu").fit(feature_df)
+    leaf = lr_leaf_errors(model.stages[1], cpu_head)
+    log(f"  LR head on the card vs CPU on one feature matrix: change in norm "
+        f"weights {leaf['weights']:.3e}, bias {leaf['bias']:.3e} (bound {ADAM_LEAF_RTOL})")
+
+    # the BGR flip folded into the stem against the flip in the forward
+    state = {k: v for k, v in inception_state_dict_from_flax(tree).items()
+             if not k.startswith("predictions")}
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 255, (CNN_BATCH, 299, 299, 3)).astype(np.float32)).to(dev)
+    plain = build_module("InceptionV3", state, torch.float32, dev)
+    folded = build_module("InceptionV3", fold_bgr_flip_into_stem(state, "tf"),
+                          torch.float32, dev)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+    with torch.inference_mode():
+        want = plain(nchw(preprocess_input(x.flip(-1), "tf")), features_only=True)
+        got = folded(nchw(preprocess_input(x, "tf")), features_only=True)
+    fold_err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **CNN_FOLD_TOL)
+    log(f"  BGR flip folded into the stem vs flipped in the forward: max abs err {fold_err:.3e}")
+
+    # times on the card (CUDA events; TF32 off)
+    bf16 = build_module("InceptionV3", state, torch.bfloat16, dev)
+    xb = nchw(preprocess_input(x, "tf"))
+    xb16 = xb.to(torch.bfloat16)
+    flops = conv_flops(bf16, xb16)
+    with torch.inference_mode():
+        fwd_bf16 = time_ms(lambda: bf16(xb16, features_only=True), iters=10)
+        fwd_f32 = time_ms(lambda: plain(xb, features_only=True), iters=5)
+    weight_bytes = sum(t.numel() * t.element_size() for t in bf16.state_dict().values())
+    bound_ms = max(flops / PEAK_FLOPS["bfloat16"],
+                   (weight_bytes + xb16.numel() * 2 + CNN_BATCH * 2048 * 2) / PEAK_BYTES_PER_S) * 1e3
+    share = flops / (fwd_bf16 * 1e-3) / PEAK_FLOPS["bfloat16"]
+    log(f"InceptionV3 forward at batch {CNN_BATCH}, 299x299, features ({card}): bf16 "
+        f"{fwd_bf16:.3f} ms, float32 {fwd_f32:.3f} ms; {flops / CNN_BATCH / 1e9:.3f} GFLOP "
+        f"per image, bf16 bound {bound_ms:.4f} ms (operations), "
+        f"{100 * share:.2f}% of the bf16 dense peak")
+    with torch.inference_mode():
+        profile_forward(lambda: bf16(xb16, features_only=True), fwd_bf16)
+    stage = DeepImageFeaturizer(**featurize, computeDtype="bfloat16")
+    stage.transform(df).collect()  # the module is cached; decode paths warm
+    walls = []
+    metrics.reset()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stage.transform(df).collect()
+        walls.append(time.perf_counter() - t0)
+    log(f"featurizer images/s (InceptionV3 bf16, batch {CNN_BATCH}, {CNN_IMAGES} images in "
+        f"4 partitions, one mixed, {card}): "
+        + ", ".join(f"{CNN_IMAGES / w:.1f}" for w in walls)
+        + f"; median {CNN_IMAGES / float(np.median(walls)):.1f}")
+    log("  " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.snapshot("sparkdl.").items())))
+    fit_walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        LogisticRegression(featuresCol="features", labelCol="label", maxIter=30
+                           ).fit(feature_df)
+        fit_walls.append(time.perf_counter() - t0)
+    xs = torch.from_numpy(rows_array(feature_df.collect()).astype(np.float32)).to(dev)
+    ys = torch.tensor([r["label"] for r in feature_df.collect()], device=dev)
+    train_ms = time_ms(lambda: train_logistic_regression(xs, ys, 2, 30, 0.0, 0.1),
+                       iters=5, warmup=2)
+    log(f"LogisticRegression fit ({xs.shape[0]} x 2048, 30 adam steps, {card}): fit "
+        f"{1e3 * float(np.median(fit_walls)):.2f} ms (median of 3, collect included), "
+        f"the 30 steps {train_ms:.2f} ms")
 
 
 def import_package() -> bool:
@@ -1009,6 +1342,9 @@ def main() -> int:
         "library_ms": bwd_library_ms, "bf16_ms": dkv_bf16,
         "bf16_library_ms": bwd_library_bf16_ms,
     })
+
+    # phase 7: the CNN transfer-learning pipeline at full width
+    cnn_pipeline(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -14,12 +14,20 @@ import importlib
 VERSION = __version__ = "0.1.0"
 
 _EXPORTS = {
+    "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
+    "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "InceptionV3": "sparkdl_tpu_torch.models.inception_v3",
+    "LogisticRegression": "sparkdl_tpu_torch.ml.classification",
+    "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.ml.evaluation",
+    "Pipeline": "sparkdl_tpu_torch.ml.pipeline",
+    "PipelineModel": "sparkdl_tpu_torch.ml.pipeline",
     "TorchImageFileEstimator": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchImageFileTransformer": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchSession": "sparkdl_tpu_torch.sql.session",
     "ViT": "sparkdl_tpu_torch.models.vit",
     "vit_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
     "flash_attention": "sparkdl_tpu_torch.ops.flash_attention",
+    "inception_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
     "resolve_device": "sparkdl_tpu_torch.utils.device",
 }
 

@@ -10,7 +10,8 @@ then batched forward passes on the device, then one ``DenseVector`` per row.
 
 Not ported yet (ROADMAP.md): ``checkpointDir`` (orbax resume),
 ``shardingRules`` / ``meshShape`` (the DP x TP step), several hosts or
-cards, and persistence. Setting one of those params raises.
+cards, and persistence. Setting one of those params raises, and so does
+saving the fitted transformer.
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ class TorchImageFileTransformer(
     transformer owns the module from then on. ``device=None`` is the card;
     without one it raises unless ``device="cpu"`` is passed.
     """
+
+    _not_savable = ("persistence of the fitted TorchImageFileTransformer is "
+                    "not ported yet (ROADMAP item 8)")
 
     def __init__(
         self,

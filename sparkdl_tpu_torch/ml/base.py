@@ -1,8 +1,9 @@
-"""The ``Transformer`` and ``Estimator`` stage contracts (pyspark.ml.base subset).
+"""Transformer / Estimator / Model / Evaluator (pyspark.ml.base subset).
 
-A trimmed copy of ``sparkdl_tpu.ml.base``: ``transform(df[, params])`` and
-``fit(df[, params or a list of them])``. Persistence (``MLWritable`` /
-``MLReadable``) is not ported yet.
+A trimmed copy of ``sparkdl_tpu.ml.base``: ``transform(df[, params])``,
+``fit(df[, params or a list of them])``, ``evaluate(df[, params])``, and
+persistence (``MLWritable`` / ``MLReadable``) on every stage. ``fitMultiple``
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -10,12 +11,13 @@ from __future__ import annotations
 import abc
 from typing import Any, Dict, Optional, Sequence, Union
 
+from sparkdl_tpu_torch.ml.util import MLReadable, MLWritable
 from sparkdl_tpu_torch.param.base import Param, Params
 
 ParamMap = Dict[Param, Any]
 
 
-class Transformer(Params, metaclass=abc.ABCMeta):
+class Transformer(Params, MLWritable, MLReadable, metaclass=abc.ABCMeta):
     def transform(self, dataset, params: Optional[ParamMap] = None):
         if params is None:
             params = {}
@@ -30,7 +32,11 @@ class Transformer(Params, metaclass=abc.ABCMeta):
         ...
 
 
-class Estimator(Params, metaclass=abc.ABCMeta):
+class Model(Transformer, metaclass=abc.ABCMeta):
+    """A Transformer produced by an Estimator."""
+
+
+class Estimator(Params, MLWritable, MLReadable, metaclass=abc.ABCMeta):
     @abc.abstractmethod
     def _fit(self, dataset) -> Transformer:
         ...
@@ -54,3 +60,17 @@ class Estimator(Params, metaclass=abc.ABCMeta):
             "Params must be either a param map or a list/tuple of param "
             f"maps, but got {type(params)}."
         )
+
+
+class Evaluator(Params, MLWritable, MLReadable, metaclass=abc.ABCMeta):
+    @abc.abstractmethod
+    def _evaluate(self, dataset) -> float:
+        ...
+
+    def evaluate(self, dataset, params: Optional[ParamMap] = None) -> float:
+        if params:
+            return self.copy(params)._evaluate(dataset)
+        return self._evaluate(dataset)
+
+    def isLargerBetter(self) -> bool:
+        return True

@@ -1,4 +1,5 @@
-"""Carry ViT weights between the Flax layout and a PyTorch ``state_dict``.
+"""Carry ViT and InceptionV3 weights between the Flax layout and a PyTorch
+``state_dict``.
 
 ``vit_state_dict_from_flax`` takes the parameter tree of
 ``sparkdl_tpu.models.vit.ViT`` (nested dicts of numpy arrays, with or without
@@ -15,8 +16,16 @@ tree of gradients under the same names) back to ``{"params": ...}`` of
 numpy arrays, so the port's trained weights compare with the JAX package's
 by Flax name.
 
-A key that the layout does not use, or one that it needs and does not find,
-raises ``KeyError``.
+``inception_state_dict_from_flax`` takes the variables of
+``sparkdl_tpu.models.inception_v3.InceptionV3``, ``{"params": ...,
+"batch_stats": ...}``, and returns the ``state_dict`` of
+:class:`sparkdl_tpu_torch.models.inception_v3.InceptionV3` under the same
+layer names: conv kernels HWIO -> OIHW, the BN ``bias`` and its ``mean`` and
+``var``, the ``predictions`` Dense (when there is one) ``(in, out)`` ->
+``(out, in)``. ``inception_flax_from_state_dict`` is its inverse.
+
+The arrays may be numpy or JAX arrays. A key that the layout does not use,
+or one that it needs and does not find, raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from sparkdl_tpu_torch.models.inception_v3 import bn_name, conv_name
 
 _BLOCK_DENSE = ("qkv", "proj", "mlp_up", "mlp_down")
 _BLOCK_NORMS = ("ln_1", "ln_2")
@@ -146,3 +157,78 @@ def vit_flax_from_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
     if left:
         raise KeyError(f"unused keys: {sorted(left)}")
     return {"params": params}
+
+
+def _unit_names():
+    """(conv, bn) layer names in Keras creation order, endlessly."""
+    i = 0
+    while True:
+        yield conv_name(i), bn_name(i)
+        i += 1
+
+
+def inception_state_dict_from_flax(
+    variables: Mapping[str, Any]
+) -> Dict[str, torch.Tensor]:
+    """The PyTorch ``state_dict`` of Flax InceptionV3 variables."""
+    params = _take(variables, "params", "")
+    stats = _take(variables, "batch_stats", "")
+    _check_used(variables, ("params", "batch_stats"), "")
+    out: Dict[str, torch.Tensor] = {}
+    used_params, used_stats = [], []
+    for conv, bn in _unit_names():
+        if conv not in params:
+            break
+        sub = params[conv]
+        _check_used(sub, ("kernel",), f"params/{conv}/")
+        out[f"{conv}.weight"] = _tensor(
+            _take(sub, "kernel", f"params/{conv}/")
+        ).permute(3, 2, 0, 1).contiguous()
+        norm = _take(params, bn, "params/")
+        _check_used(norm, ("bias",), f"params/{bn}/")
+        out[f"{bn}.bias"] = _tensor(_take(norm, "bias", f"params/{bn}/"))
+        moments = _take(stats, bn, "batch_stats/")
+        _check_used(moments, ("mean", "var"), f"batch_stats/{bn}/")
+        out[f"{bn}.mean"] = _tensor(_take(moments, "mean", f"batch_stats/{bn}/"))
+        out[f"{bn}.var"] = _tensor(_take(moments, "var", f"batch_stats/{bn}/"))
+        used_params += [conv, bn]
+        used_stats.append(bn)
+    if not used_params:
+        raise KeyError("missing key params/conv2d")
+    if "predictions" in params:
+        _dense(params, "predictions", "params/", out, "")
+        used_params.append("predictions")
+    _check_used(params, used_params, "params/")
+    _check_used(stats, used_stats, "batch_stats/")
+    return out
+
+
+def inception_flax_from_state_dict(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The Flax variables ``{"params": ..., "batch_stats": ...}`` (float32
+    numpy arrays) of an InceptionV3 ``state_dict``: the inverse of
+    :func:`inception_state_dict_from_flax`."""
+    left = dict(state)
+
+    def take(name: str) -> np.ndarray:
+        if name not in left:
+            raise KeyError(f"missing key {name}")
+        t = left.pop(name)
+        t = t.detach().cpu() if isinstance(t, torch.Tensor) else torch.as_tensor(t)
+        return t.float().numpy().copy()
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for conv, bn in _unit_names():
+        if f"{conv}.weight" not in left:
+            break
+        params[conv] = {"kernel": take(f"{conv}.weight").transpose(2, 3, 1, 0).copy()}
+        params[bn] = {"bias": take(f"{bn}.bias")}
+        stats[bn] = {"mean": take(f"{bn}.mean"), "var": take(f"{bn}.var")}
+    if not params:
+        raise KeyError("missing key conv2d.weight")
+    if "predictions.weight" in left or "predictions.bias" in left:
+        params["predictions"] = {"kernel": take("predictions.weight").T.copy(),
+                                 "bias": take("predictions.bias")}
+    if left:
+        raise KeyError(f"unused keys: {sorted(left)}")
+    return {"params": params, "batch_stats": stats}

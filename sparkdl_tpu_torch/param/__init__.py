@@ -3,6 +3,7 @@
 from sparkdl_tpu_torch.param.base import Param, Params, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.shared import (
     CanLoadImage,
+    HasDevice,
     HasInputCol,
     HasLabelCol,
     HasOutputCol,
@@ -13,6 +14,7 @@ __all__ = [
     "Params",
     "TypeConverters",
     "keyword_only",
+    "HasDevice",
     "HasInputCol",
     "HasLabelCol",
     "HasOutputCol",

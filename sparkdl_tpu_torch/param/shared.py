@@ -62,3 +62,24 @@ class CanLoadImage(Params):
 
     def getImageLoader(self):
         return self.getOrDefault(self.imageLoader)
+
+
+def _toDevice(value):
+    """``None`` (the card) or a device name: ``"cuda"``, ``"cuda:1"``,
+    ``"cpu"`` (a ``torch.device`` is kept by its name, so it persists)."""
+    return None if value is None else str(value)
+
+
+class HasDevice(Params):
+    """Mixin for the port's stages: where they run. ``None`` is the card;
+    without one the stage raises when it runs, unless ``"cpu"`` is set."""
+
+    device = Param(
+        "undefined",
+        "device",
+        "device the stage runs on: None (the CUDA card) or 'cpu'",
+        _toDevice,
+    )
+
+    def getDevice(self):
+        return self.getOrDefault(self.device)

@@ -3,12 +3,16 @@ that the port's transformers use.
 
 Data lives as partitions of column -> list dicts; ``mapPartitions`` is the
 primitive every model transformer builds on, so whole partitions reach the
-batched model runner. The SQL dialect, joins and windows are not ported yet.
+batched model runner. ``select`` takes column names, ``withColumn`` a
+row-wise callable over named input columns, and ``randomSplit`` draws as the
+JAX package's does, so one seed splits the same rows. Column expressions,
+the SQL dialect, joins and windows are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+import random
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from sparkdl_tpu_torch.sql.types import (
     DataType,
@@ -68,6 +72,86 @@ class DataFrame:
             if f.name == name:
                 return f.dataType
         return ObjectType()
+
+    def _with_partitions(
+        self, partitions: List[Partition], schema: Optional[StructType] = None
+    ) -> "DataFrame":
+        return DataFrame(partitions, schema or self._schema, self.sparkSession)
+
+    def _column_type(self, parts: List[Partition], name: str) -> DataType:
+        """The type of the first non-None value of ``name``, else the
+        schema's."""
+        for part in parts:
+            for value in part.get(name, ()):
+                if value is not None:
+                    return infer_type(value)
+        return self._field_type(name)
+
+    def _check_columns(self, names: Sequence[str]) -> None:
+        missing = [c for c in names if c not in self.columns]
+        if missing:
+            raise KeyError(f"No such column(s): {missing}; have {self.columns}")
+
+    def select(self, *cols: str) -> "DataFrame":
+        """Keep the named columns, in the order given (``"*"`` is all)."""
+        if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
+            cols = tuple(cols[0])
+        names: List[str] = []
+        for c in cols:
+            names.extend(self.columns if c == "*" else [c])
+        self._check_columns(names)
+        parts = [{c: part[c] for c in names} for part in self._partitions]
+        schema = StructType()
+        for c in names:
+            schema.add(c, self._field_type(c))
+        return self._with_partitions(parts, schema)
+
+    def withColumn(self, name: str, fn: Callable, *input_cols: str) -> "DataFrame":
+        """Add or replace column ``name`` with ``fn(*row values of
+        input_cols)``, row by row."""
+        if not input_cols:
+            raise ValueError("withColumn needs the names of the columns fn reads")
+        self._check_columns(input_cols)
+        parts = []
+        for part in self._partitions:
+            new_part = dict(part)
+            new_part[name] = [fn(*values) for values in zip(*(part[c] for c in input_cols))]
+            parts.append(new_part)
+        schema = StructType()
+        for f in self._schema:
+            if f.name != name:
+                schema.add(f.name, f.dataType)
+        schema.add(name, self._column_type(parts, name))
+        return self._with_partitions(parts, schema)
+
+    def randomSplit(
+        self, weights: Sequence[float], seed: Optional[int] = None
+    ) -> List["DataFrame"]:
+        """Split rows by ``weights``, keeping partitions: each row draws
+        one ``random.Random(seed)`` number, in partition and row order, as
+        ``sparkdl_tpu.sql.dataframe.DataFrame.randomSplit`` does."""
+        rng = random.Random(seed)
+        total_w = float(sum(weights))
+        cum = []
+        acc = 0.0
+        for w in weights:
+            acc += w / total_w
+            cum.append(acc)
+        buckets: List[List[Partition]] = [[] for _ in weights]
+        names = self.columns
+        for part in self._partitions:
+            n = _partition_nrows(part)
+            assignment = [
+                next(i for i, c in enumerate(cum)
+                     if rng.random() <= c or i == len(cum) - 1)
+                for _ in range(n)
+            ]
+            for i in range(len(weights)):
+                buckets[i].append(
+                    {c: [v for v, a in zip(part[c], assignment) if a == i]
+                     for c in names}
+                )
+        return [self._with_partitions(b) for b in buckets]
 
     def mapPartitions(
         self,

@@ -94,6 +94,10 @@ class BinaryType(DataType):
     pass
 
 
+class IntegerType(DataType):
+    pass
+
+
 class LongType(DataType):
     pass
 

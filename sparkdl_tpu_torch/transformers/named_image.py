@@ -1,0 +1,368 @@
+"""DeepImageFeaturizer / DeepImagePredictor: named-CNN pipeline stages.
+
+Port of ``sparkdl_tpu.transformers.named_image``. Each batch of image-struct
+rows goes: stored-BGR uint8 (or float32) NHWC -> float32 -> bilinear resize
+to the model's input size -> the BGR -> RGB flip -> Keras
+``preprocess_input`` -> ``computeDtype`` -> the CNN in channels_last ->
+float32, on ``device`` (the card unless ``"cpu"`` is set). In ``"tf"``
+preprocessing the flip is folded into the stem conv's weights instead
+(:func:`~sparkdl_tpu_torch.models.registry.fold_bgr_flip_into_stem`).
+
+``modelWeights`` is a Flax variables tree of the JAX module (carried across
+by :func:`~sparkdl_tpu_torch.models.convert.inception_state_dict_from_flax`)
+or ``"random"``, drawn from a ``torch.Generator`` (seed 0) with the
+distributions of Flax's initialisers: not the JAX package's numbers.
+``"imagenet"`` (the default) and built Keras models are not accepted yet:
+without a Keras cache ``"imagenet"`` raises as the JAX package does, and
+with one it raises ``NotImplementedError`` (ROADMAP item 5). The JAX
+package's engine and AOT compile cache (ROADMAP item 9) have no counterpart:
+a small cache keeps the built module on its device from one transform to
+the next.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from sparkdl_tpu_torch.ml.base import Transformer
+from sparkdl_tpu_torch.ml.linalg import DenseVector
+from sparkdl_tpu_torch.models.convert import inception_state_dict_from_flax
+from sparkdl_tpu_torch.models.inception_v3 import Conv
+from sparkdl_tpu_torch.models.registry import (
+    SUPPORTED_MODELS,
+    decode_predictions,
+    fold_bgr_flip_into_stem,
+    get_keras_application_model,
+)
+from sparkdl_tpu_torch.param.base import Param, TypeConverters, keyword_only
+from sparkdl_tpu_torch.param.shared import HasDevice, HasInputCol, HasOutputCol
+from sparkdl_tpu_torch.sql.types import Row
+from sparkdl_tpu_torch.transformers.utils import (
+    DEFAULT_BATCH_SIZE,
+    cast_and_resize_on_device,
+    make_image_decode_plan,
+    run_batched_rows,
+)
+from sparkdl_tpu_torch.utils.device import resolve_device
+from sparkdl_tpu_torch.utils.lru import LRUCache
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# (modelName, "random") -> state_dict, shared across stages
+_WEIGHTS_CACHE = LRUCache(4)
+
+# (modelName, dtype, featurize, id(weights), device) -> (forward, weights):
+# keeps the module and its weights on the device from fit to transform;
+# the strong reference to the weights keeps their id from being reused
+_FORWARD_CACHE = LRUCache(8)
+
+_KERAS_PREFIX = {
+    "InceptionV3": "inception_v3",
+    "Xception": "xception",
+    "ResNet50": "resnet50",
+    "VGG16": "vgg16",
+    "VGG19": "vgg19",
+    "MobileNetV2": "mobilenet_v2",
+}
+
+
+def _imagenet_cache_present(model_name: str) -> bool:
+    cache = os.path.expanduser("~/.keras/models")
+    return bool(glob.glob(os.path.join(cache, f"{_KERAS_PREFIX[model_name]}*.h5")))
+
+
+def random_state_dict(module: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for ``module`` drawn from a ``torch.Generator``
+    seeded with ``seed``, with the distributions of Flax's initialisers:
+    conv and Dense weights lecun-normal (truncated at two deviations),
+    biases and BN means zero, BN variances one."""
+    gen = torch.Generator().manual_seed(int(seed))
+    state = {}
+    for name, t in module.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "var":
+            state[name] = torch.ones_like(t)
+        elif t.dim() == 1:
+            state[name] = torch.zeros_like(t)
+        else:
+            # variance_scaling(1, fan_in, truncated_normal): the constant
+            # undoes the truncation's shrinkage of the variance
+            std = (1.0 / t[0].numel()) ** 0.5 / 0.87962566103423978
+            w = torch.empty(t.shape)
+            torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+            state[name] = w
+    return state
+
+
+def _resolve_weights(model_name: str, spec) -> Any:
+    """``modelWeights`` -> a Flax variables tree or a ``state_dict``."""
+    entry = get_keras_application_model(model_name)
+    if spec is None or spec == "imagenet":
+        if _imagenet_cache_present(model_name):
+            raise NotImplementedError(
+                f"imagenet weights for {model_name}: porting the Keras cache "
+                "to PyTorch is not done yet (ROADMAP item 5). Pass "
+                "modelWeights= a Flax variables tree."
+            )
+        raise RuntimeError(
+            f"imagenet weights for {model_name} are unavailable (offline "
+            "and no local Keras cache). Pass modelWeights= a Flax variables "
+            "tree, or opt in to modelWeights='random' for deterministic "
+            "random initialization (testing/benchmarking only)."
+        )
+    if spec == "random":
+        key = (model_name, "random")
+        if key not in _WEIGHTS_CACHE:
+            _WEIGHTS_CACHE[key] = random_state_dict(entry.make_module())
+        return _WEIGHTS_CACHE[key]
+    if isinstance(spec, dict):
+        return spec
+    raise NotImplementedError(
+        f"modelWeights of type {type(spec).__name__}: a built Keras model is "
+        "not accepted yet (ROADMAP item 5); pass a Flax variables tree"
+    )
+
+
+def build_module(model_name: str, state: Dict[str, torch.Tensor],
+                 dtype: torch.dtype, device) -> torch.nn.Module:
+    """The named CNN as a stage runs it: ``state`` loaded strictly, the conv
+    and Dense weights held in ``dtype`` (the cast at each use is then a
+    no-op; batch norm stays float32), on ``device`` in channels_last, in
+    eval mode. Headless when ``state`` has no ``predictions``."""
+    entry = get_keras_application_model(model_name)
+    module = entry.make_module(dtype=dtype, include_top="predictions.weight" in state)
+    module.load_state_dict(state, strict=True)
+    for m in module.modules():
+        if isinstance(m, (Conv, torch.nn.Linear)):
+            m.to(dtype)
+    return module.to(device=device, memory_format=torch.channels_last).eval()
+
+
+class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
+    """Shared machinery: resize -> preprocess -> CNN forward on the device."""
+
+    modelName = Param(
+        "undefined",
+        "modelName",
+        "A deep learning model name. Supported: %s" % (sorted(SUPPORTED_MODELS),),
+        TypeConverters.toString,
+    )
+    modelWeights = Param(
+        "undefined",
+        "modelWeights",
+        "'imagenet', a Flax variables tree, or 'random' (explicit opt-in to "
+        "deterministic random init)",
+    )
+    batchSize = Param(
+        "undefined", "batchSize", "rows per device batch", TypeConverters.toInt
+    )
+    computeDtype = Param(
+        "undefined",
+        "computeDtype",
+        "on-device compute dtype: 'bfloat16' or 'float32'",
+        TypeConverters.toString,
+    )
+
+    _featurize: bool  # subclasses set
+
+    def setModelName(self, value):
+        return self._set(modelName=value)
+
+    def getModelName(self):
+        return self.getOrDefault(self.modelName)
+
+    def _validate_model_name(self):
+        name = self.getModelName()
+        if name not in SUPPORTED_MODELS:
+            raise ValueError(
+                f"Unsupported model name {name!r}; supported: "
+                f"{sorted(SUPPORTED_MODELS)}"
+            )
+        return name
+
+    def _build_forward(self, device: torch.device):
+        name = self._validate_model_name()
+        entry = get_keras_application_model(name)
+        dtype_name = self.getOrDefault(self.computeDtype)
+        if dtype_name not in _DTYPES:
+            raise ValueError(
+                f"computeDtype must be one of {sorted(_DTYPES)}, got {dtype_name!r}"
+            )
+        dtype = _DTYPES[dtype_name]
+        resolved = _resolve_weights(name, self.getOrDefault(self.modelWeights))
+        key = (name, dtype_name, self._featurize, id(resolved), str(device))
+        if key in _FORWARD_CACHE:
+            return _FORWARD_CACHE[key][0]
+
+        state = (resolved if "params" not in resolved
+                 else inception_state_dict_from_flax(resolved))
+        folded = fold_bgr_flip_into_stem(state, entry.preprocess_mode)
+        flip_in_forward = folded is None
+        module = build_module(name, state if folded is None else folded, dtype, device)
+        size = entry.input_size
+        preprocess = entry.preprocess
+        featurize = self._featurize  # local: don't pin self in the cache
+
+        def forward(x: torch.Tensor) -> torch.Tensor:
+            # x: uint8 or float32 NHWC in stored (BGR) order, at source size
+            with torch.inference_mode():
+                x = cast_and_resize_on_device(x, size)
+                if flip_in_forward:
+                    x = x.flip(-1)  # BGR -> RGB
+                x = preprocess(x)
+                x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+                return module(x.to(dtype), features_only=featurize).float()
+
+        _FORWARD_CACHE[key] = (forward, resolved)
+        return forward
+
+    def _transform(self, dataset):
+        input_col = self.getInputCol()
+        output_col = self.getOutputCol()
+        batch_size = self.getOrDefault(self.batchSize)
+        device = resolve_device(self.getDevice())
+        forward = self._build_forward(device)
+        size = get_keras_application_model(self.getModelName()).input_size
+
+        def process_partition(part):
+            rows = part[input_col]
+            out = dict(part)
+            if not rows:
+                out[output_col] = []
+                return out
+            # the decode policy (uint8 at source size, or float32 resized
+            # while packing) is decided over the whole partition
+            decode = make_image_decode_plan(rows, size, device=device)
+            result = run_batched_rows(forward, rows, decode, batch_size, device=device)
+            out[output_col] = self._postprocess(result)
+            return out
+
+        return dataset.mapPartitions(process_partition)
+
+
+class DeepImageFeaturizer(_NamedImageTransformer):
+    """The penultimate-layer features of a named CNN, for transfer
+    learning."""
+
+    _featurize = True
+
+    @keyword_only
+    def __init__(
+        self,
+        inputCol: Optional[str] = None,
+        outputCol: Optional[str] = None,
+        modelName: Optional[str] = None,
+        modelWeights: Any = None,
+        batchSize: int = DEFAULT_BATCH_SIZE,
+        computeDtype: str = "bfloat16",
+        device: Optional[str] = None,
+    ):
+        super().__init__()
+        self._setDefault(
+            modelWeights=None,
+            batchSize=DEFAULT_BATCH_SIZE,
+            computeDtype="bfloat16",
+            device=None,
+        )
+        kwargs = self._input_kwargs
+        self.setParams(**kwargs)
+
+    @keyword_only
+    def setParams(
+        self,
+        inputCol: Optional[str] = None,
+        outputCol: Optional[str] = None,
+        modelName: Optional[str] = None,
+        modelWeights: Any = None,
+        batchSize: int = DEFAULT_BATCH_SIZE,
+        computeDtype: str = "bfloat16",
+        device: Optional[str] = None,
+    ):
+        kwargs = self._input_kwargs
+        return self._set(**kwargs)
+
+    def _postprocess(self, result: np.ndarray):
+        return [DenseVector(v) for v in result.astype(np.float64)]
+
+
+class DeepImagePredictor(_NamedImageTransformer):
+    """A named CNN classifier; optionally decodes the top-K ImageNet
+    predictions."""
+
+    _featurize = False
+
+    decodePredictions = Param(
+        "undefined",
+        "decodePredictions",
+        "If true, output (class, description, probability) top-K tuples "
+        "instead of the raw prediction vector",
+        TypeConverters.toBoolean,
+    )
+    topK = Param(
+        "undefined",
+        "topK",
+        "number of predictions to keep when decodePredictions is true",
+        TypeConverters.toInt,
+    )
+
+    @keyword_only
+    def __init__(
+        self,
+        inputCol: Optional[str] = None,
+        outputCol: Optional[str] = None,
+        modelName: Optional[str] = None,
+        modelWeights: Any = None,
+        decodePredictions: bool = False,
+        topK: int = 5,
+        batchSize: int = DEFAULT_BATCH_SIZE,
+        computeDtype: str = "bfloat16",
+        device: Optional[str] = None,
+    ):
+        super().__init__()
+        self._setDefault(
+            modelWeights=None,
+            decodePredictions=False,
+            topK=5,
+            batchSize=DEFAULT_BATCH_SIZE,
+            computeDtype="bfloat16",
+            device=None,
+        )
+        kwargs = self._input_kwargs
+        self.setParams(**kwargs)
+
+    @keyword_only
+    def setParams(
+        self,
+        inputCol: Optional[str] = None,
+        outputCol: Optional[str] = None,
+        modelName: Optional[str] = None,
+        modelWeights: Any = None,
+        decodePredictions: bool = False,
+        topK: int = 5,
+        batchSize: int = DEFAULT_BATCH_SIZE,
+        computeDtype: str = "bfloat16",
+        device: Optional[str] = None,
+    ):
+        kwargs = self._input_kwargs
+        return self._set(**kwargs)
+
+    def _postprocess(self, result: np.ndarray):
+        # softmax over the logits (the Keras top layer's activation)
+        z = result - result.max(axis=1, keepdims=True)
+        probs = np.exp(z)
+        probs /= probs.sum(axis=1, keepdims=True)
+        if not self.getOrDefault(self.decodePredictions):
+            return [DenseVector(p) for p in probs.astype(np.float64)]
+        decoded = decode_predictions(probs, top=self.getOrDefault(self.topK))
+        return [
+            [
+                Row(**{"class": wnid, "description": label, "probability": p})
+                for wnid, label, p in entries
+            ]
+            for entries in decoded
+        ]

@@ -1,23 +1,210 @@
-"""The batched inference loop of the port's transformers.
+"""The batched inference loop of the port's transformers, and the image
+decode and resize in front of it.
 
-Ports ``make_loader_decode_plan`` and ``run_batched_rows`` of
-``sparkdl_tpu.transformers.utils``. The JAX loop padded the ragged last chunk
-to ``batch_size`` so that XLA compiled one static shape; PyTorch runs
-eagerly, so the last chunk runs at its own size and every row still comes
-back once, in input order.
+Ports of ``sparkdl_tpu.transformers.utils``:
+
+- ``make_loader_decode_plan`` and ``run_batched_rows``. The JAX loop padded
+  the ragged last chunk to ``batch_size`` so that XLA compiled one static
+  shape; PyTorch runs eagerly, so the last chunk runs at its own size and
+  every row still comes back once, in input order;
+- ``decode_image_batch`` and ``make_image_decode_plan`` on their numpy
+  paths: uint8 rows of one size pack as uint8 at source size, anything else
+  packs as float32, resized while packing where the sizes are mixed. They
+  give three channels in stored (BGR) order: the reference's ``to_rgb``
+  and one-channel options wait for the Keras image UDF (ROADMAP items
+  6-7). The C++ ``native/batchpack.cpp`` bridge is not ported yet (ROADMAP
+  item 13);
+- ``device_resize`` and ``cast_and_resize_on_device``. The resize is
+  ``jax.image.resize(..., "bilinear")``'s: half-pixel centers, a triangle
+  kernel widened by the downscale factor (antialiasing), weights
+  renormalised per output cell. :func:`resize_weights` builds its two
+  weight matrices in numpy, as ``jax._src.image.scale.compute_weight_mat``
+  does, and :func:`resize_bilinear` applies them as two matrix products on
+  the batch's device. Shape groups always resize on the device: with no
+  compile per shape there is no host fallback to take.
 """
 
 from __future__ import annotations
 
+import functools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch.image import imageIO
+from sparkdl_tpu_torch.utils.device import resolve_device
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 DEFAULT_BATCH_SIZE = 32
+
+#: image-struct modes whose pixel data is uint8 (CV_8UC1/3/4)
+_U8_MODES = frozenset({0, 16, 24})
+
+
+class MixedImageSizesError(ValueError):
+    """A partition mixes (H, W) shapes and no target size is configured."""
+
+
+def normalize_channels(img: np.ndarray) -> np.ndarray:
+    """Coerce an HWC array to 3 channels (replicate gray, drop alpha) so a
+    partition with mixed image modes still forms one batch."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    c = img.shape[-1]
+    if c == 3:
+        return img
+    if c == 1:
+        return np.repeat(img, 3, axis=-1)
+    if c == 4:
+        return img[:, :, :3]
+    raise ValueError(f"Cannot convert image with {c} channels to 3 channels")
+
+
+@functools.lru_cache(maxsize=32)
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The ``(in_size, out_size)`` float32 weights of
+    ``jax.image.resize(method="bilinear", antialias=True)`` along one axis
+    (scale ``out_size / in_size``, no translation). Read-only."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = np.float32(max(inv_scale, 1.0))
+    sample_f = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+                * np.float32(inv_scale) - np.float32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None])
+    weights = np.maximum(np.float32(0), np.float32(1) - x / kernel_scale)
+    total = weights.sum(axis=0, keepdims=True)
+    keep = np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps)
+    weights = np.where(keep, weights / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    weights = np.where(inside[None, :], weights, 0).astype(np.float32)
+    weights.setflags(write=False)
+    return weights
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize a float NHWC batch to ``size`` on its own device, as
+    ``jax.image.resize(x, (n, h, w, c), "bilinear")``: one matrix product per
+    axis whose size changes."""
+    height, width = int(size[0]), int(size[1])
+    if x.shape[1] != height:
+        w = torch.tensor(resize_weights(x.shape[1], height), dtype=x.dtype, device=x.device)
+        x = torch.einsum("nhwc,hk->nkwc", x, w)
+    if x.shape[2] != width:
+        w = torch.tensor(resize_weights(x.shape[2], width), dtype=x.dtype, device=x.device)
+        x = torch.einsum("nhwc,wk->nhkc", x, w)
+    return x
+
+
+def device_resize(
+    images: Sequence[np.ndarray], size: Tuple[int, int], device=None
+) -> np.ndarray:
+    """Resize a list of HWC float arrays to ``size`` and stack them; images
+    of one source shape resize together on ``device`` (``None``: the card),
+    images already at ``size`` pass through. Advances the
+    ``sparkdl.resize`` timer."""
+    device = resolve_device(device)
+    height, width = int(size[0]), int(size[1])
+    with metrics.timer("sparkdl.resize").time():
+        out: List[Optional[np.ndarray]] = [None] * len(images)
+        groups: Dict[Tuple[int, ...], List[int]] = {}
+        for i, img in enumerate(images):
+            groups.setdefault(tuple(img.shape), []).append(i)
+        for shape, idxs in groups.items():
+            batch = np.stack([np.asarray(images[i], dtype=np.float32) for i in idxs])
+            if shape[:2] != (height, width):
+                batch = resize_bilinear(
+                    torch.from_numpy(batch).to(device), (height, width)
+                ).cpu().numpy()
+            for j, i in enumerate(idxs):
+                out[i] = batch[j]
+        return np.stack(out)
+
+
+def decode_image_batch(
+    rows: Sequence,
+    target_hw: Optional[Tuple[int, int]] = None,
+    always_resize: bool = False,
+    prefer_uint8: bool = False,
+    device=None,
+) -> np.ndarray:
+    """Decode image-struct Rows into one 3-channel NHWC batch, in stored
+    (BGR) channel order.
+
+    Rows of one (H, W) pack at source size (the caller's forward resizes);
+    with ``prefer_uint8`` and uint8 rows they pack as uint8, a quarter of
+    the bytes to the card. Mixed sizes (or ``always_resize``) pack as
+    float32 resized to ``target_hw`` on ``device`` (``None``: the card);
+    ``target_hw=None`` requires one size. Advances ``sparkdl.decode``."""
+    hws = {(int(r["height"]), int(r["width"])) for r in rows}
+    uniform = len(hws) == 1
+    source_hw = next(iter(hws)) if uniform else None
+    if not uniform and target_hw is None:
+        raise MixedImageSizesError(
+            f"partition mixes image sizes {sorted(hws)} and no target size "
+            "is configured; resize upstream or set an input size"
+        )
+    if uniform and not (always_resize and target_hw is not None):
+        out_hw = source_hw
+    else:
+        out_hw = (int(target_hw[0]), int(target_hw[1]))
+    metrics.counter("sparkdl.images_processed").add(len(rows))
+
+    if (prefer_uint8 and out_hw == source_hw
+            and all(int(r["mode"]) in _U8_MODES for r in rows)):
+        with metrics.timer("sparkdl.decode").time():
+            return np.stack([normalize_channels(imageIO.imageStructToArray(r))
+                             for r in rows])
+
+    with metrics.timer("sparkdl.decode").time():
+        images = [
+            normalize_channels(imageIO.imageStructToArray(r).astype(np.float32))
+            for r in rows
+        ]
+    return device_resize(images, out_hw, device)
+
+
+def make_image_decode_plan(
+    rows: Sequence,
+    size: Optional[Tuple[int, int]],
+    device=None,
+) -> Callable[[Sequence], np.ndarray]:
+    """One decode policy for a whole partition, for :func:`run_batched_rows`.
+
+    Pack at source size or resize while packing, uint8 or float32: decided
+    over ALL rows, so no two chunks of one partition reach the forward in
+    two dtypes or shapes. Raises :class:`MixedImageSizesError` when the
+    partition mixes sizes and ``size`` is None. ``device=None`` resizes
+    on the card."""
+    device = resolve_device(device)
+    hws = {(int(r["height"]), int(r["width"])) for r in rows}
+    uniform = len(hws) == 1
+    if not uniform and size is None:
+        raise MixedImageSizesError(
+            f"partition mixes image sizes {sorted(hws)} and no target size "
+            "is configured; resize upstream or set an input size"
+        )
+    prefer_u8 = uniform and all(int(r["mode"]) in _U8_MODES for r in rows)
+
+    def decode(chunk):
+        return decode_image_batch(
+            chunk, size, prefer_uint8=prefer_u8, always_resize=not uniform,
+            device=device,
+        )
+
+    return decode
+
+
+def cast_and_resize_on_device(
+    x: torch.Tensor, size: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
+    """The device half of :func:`decode_image_batch`: cast an NHWC batch
+    (uint8 ingest) to float32 and resize it to ``size`` when it arrived at
+    source size."""
+    x = x.float()
+    if size is not None and tuple(x.shape[1:3]) != (int(size[0]), int(size[1])):
+        x = resize_bilinear(x, size)
+    return x
 
 
 def make_loader_decode_plan(

@@ -204,6 +204,15 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.estimators.losses",
         "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
         "sparkdl_tpu_torch.parallel.trainer",
+        "sparkdl_tpu_torch.image.imageIO",
+        "sparkdl_tpu_torch.ml.classification",
+        "sparkdl_tpu_torch.ml.evaluation",
+        "sparkdl_tpu_torch.ml.pipeline",
+        "sparkdl_tpu_torch.ml.util",
+        "sparkdl_tpu_torch.models.inception_v3",
+        "sparkdl_tpu_torch.models.layers",
+        "sparkdl_tpu_torch.models.registry",
+        "sparkdl_tpu_torch.transformers.named_image",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
