@@ -69,6 +69,31 @@ prints no result):
    featurizer's images/s (median of 5 transforms) with its
    ``sparkdl.decode``, ``sparkdl.resize`` and ``sparkdl.forward`` timers,
    and the LR fit.
+8. CNN zoo: ``DeepImageFeaturizer`` over phase 7's 128 image structs for
+   each of ResNet50, VGG16, VGG19, MobileNetV2 and Xception (224x224;
+   Xception 299x299 at the registry's ``middle_width=768``, its Keras-width
+   728 tree zero-padded on the way) in bf16 and float32 at batch 32, from
+   seeded random weights in the Flax layout (``flax_layout_zoo_params``)
+   carried across by the registry's converter; ``DeepImagePredictor`` on
+   ResNet50 ("caffe", the flip in the forward) and MobileNetV2 ("tf", the
+   flip folded into the stem) with the top-5 decode; Xception at both widths;
+   and ``CrossValidator`` over ``Pipeline([DeepImageFeaturizer(modelWeights=
+   "random"), LogisticRegression(maxIter=30)])`` with a 2x2 grid over
+   ``modelName`` (ResNet50, MobileNetV2) and ``regParam`` (0, 0.01),
+   ``numFolds=2``, ``parallelism=2``, on phase 7's 0.75 split. The attention
+   kernels' launches over the path must be none. Checks: rows out = rows
+   in, the registry's feature widths, finite features not all zero; float32
+   card against CPU at ``SLICE_TOL`` on 4 uniform rows and a mixed
+   partition; bf16 within ``CNN_BF16_MAX_REL`` of the largest float32
+   feature; the predictors' probabilities card against CPU at
+   ``PROB_TOL``, summing to 1, 5 decoded entries a row; Xception 728 (the
+   tree as it is) against 768 (padded) at ``SLICE_TOL``; the sweep's
+   ``avgMetrics`` equal at ``parallelism`` 1 and 2, its best model the
+   grid's arg-max, its ``CrossValidatorModel`` saved and loaded giving the
+   same predictions and features bit for bit. Timed per model: the forward
+   at batch 32 in bf16 and float32, its operations (convolutions, depthwise
+   and separable ones, Dense layers) and share of the bf16 dense peak, a
+   profile, and the featurizer's images/s; both Xception widths; the sweep.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -78,6 +103,7 @@ products and convolutions run in full float32 (TF32 off) throughout.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -127,6 +153,11 @@ CNN_BF16_MAX_REL = 3e-2
 # float32: the same sums in the stem's other channel order, float rounding
 # (tests/test_models.py's Keras-oracle bound)
 CNN_FOLD_TOL = dict(atol=1e-4, rtol=1e-4)
+# a float32 predictor's probabilities, card against CPU: the logits'
+# float32 roundoff (~1e-6 of each) carried through the softmax, relative to
+# each probability (1000 classes average 1e-3, so SLICE_TOL's absolute 5e-4
+# would hide an error of half a typical value)
+PROB_TOL = dict(atol=1e-6, rtol=1e-4)
 # red- against blue-dominant images, linearly apart in any features: the
 # fitted head must do better than chance
 CNN_MIN_ACCURACY = 0.75
@@ -603,20 +634,30 @@ def cnn_image_rows(n: int, seed: int):
 
 
 def conv_flops(module, x) -> float:
-    """Operations of one forward of ``module`` on ``x``: 2 per multiply-add
-    of every convolution (from its weight and output shapes) and of the
-    Dense, when it runs."""
+    """Operations of one featurizing forward of ``module`` on ``x``: 2 per
+    multiply-add, counted from the shapes of what ran: every convolution
+    (``weight[0].numel()`` multiply-adds per output, right for grouped and
+    depthwise ones), every separable convolution (its depthwise and its
+    pointwise parts, per output pixel) and every Dense (``nn.Linear``, such
+    as VGG's fc1 and fc2)."""
     import torch
 
-    from sparkdl_tpu_torch.models.inception_v3 import Conv
+    from sparkdl_tpu_torch.models.layers import Conv, SeparableConv
 
     total = [0.0]
 
-    def conv_hook(mod, _inp, out):
-        total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+    def hook(mod, _inp, out):
+        if isinstance(mod, SeparableConv):
+            pixels = out.numel() // out.shape[1]
+            dw, pw = mod.depthwise_kernel, mod.pointwise_kernel
+            total[0] += 2.0 * pixels * (dw.numel() + pw.numel())
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * mod.in_features
+        else:
+            total[0] += 2.0 * out.numel() * mod.weight[0].numel()
 
-    hooks = [m.register_forward_hook(conv_hook) for m in module.modules()
-             if isinstance(m, Conv)]
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (Conv, SeparableConv, torch.nn.Linear))]
     try:
         with torch.inference_mode():
             module(x, features_only=True)
@@ -671,6 +712,76 @@ def lr_leaf_errors(got, want):
     return errs
 
 
+def nchw(t):
+    """NHWC -> NCHW in channels_last memory, as the stages feed the CNNs."""
+    import torch
+
+    return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+
+def cnn_forward_times(name: str, state, x, card: str):
+    """The named CNN's featurizing forward at batch ``CNN_BATCH`` on the
+    card, built by ``build_module`` from ``state`` as the stages build it, on
+    ``x`` (RGB NHWC float32 at the input size, on the card) after the
+    entry's preprocessing: bf16 and float32 times (CUDA events, TF32 off),
+    the operations (``conv_flops``), the bf16 bound (the larger of the
+    operations at the bf16 dense peak and the weights, input and output,
+    each moved once, at the HBM rate), the share of the bf16 peak, and a
+    profile of the bf16 forward, all logged."""
+    import torch
+
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.transformers.named_image import build_module
+
+    entry = get_keras_application_model(name)
+    dev = torch.device("cuda")
+    xb = nchw(entry.preprocess(x))
+    xb16 = xb.to(torch.bfloat16)
+    f32 = build_module(name, state, torch.float32, dev)
+    bf16 = build_module(name, state, torch.bfloat16, dev)
+    flops = conv_flops(bf16, xb16)
+    with torch.inference_mode():
+        fwd_bf16 = time_ms(lambda: bf16(xb16, features_only=True), iters=10)
+        fwd_f32 = time_ms(lambda: f32(xb, features_only=True), iters=5)
+    weight_bytes = sum(t.numel() * t.element_size() for t in bf16.state_dict().values())
+    moved = weight_bytes + xb16.numel() * 2 + CNN_BATCH * entry.feature_size * 2
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    share = flops / (fwd_bf16 * 1e-3) / PEAK_FLOPS["bfloat16"]
+    h, w = entry.input_size
+    log(f"{name} forward at batch {CNN_BATCH}, {h}x{w}, features ({card}): bf16 "
+        f"{fwd_bf16:.3f} ms, float32 {fwd_f32:.3f} ms; {flops / CNN_BATCH / 1e9:.3f} GFLOP "
+        f"per image, {moved / 1e6:.1f} MB moved; bf16 bound {bound_ms:.4f} ms ({bound_by}; "
+        f"operations {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms), "
+        f"{100 * share:.2f}% of the bf16 dense peak")
+    with torch.inference_mode():
+        profile_forward(lambda: bf16(xb16, features_only=True), fwd_bf16)
+    del f32, bf16
+    torch.cuda.empty_cache()
+
+
+def featurizer_rate(stage, df, label: str, card: str) -> None:
+    """Images through ``stage.transform(df).collect()`` per second, module
+    cached and decode paths warm: 5 transforms, each logged, with their
+    median and the ``sparkdl.*`` timers over the 5."""
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    n = df.count()
+    stage.transform(df).collect()
+    walls = []
+    metrics.reset()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        stage.transform(df).collect()
+        walls.append(time.perf_counter() - t0)
+    median = n / float(np.median(walls))
+    log(f"featurizer images/s ({label}, batch {CNN_BATCH}, {n} images in "
+        f"{df.getNumPartitions()} partitions, one mixed, {card}): "
+        + ", ".join(f"{n / w:.1f}" for w in walls) + f"; median {median:.1f}")
+    log("  " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.snapshot("sparkdl.").items())))
+
+
 def cnn_pipeline(card: str, counted):
     """Phase 7: the transfer-learning pipeline on the card, InceptionV3
     (299x299, 2048-d features, bf16) -> LogisticRegression in a Pipeline,
@@ -691,7 +802,6 @@ def cnn_pipeline(card: str, counted):
     from sparkdl_tpu_torch.ml.classification import train_logistic_regression
     from sparkdl_tpu_torch.sql.session import TorchSession
     from sparkdl_tpu_torch.transformers.named_image import build_module
-    from sparkdl_tpu_torch.utils.metrics import metrics
 
     tree = flax_layout_inception_params(seed=3)
     session = TorchSession.builder.appName("chip_smoke").getOrCreate()
@@ -790,9 +900,6 @@ def cnn_pipeline(card: str, counted):
     folded = build_module("InceptionV3", fold_bgr_flip_into_stem(state, "tf"),
                           torch.float32, dev)
 
-    def nchw(t):
-        return t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-
     with torch.inference_mode():
         want = plain(nchw(preprocess_input(x.flip(-1), "tf")), features_only=True)
         got = folded(nchw(preprocess_input(x, "tf")), features_only=True)
@@ -801,36 +908,9 @@ def cnn_pipeline(card: str, counted):
     log(f"  BGR flip folded into the stem vs flipped in the forward: max abs err {fold_err:.3e}")
 
     # times on the card (CUDA events; TF32 off)
-    bf16 = build_module("InceptionV3", state, torch.bfloat16, dev)
-    xb = nchw(preprocess_input(x, "tf"))
-    xb16 = xb.to(torch.bfloat16)
-    flops = conv_flops(bf16, xb16)
-    with torch.inference_mode():
-        fwd_bf16 = time_ms(lambda: bf16(xb16, features_only=True), iters=10)
-        fwd_f32 = time_ms(lambda: plain(xb, features_only=True), iters=5)
-    weight_bytes = sum(t.numel() * t.element_size() for t in bf16.state_dict().values())
-    bound_ms = max(flops / PEAK_FLOPS["bfloat16"],
-                   (weight_bytes + xb16.numel() * 2 + CNN_BATCH * 2048 * 2) / PEAK_BYTES_PER_S) * 1e3
-    share = flops / (fwd_bf16 * 1e-3) / PEAK_FLOPS["bfloat16"]
-    log(f"InceptionV3 forward at batch {CNN_BATCH}, 299x299, features ({card}): bf16 "
-        f"{fwd_bf16:.3f} ms, float32 {fwd_f32:.3f} ms; {flops / CNN_BATCH / 1e9:.3f} GFLOP "
-        f"per image, bf16 bound {bound_ms:.4f} ms (operations), "
-        f"{100 * share:.2f}% of the bf16 dense peak")
-    with torch.inference_mode():
-        profile_forward(lambda: bf16(xb16, features_only=True), fwd_bf16)
-    stage = DeepImageFeaturizer(**featurize, computeDtype="bfloat16")
-    stage.transform(df).collect()  # the module is cached; decode paths warm
-    walls = []
-    metrics.reset()
-    for _ in range(5):
-        t0 = time.perf_counter()
-        stage.transform(df).collect()
-        walls.append(time.perf_counter() - t0)
-    log(f"featurizer images/s (InceptionV3 bf16, batch {CNN_BATCH}, {CNN_IMAGES} images in "
-        f"4 partitions, one mixed, {card}): "
-        + ", ".join(f"{CNN_IMAGES / w:.1f}" for w in walls)
-        + f"; median {CNN_IMAGES / float(np.median(walls)):.1f}")
-    log("  " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.snapshot("sparkdl.").items())))
+    cnn_forward_times("InceptionV3", state, x, card)
+    featurizer_rate(DeepImageFeaturizer(**featurize, computeDtype="bfloat16"), df,
+                    "InceptionV3 bf16", card)
     fit_walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -844,6 +924,253 @@ def cnn_pipeline(card: str, counted):
     log(f"LogisticRegression fit ({xs.shape[0]} x 2048, 30 adam steps, {card}): fit "
         f"{1e3 * float(np.median(fit_walls)):.2f} ms (median of 3, collect included), "
         f"the 30 steps {train_ms:.2f} ms")
+
+
+ZOO = ("ResNet50", "VGG16", "VGG19", "MobileNetV2", "Xception")
+# the batch norms that end a residual branch: ResNet50's _3_bn, Xception's
+# middle-flow sepconv3_bn, MobileNetV2's _project_BN
+RESIDUAL_END = re.compile(r"(_3_bn|sepconv3_bn|_project_BN)$")
+# the stem kernels of the "caffe" models (ResNet50, VGG16, VGG19)
+CAFFE_STEMS = ("conv1_conv.weight", "block1_conv1.weight")
+
+
+def flax_layout_zoo_params(name: str, seed: int):
+    """Random weights (1000 classes) of a zoo model in the Flax layout, made
+    from the shapes of the port's module through the inverse converter (for
+    Xception at Keras's 728, so that the registry's 768-wide module pads
+    it): conv kernels He-normal (a separable
+    conv's depthwise kernel at gain 1: no relu comes before its pointwise
+    conv), BN scales and variances 1 + 0.1|n| (not a 0.1-wide draw: 50 units
+    of scale ~0.1 drive the features to 0), means and biases 0.1 n, the
+    Dense at 1/sqrt(in). The batch norm that ends a residual branch
+    (``RESIDUAL_END``) has a fifth of that scale: with it near 1 the residual
+    sums double the variance block after block, ResNet50's features reach
+    3e3 and Xception's 8e5, and MobileNetV2's bf16 features part from its
+    float32 ones by 16% of the largest in the JAX package and the port alike
+    (tests/test_torch_zoo.py). A "caffe" model's stem kernel (``CAFFE_STEMS``)
+    is at 1/128 of He's, as if its inputs (+-128 after the mean) were scaled
+    to unit order like "tf" ones: otherwise its features reach 900
+    (ResNet50) and 500 (VGG19), and float32 rounding at 1e-6 of that is above
+    ``SLICE_TOL``'s absolute 5e-4."""
+    import torch
+
+    from sparkdl_tpu_torch.models.convert import cnn_flax_from_state_dict
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.models.xception import Xception
+
+    rng = np.random.default_rng(seed)
+    entry = get_keras_application_model(name)
+    caffe = entry.preprocess_mode == "caffe"
+    with torch.device("meta"):
+        module = (Xception(middle_width=728) if name == "Xception"
+                  else entry.make_module())
+    state = {}
+    for key, t in module.state_dict().items():
+        layer, leaf = key.rsplit(".", 1)
+        shape = tuple(t.shape)
+        if leaf in ("var", "scale"):
+            v = 1 + 0.1 * np.abs(rng.standard_normal(shape, dtype=np.float32))
+            state[key] = v * np.float32(0.2) if leaf == "scale" and RESIDUAL_END.search(layer) else v
+            continue
+        if len(shape) == 4:
+            std = ((1.0 if leaf == "depthwise_kernel" else 2.0) / np.prod(shape[1:])) ** 0.5
+            if caffe and key in CAFFE_STEMS:
+                std /= 128
+        elif len(shape) == 2:
+            std = shape[1] ** -0.5
+        else:
+            std = 0.1
+        state[key] = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+    return cnn_flax_from_state_dict(state)
+
+
+def cnn_zoo(card: str, counted):
+    """Phase 8: the rest of the CNN zoo on the card. For each of ResNet50,
+    VGG16, VGG19, MobileNetV2 and Xception, ``DeepImageFeaturizer`` over
+    phase 7's 128 image structs (4 partitions, one mixed) at batch 32 in
+    bf16 and float32, from a seeded Flax-layout tree carried across by the
+    registry's converter (Xception's at Keras's 728, padded to the
+    registry's 768); ``DeepImagePredictor`` on ResNet50 ("caffe") and
+    MobileNetV2 ("tf", flip folded into the stem); Xception at both widths;
+    and a ``CrossValidator`` sweep over the backbone. Checks: rows out =
+    rows in, the registry's feature width, finite features not all zero;
+    float32 card against a CPU run at ``SLICE_TOL`` on 4 uniform rows and a
+    mixed partition; bf16 within ``CNN_BF16_MAX_REL`` of the largest float32
+    feature; probabilities card against CPU at ``PROB_TOL``, rows summing
+    to 1, 5 decoded entries; the two Xception widths at ``SLICE_TOL``; the
+    sweep's ``avgMetrics`` equal at ``parallelism`` 2 and 1, its best model
+    the grid's arg-max, its save and load equal bit for bit; no attention
+    launch over the path. Times: each forward (bf16, float32, share of the
+    bf16 peak, profile), the featurizer's images/s, both Xception widths,
+    the sweep's fit. ``counted`` is the (reset, read) pair of the kernels'
+    launch counts."""
+    import torch
+
+    from sparkdl_tpu_torch import (
+        CrossValidator,
+        CrossValidatorModel,
+        DeepImageFeaturizer,
+        DeepImagePredictor,
+        LogisticRegression,
+        MulticlassClassificationEvaluator,
+        ParamGridBuilder,
+        Pipeline,
+    )
+    from sparkdl_tpu_torch.models.convert import cnn_state_dict_from_flax
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.models.xception import Xception
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.named_image import load_module
+
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    rows = cnn_image_rows(CNN_IMAGES, seed=0)
+    df = session.createDataFrame(rows, numPartitions=4)
+    images = [r["image"] for r in rows]
+    small = [im for im in images if im["height"] == 96]
+    large = [im for im in images if im["height"] == 240]
+    frames = {what: session.createDataFrame([{"image": im} for im in picked], numPartitions=1)
+              for what, picked in (("uniform 96x96", small[:4]),
+                                   ("mixed 96x96 + 240x320", small[:2] + large[:2]))}
+    trees = {name: flax_layout_zoo_params(name, seed=10 + i) for i, name in enumerate(ZOO)}
+
+    # the main path, counted: each backbone's bf16 featurizer over the 128
+    # rows, the two predictors and the sweep
+    counted[0]()
+    bf16_feats = {}
+    for name in ZOO:
+        entry = get_keras_application_model(name)
+        stage = DeepImageFeaturizer(inputCol="image", outputCol="features", modelName=name,
+                                    modelWeights=trees[name], batchSize=CNN_BATCH)
+        t0 = time.perf_counter()
+        out = stage.transform(df).collect()
+        first_s = time.perf_counter() - t0
+        feats = rows_array(out)
+        if len(out) != CNN_IMAGES or feats.shape != (CNN_IMAGES, entry.feature_size):
+            raise AssertionError(f"{name}: {len(out)} rows of {feats.shape} for {CNN_IMAGES}")
+        if not np.isfinite(feats).all() or not np.abs(feats).max() > 0:
+            raise AssertionError(f"{name}: features not finite or all zero")
+        bf16_feats[name] = feats
+        log(f"zoo {name} bf16 featurizer: {len(out)} rows x {feats.shape[1]}, first transform "
+            f"(module built) {first_s:.2f} s, largest |feature| {np.abs(feats).max():.3f}")
+
+    for name in ("ResNet50", "MobileNetV2"):
+        args = dict(inputCol="image", outputCol="preds", modelName=name,
+                    modelWeights=trees[name], batchSize=CNN_BATCH)
+        few = frames["uniform 96x96"]
+        on_card = np.stack([r["preds"].toArray() for r in DeepImagePredictor(
+            **args, computeDtype="float32").transform(few).collect()])
+        on_cpu = np.stack([r["preds"].toArray() for r in DeepImagePredictor(
+            **args, computeDtype="float32", device="cpu").transform(few).collect()])
+        np.testing.assert_allclose(on_card, on_cpu, **PROB_TOL)
+        np.testing.assert_allclose(on_card.sum(axis=1), 1.0, rtol=1e-5)
+        decoded = DeepImagePredictor(**args, decodePredictions=True, topK=5).transform(df).collect()
+        if len(decoded) != CNN_IMAGES or any(len(r["preds"]) != 5 for r in decoded):
+            raise AssertionError(f"{name}: the bf16 top-5 decode gave other rows")
+        log(f"zoo {name} predictor: float32 probabilities card vs CPU (4 images) max abs err "
+            f"{np.abs(on_card - on_cpu).max():.3e}, rows sum to 1 within "
+            f"{np.abs(on_card.sum(axis=1) - 1).max():.1e}; bf16 top-5 decode of {len(decoded)} "
+            f"rows, first {decoded[0]['preds'][0]['description']!r}")
+
+    train, test = df.randomSplit([0.75, 0.25], seed=7)
+    featurizer = DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                     modelName="ResNet50", modelWeights="random",
+                                     batchSize=CNN_BATCH)
+    lr = LogisticRegression(featuresCol="features", labelCol="label", maxIter=30)
+    grid = (ParamGridBuilder().addGrid(featurizer.modelName, ["ResNet50", "MobileNetV2"])
+            .addGrid(lr.regParam, [0.0, 0.01]).build())
+    evaluator = MulticlassClassificationEvaluator(labelCol="label", predictionCol="prediction",
+                                                  metricName="accuracy")
+    cv = CrossValidator(estimator=Pipeline(stages=[featurizer, lr]), estimatorParamMaps=grid,
+                        evaluator=evaluator, numFolds=2, parallelism=2, seed=7)
+    t0 = time.perf_counter()
+    cv_model = cv.fit(train)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    scored = cv_model.transform(test)
+    pred = scored.collect()
+    accuracy = evaluator.evaluate(scored)
+    launches = counted[1]()
+    if any(launches.values()):
+        raise AssertionError(f"the CNN zoo launched attention kernels: {launches}")
+    best = int(np.argmax(cv_model.avgMetrics))
+    best_name = cv_model.bestModel.stages[0].getModelName()
+    log(f"zoo sweep: CrossValidator(Pipeline([DeepImageFeaturizer(random), "
+        f"LogisticRegression(maxIter=30)]), modelName x regParam 2x2, numFolds=2, "
+        f"parallelism=2) on {train.count()} rows in {sweep_s:.2f} s ({card}); avgMetrics "
+        f"{cv_model.avgMetrics}, best {best} ({best_name}), test accuracy {accuracy:.4f} on "
+        f"{len(pred)} rows; attention launches over phase 8's path {launches} (none)")
+    if best_name != grid[best][featurizer.modelName]:
+        raise AssertionError(f"best model {best_name} is not the grid's arg-max {grid[best]}")
+    t0 = time.perf_counter()
+    serial = cv.copy({cv.parallelism: 1}).fit(train)
+    serial_s = time.perf_counter() - t0
+    if serial.avgMetrics != cv_model.avgMetrics:
+        raise AssertionError(f"parallelism 1 gives {serial.avgMetrics}, "
+                             f"2 gives {cv_model.avgMetrics}")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cv-") as tmp:
+        cv_model.write().overwrite().save(tmp)
+        re_pred = CrossValidatorModel.load(tmp).transform(test).collect()
+    if [r["prediction"] for r in re_pred] != [r["prediction"] for r in pred] or \
+            not np.array_equal(rows_array(re_pred), rows_array(pred)):
+        raise AssertionError("the reloaded CrossValidatorModel predicts otherwise")
+    log(f"  parallelism=1 gives the same avgMetrics in {serial_s:.2f} s; the reloaded "
+        "CrossValidatorModel gives the same predictions and features bit for bit")
+
+    # each backbone: float32 on the card against bf16 and against the CPU,
+    # then its times
+    dev = torch.device("cuda")
+    for name in ZOO:
+        entry = get_keras_application_model(name)
+        args = dict(inputCol="image", outputCol="features", modelName=name,
+                    modelWeights=trees[name], batchSize=CNN_BATCH, computeDtype="float32")
+        f32 = rows_array(DeepImageFeaturizer(**args).transform(df).collect())
+        bf16_err = np.abs(bf16_feats[name] - f32).max()
+        if not bf16_err <= CNN_BF16_MAX_REL * np.abs(f32).max():
+            raise AssertionError(f"{name}: bf16 features {bf16_err:.3e} from float32")
+        errs = []
+        for what, few in frames.items():
+            on_card = rows_array(DeepImageFeaturizer(**args).transform(few).collect())
+            on_cpu = rows_array(DeepImageFeaturizer(**args, device="cpu").transform(few)
+                                .collect())
+            np.testing.assert_allclose(on_card, on_cpu, **SLICE_TOL)
+            errs.append(f"{what} {np.abs(on_card - on_cpu).max():.3e}")
+        log(f"zoo {name}: bf16 vs float32 features max abs err {bf16_err:.3e} "
+            f"({bf16_err / np.abs(f32).max():.3e} of the largest, {np.abs(f32).max():.3f}; "
+            f"bound {CNN_BF16_MAX_REL}); float32 card vs CPU (4 images): " + ", ".join(errs))
+        h, w = entry.input_size
+        x = torch.from_numpy(np.random.default_rng(4).uniform(
+            0, 255, (CNN_BATCH, h, w, 3)).astype(np.float32)).to(dev)
+        cnn_forward_times(name, entry.state_dict_from_flax(trees[name]), x, card)
+        featurizer_rate(DeepImageFeaturizer(**{**args, "computeDtype": "bfloat16"}), df,
+                        f"{name} bf16", card)
+
+    # Xception at Keras's 728 (the tree as it is) against the registry's 768
+    # (the tree zero-padded): the same features, two times
+    with torch.device("meta"):
+        narrow = Xception(middle_width=728)
+    states = {728: cnn_state_dict_from_flax(trees["Xception"], narrow),
+              768: get_keras_application_model("Xception").state_dict_from_flax(trees["Xception"])}
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        -1, 1, (CNN_BATCH, 299, 299, 3)).astype(np.float32)).to(dev)
+    outs, times = {}, {}
+    for width, state in states.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            with torch.device("meta"):
+                module = Xception(middle_width=width, dtype=dtype)
+            module = load_module(module, state, dtype, dev)
+            xin = nchw(x).to(dtype)
+            with torch.inference_mode():
+                outs[width, dtype] = module(xin, features_only=True).float().cpu().numpy()
+                times[width, dtype] = time_ms(lambda: module(xin, features_only=True),
+                                              iters=10 if dtype == torch.bfloat16 else 5)
+            del module
+    np.testing.assert_allclose(outs[728, torch.float32], outs[768, torch.float32], **SLICE_TOL)
+    log(f"zoo Xception widths ({card}): float32 features 728 vs 768 (padded) max abs err "
+        f"{np.abs(outs[728, torch.float32] - outs[768, torch.float32]).max():.3e}; forward at "
+        f"batch {CNN_BATCH} bf16 728 {times[728, torch.bfloat16]:.3f} ms, 768 "
+        f"{times[768, torch.bfloat16]:.3f} ms; float32 728 {times[728, torch.float32]:.3f} ms, "
+        f"768 {times[768, torch.float32]:.3f} ms")
+    torch.cuda.empty_cache()
 
 
 def import_package() -> bool:
@@ -1345,6 +1672,9 @@ def main() -> int:
 
     # phase 7: the CNN transfer-learning pipeline at full width
     cnn_pipeline(card, counted=(reset_counts, counts))
+
+    # phase 8: the rest of the CNN zoo at full width, and the sweep over it
+    cnn_zoo(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -14,17 +14,25 @@ import importlib
 VERSION = __version__ = "0.1.0"
 
 _EXPORTS = {
+    "CrossValidator": "sparkdl_tpu_torch.ml.tuning",
+    "CrossValidatorModel": "sparkdl_tpu_torch.ml.tuning",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
     "InceptionV3": "sparkdl_tpu_torch.models.inception_v3",
     "LogisticRegression": "sparkdl_tpu_torch.ml.classification",
+    "MobileNetV2": "sparkdl_tpu_torch.models.mobilenet_v2",
     "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.ml.evaluation",
+    "ParamGridBuilder": "sparkdl_tpu_torch.ml.tuning",
     "Pipeline": "sparkdl_tpu_torch.ml.pipeline",
     "PipelineModel": "sparkdl_tpu_torch.ml.pipeline",
+    "ResNet50": "sparkdl_tpu_torch.models.resnet",
     "TorchImageFileEstimator": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchImageFileTransformer": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchSession": "sparkdl_tpu_torch.sql.session",
+    "VGG16": "sparkdl_tpu_torch.models.vgg",
+    "VGG19": "sparkdl_tpu_torch.models.vgg",
     "ViT": "sparkdl_tpu_torch.models.vit",
+    "Xception": "sparkdl_tpu_torch.models.xception",
     "vit_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
     "flash_attention": "sparkdl_tpu_torch.ops.flash_attention",
     "inception_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",

@@ -2,14 +2,16 @@
 
 A trimmed copy of ``sparkdl_tpu.ml.base``: ``transform(df[, params])``,
 ``fit(df[, params or a list of them])``, ``evaluate(df[, params])``, and
-persistence (``MLWritable`` / ``MLReadable``) on every stage. ``fitMultiple``
-is not ported yet.
+persistence (``MLWritable`` / ``MLReadable``) on every stage, and
+``fitMultiple``, the thread-safe iterator ``CrossValidator`` drives from a
+thread pool.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, Optional, Sequence, Union
+import threading
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 from sparkdl_tpu_torch.ml.util import MLReadable, MLWritable
 from sparkdl_tpu_torch.param.base import Param, Params
@@ -60,6 +62,27 @@ class Estimator(Params, MLWritable, MLReadable, metaclass=abc.ABCMeta):
             "Params must be either a param map or a list/tuple of param "
             f"maps, but got {type(params)}."
         )
+
+    def fitMultiple(
+        self, dataset, paramMaps: Sequence[ParamMap]
+    ) -> Iterator[Tuple[int, Transformer]]:
+        """One model per param map, as ``(index, model)`` pairs, possibly out
+        of order. Safe to drive from several threads at once: each ``next``
+        takes the next index under a lock and fits outside it."""
+        estimator = self.copy()
+        lock = threading.Lock()
+        indices = iter(range(len(paramMaps)))
+
+        class _Iter:
+            def __iter__(self):
+                return self
+
+            def __next__(inner):
+                with lock:
+                    index = next(indices)
+                return index, estimator.fit(dataset, paramMaps[index])
+
+        return _Iter()
 
 
 class Evaluator(Params, MLWritable, MLReadable, metaclass=abc.ABCMeta):

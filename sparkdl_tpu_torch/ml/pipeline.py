@@ -1,5 +1,6 @@
 """Pipeline / PipelineModel (pyspark.ml.pipeline subset): a copy of
-``sparkdl_tpu.ml.pipeline``.
+``sparkdl_tpu.ml.pipeline``, whose ``Pipeline.copy`` passes its param map
+on to the stages (as pyspark's does; the JAX package's does not).
 
 Chains Transformers/Estimators, as the transfer-learning flow
 ``Pipeline([DeepImageFeaturizer, LogisticRegression])`` does. ``fit`` fits
@@ -79,9 +80,14 @@ class Pipeline(Estimator):
         return PipelineModel(transformers)
 
     def copy(self, extra=None):
+        """A copy whose stages are copied with ``extra`` too, as pyspark's:
+        a param map over a stage's params (a ``CrossValidator`` grid over
+        ``featurizer.modelName``) reaches that stage. The JAX package's
+        ``Pipeline.copy`` copies the stages without ``extra``, so such a
+        grid leaves its stages as they were."""
         that = Params.copy(self, extra)
         if that.isDefined(that.stages):
-            that._set(stages=[s.copy() for s in that.getStages()])
+            that._set(stages=[s.copy(extra) for s in that.getStages()])
         return that
 
     # -- persistence: each stage saved as its own sub-stage directory ----

@@ -9,7 +9,7 @@ global-average-pool cut point and the ``predictions`` Dense. Input is NCHW
 What is kept from Flax, to give its numbers:
 
 - the convolutions have no bias, and TF ``'SAME'`` / ``'VALID'`` padding
-  (:func:`sparkdl_tpu_torch.models.layers.conv2d`);
+  (:class:`sparkdl_tpu_torch.models.layers.Conv`);
 - batch norm has no scale (``use_scale=False``), epsilon 1e-3 and running
   statistics, and is float32 arithmetic on the conv output, rounded once to
   the computation type: Flax's ``BatchNorm(dtype=bf16)`` meets float32
@@ -31,7 +31,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sparkdl_tpu_torch.models.layers import avg_pool, conv2d, global_avg_pool, max_pool
+from sparkdl_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    Dense,
+    avg_pool,
+    global_avg_pool,
+    head,
+    max_pool,
+)
 
 BN_EPSILON = 1e-3
 
@@ -42,38 +50,6 @@ def conv_name(i: int) -> str:
 
 def bn_name(i: int) -> str:
     return "batch_normalization" if i == 0 else f"batch_normalization_{i}"
-
-
-class Conv(nn.Module):
-    """Bias-free convolution with TF padding; ``weight`` is OIHW."""
-
-    def __init__(self, cin: int, cout: int, kernel, strides, padding: str):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros((cout, cin, *kernel)))
-        self.strides = strides
-        self.padding = padding
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight.to(x.dtype), self.strides, self.padding)
-
-
-class BatchNorm(nn.Module):
-    """Flax ``BatchNorm(use_running_average=True, use_scale=False,
-    epsilon=1e-3)``: ``(x - mean) * rsqrt(var + eps) + bias`` in float32,
-    rounded once to the input's type."""
-
-    def __init__(self, features: int):
-        super().__init__()
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
-        inv = torch.rsqrt(self.var + BN_EPSILON).view(shape)
-        # x - mean promotes a bf16 x to float32 exactly
-        y = (x - self.mean.view(shape)).mul_(inv).add_(self.bias.view(shape))
-        return y.to(x.dtype)
 
 
 class _Build:
@@ -88,7 +64,7 @@ class _Build:
         i = self.count
         self.count += 1
         self.module.add_module(conv_name(i), Conv(cin, filters, (kh, kw), strides, padding))
-        self.module.add_module(bn_name(i), BatchNorm(filters))
+        self.module.add_module(bn_name(i), BatchNorm(filters, BN_EPSILON, use_scale=False))
         return filters
 
     @staticmethod
@@ -204,9 +180,10 @@ def _graph(x, op):
 class InceptionV3(nn.Module):
     """``features_only`` (or ``include_top=False``) returns the 2048-d
     global-average-pool features, else the ``num_classes`` logits. Output
-    is in ``dtype``, as Flax's."""
+    is in ``dtype``, as Flax's. ``num_classes=None`` leaves out the
+    ``predictions`` Dense (a headless tree's module)."""
 
-    def __init__(self, num_classes: int = 1000, include_top: bool = True,
+    def __init__(self, num_classes: Optional[int] = 1000, include_top: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_classes = num_classes
@@ -215,13 +192,9 @@ class InceptionV3(nn.Module):
         build = _Build(self)
         self.num_features = _graph(3, build)
         self.num_units = build.count
-        if include_top:
-            self.predictions = nn.Linear(self.num_features, num_classes)
+        self.predictions = (Dense(self.num_features, num_classes)
+                            if include_top and num_classes else None)
 
     def forward(self, x: torch.Tensor, features_only: bool = False) -> torch.Tensor:
         x = _graph(x.to(self.dtype), _Run(self))
-        x = global_avg_pool(x)
-        if features_only or not self.include_top:
-            return x
-        w = self.predictions.weight
-        return F.linear(x, w.to(x.dtype), self.predictions.bias.to(x.dtype))
+        return head(self, global_avg_pool(x), features_only)

@@ -1,25 +1,34 @@
-"""Model registry: name -> module constructor, input geometry, feature size
-and preprocessing mode.
+"""Model registry: name -> module constructor, input geometry, feature size,
+preprocessing mode and weight converter.
 
-Port of ``sparkdl_tpu.models.registry``. All six entries keep their
-geometry, feature size and Keras preprocessing mode; :meth:`make_module`
-builds InceptionV3 and raises ``NotImplementedError`` for the other five,
-which are not ported yet (ROADMAP item 5). Keras weight porting
-(``keras_model``, ``load_variables``) is not ported either: the port takes
-Flax variables trees through :mod:`sparkdl_tpu_torch.models.convert`.
+Port of ``sparkdl_tpu.models.registry``: the six entries keep their
+geometry, feature size and Keras preprocessing mode, and Xception its
+``middle_width=768`` (a TPU lane choice of the JAX package; the port takes
+728- and 768-wide trees alike, the narrow ones zero-padded). Each entry
+carries a Flax variables tree to its module's ``state_dict``
+(:meth:`KerasApplicationModel.state_dict_from_flax`). Building a Keras model
+(``keras_model``, ``load_variables``) is not ported: the port never imports
+Keras, and reads a caller's built model with
+:func:`~sparkdl_tpu_torch.models.keras_port.port_keras_weights`.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch.models.convert import cnn_state_dict_from_flax
 from sparkdl_tpu_torch.models.imagenet_labels import IMAGENET_CLASS_NAMES
 from sparkdl_tpu_torch.models.inception_v3 import InceptionV3
+from sparkdl_tpu_torch.models.keras_port import pad_variables_to_module
+from sparkdl_tpu_torch.models.mobilenet_v2 import MobileNetV2
+from sparkdl_tpu_torch.models.resnet import ResNet50
+from sparkdl_tpu_torch.models.vgg import VGG16, VGG19
+from sparkdl_tpu_torch.models.xception import Xception
 
 _CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
 _TORCH_MEAN = (0.485, 0.456, 0.406)
@@ -53,6 +62,8 @@ class KerasApplicationModel:
         feature_size: int,
         preprocess_mode: str,
         num_classes: int = 1000,
+        module_kwargs: Optional[Dict[str, Any]] = None,
+        top_layers: Tuple[str, ...] = (),
     ):
         self.name = name
         self.module_cls = module_cls
@@ -61,6 +72,10 @@ class KerasApplicationModel:
         self.feature_size = feature_size
         self.preprocess_mode = preprocess_mode
         self.num_classes = num_classes
+        self.module_kwargs = dict(module_kwargs or {})
+        # the layers of the top other than predictions, which featurizing
+        # needs (VGG's fc1 and fc2: its cut point is fc2)
+        self.top_layers = top_layers
 
     def inputShape(self) -> Tuple[int, int]:
         return self.input_size
@@ -68,15 +83,37 @@ class KerasApplicationModel:
     def preprocess(self, x: torch.Tensor) -> torch.Tensor:
         return preprocess_input(x, self.preprocess_mode)
 
-    def make_module(self, dtype: Optional[torch.dtype] = None,
-                    include_top: bool = True) -> torch.nn.Module:
-        if self.module_cls is None:
-            raise NotImplementedError(
-                f"{self.name} is not ported to PyTorch yet (ROADMAP item 5); "
-                "the port builds InceptionV3"
-            )
-        return self.module_cls(num_classes=self.num_classes,
-                               include_top=include_top, dtype=dtype)
+    def make_module(self, dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+        """The entry's whole module, its ``predictions`` Dense included."""
+        return self.module_cls(num_classes=self.num_classes, dtype=dtype,
+                               **self.module_kwargs)
+
+    def module_for(self, layers, num_classes: Optional[int],
+                   dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+        """The module that holds the top-level ``layers`` of a weights tree,
+        its ``predictions`` Dense ``num_classes`` wide (the tree's), or none
+        where that is ``None``; without VGG's fc1 and fc2 where the tree
+        lacks them (it then cannot featurize, as in the JAX package). Build
+        it under ``torch.device("meta")`` to read its layout for nothing."""
+        layers = set(layers)
+        return self.module_cls(
+            num_classes=num_classes, dtype=dtype,
+            include_top=all(name in layers for name in self.top_layers), **self.module_kwargs,
+        )
+
+    def state_dict_from_flax(self, variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """The entry's module's ``state_dict`` of Flax variables (those of
+        the JAX module, or of a built Keras model through
+        :func:`~sparkdl_tpu_torch.models.keras_port.port_keras_weights`): a
+        tree at Keras's width pads to a wider module first (Xception
+        728 -> 768). A missing key raises ``KeyError``, a leaf the module
+        lacks ``ValueError``."""
+        params = variables["params"]
+        head = params.get("predictions")
+        with torch.device("meta"):
+            module = self.module_for(
+                params, None if head is None else int(np.shape(head["kernel"])[-1]))
+        return cnn_state_dict_from_flax(pad_variables_to_module(variables, module), module)
 
     def __repr__(self):
         return (
@@ -90,15 +127,18 @@ KERAS_APPLICATION_MODELS: Dict[str, KerasApplicationModel] = {
     for m in [
         KerasApplicationModel("InceptionV3", InceptionV3, "InceptionV3",
                               (299, 299), 2048, "tf"),
-        KerasApplicationModel("Xception", None, "Xception",
-                              (299, 299), 2048, "tf"),
-        KerasApplicationModel("ResNet50", None, "ResNet50",
+        # middle_width=768 as the JAX package's entry (a TPU lane choice
+        # there); 728-wide trees pad up with the numbers unchanged
+        KerasApplicationModel("Xception", Xception, "Xception",
+                              (299, 299), 2048, "tf",
+                              module_kwargs={"middle_width": 768}),
+        KerasApplicationModel("ResNet50", ResNet50, "ResNet50",
                               (224, 224), 2048, "caffe"),
-        KerasApplicationModel("VGG16", None, "VGG16",
-                              (224, 224), 4096, "caffe"),
-        KerasApplicationModel("VGG19", None, "VGG19",
-                              (224, 224), 4096, "caffe"),
-        KerasApplicationModel("MobileNetV2", None, "MobileNetV2",
+        KerasApplicationModel("VGG16", VGG16, "VGG16",
+                              (224, 224), 4096, "caffe", top_layers=("fc1", "fc2")),
+        KerasApplicationModel("VGG19", VGG19, "VGG19",
+                              (224, 224), 4096, "caffe", top_layers=("fc1", "fc2")),
+        KerasApplicationModel("MobileNetV2", MobileNetV2, "MobileNetV2",
                               (224, 224), 1280, "tf"),
     ]
 }

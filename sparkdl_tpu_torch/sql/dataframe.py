@@ -4,8 +4,9 @@ that the port's transformers use.
 Data lives as partitions of column -> list dicts; ``mapPartitions`` is the
 primitive every model transformer builds on, so whole partitions reach the
 batched model runner. ``select`` takes column names, ``withColumn`` a
-row-wise callable over named input columns, and ``randomSplit`` draws as the
-JAX package's does, so one seed splits the same rows. Column expressions,
+row-wise callable over named input columns, ``randomSplit`` draws as the
+JAX package's does, so one seed splits the same rows, and ``union`` appends
+partitions. Column expressions,
 the SQL dialect, joins and windows are not ported yet.
 """
 
@@ -152,6 +153,15 @@ class DataFrame:
                      for c in names}
                 )
         return [self._with_partitions(b) for b in buckets]
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """The rows of both frames, this one's partitions first; the columns
+        must be the same, in the same order."""
+        if self.columns != other.columns:
+            raise ValueError(
+                f"Union requires same columns: {self.columns} vs {other.columns}"
+            )
+        return self._with_partitions(self._partitions + other._partitions)
 
     def mapPartitions(
         self,

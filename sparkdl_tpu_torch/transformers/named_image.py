@@ -8,31 +8,42 @@ float32, on ``device`` (the card unless ``"cpu"`` is set). In ``"tf"``
 preprocessing the flip is folded into the stem conv's weights instead
 (:func:`~sparkdl_tpu_torch.models.registry.fold_bgr_flip_into_stem`).
 
-``modelWeights`` is a Flax variables tree of the JAX module (carried across
-by :func:`~sparkdl_tpu_torch.models.convert.inception_state_dict_from_flax`)
-or ``"random"``, drawn from a ``torch.Generator`` (seed 0) with the
-distributions of Flax's initialisers: not the JAX package's numbers.
-``"imagenet"`` (the default) and built Keras models are not accepted yet:
-without a Keras cache ``"imagenet"`` raises as the JAX package does, and
-with one it raises ``NotImplementedError`` (ROADMAP item 5). The JAX
-package's engine and AOT compile cache (ROADMAP item 9) have no counterpart:
-a small cache keeps the built module on its device from one transform to
-the next.
+``modelWeights`` is one of:
+
+- a Flax variables tree of the JAX module, carried across by the registry
+  entry's converter
+  (:meth:`~sparkdl_tpu_torch.models.registry.KerasApplicationModel.state_dict_from_flax`;
+  a 728-wide Xception tree pads to the entry's 768-wide module), or a
+  ``state_dict`` of the port's module;
+- a caller's built Keras model, ported in numpy
+  (:func:`~sparkdl_tpu_torch.models.keras_port.port_keras_weights`; Keras is
+  never imported here);
+- ``"random"``, drawn from a ``torch.Generator`` (seed 0) with the
+  distributions of Flax's initialisers: not the JAX package's numbers;
+- ``"imagenet"`` (the default), which without a Keras cache raises as the
+  JAX package does, and with one raises ``NotImplementedError`` (ROADMAP
+  item 5: reading Keras's cache needs Keras or ``h5py``).
+
+A tree or model is ported once per object (memoised by ``id``, holding the
+object, as the JAX package's ``_PORTED_CACHE``), so repeated transforms
+reuse one ``state_dict`` and so one cached module. The JAX package's engine
+and AOT compile cache (ROADMAP item 9) have no counterpart: a small cache
+keeps the built module on its device from one transform to the next.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from sparkdl_tpu_torch.ml.base import Transformer
 from sparkdl_tpu_torch.ml.linalg import DenseVector
-from sparkdl_tpu_torch.models.convert import inception_state_dict_from_flax
-from sparkdl_tpu_torch.models.inception_v3 import Conv
+from sparkdl_tpu_torch.models.keras_port import port_keras_weights
+from sparkdl_tpu_torch.models.layers import CONV_TYPES
 from sparkdl_tpu_torch.models.registry import (
     SUPPORTED_MODELS,
     decode_predictions,
@@ -56,6 +67,10 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # (modelName, "random") -> state_dict, shared across stages
 _WEIGHTS_CACHE = LRUCache(4)
 
+# (modelName, id(spec)) -> (spec, state_dict) for Flax trees and Keras
+# models: the strong reference to spec keeps its id from being reused
+_PORTED_CACHE = LRUCache(4)
+
 # (modelName, dtype, featurize, id(weights), device) -> (forward, weights):
 # keeps the module and its weights on the device from fit to transform;
 # the strong reference to the weights keeps their id from being reused
@@ -76,16 +91,30 @@ def _imagenet_cache_present(model_name: str) -> bool:
     return bool(glob.glob(os.path.join(cache, f"{_KERAS_PREFIX[model_name]}*.h5")))
 
 
+def _truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated at two deviations: the draws outside
+    are drawn again until none is (exact, and far quicker than the inverse
+    error function of ``trunc_normal_`` on VGG's 1e8 weights)."""
+    w = torch.randn(shape, generator=gen)
+    flat = w.view(-1)
+    outside = (flat.abs() > 2).nonzero().squeeze(1)
+    while outside.numel():
+        draw = torch.randn(outside.numel(), generator=gen)
+        flat[outside] = draw
+        outside = outside[draw.abs() > 2]
+    return w
+
+
 def random_state_dict(module: torch.nn.Module, seed: int = 0) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` for ``module`` drawn from a ``torch.Generator``
     seeded with ``seed``, with the distributions of Flax's initialisers:
     conv and Dense weights lecun-normal (truncated at two deviations),
-    biases and BN means zero, BN variances one."""
+    biases and BN means zero, BN scales and variances one."""
     gen = torch.Generator().manual_seed(int(seed))
     state = {}
     for name, t in module.state_dict().items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "var":
+        if leaf in ("var", "scale"):
             state[name] = torch.ones_like(t)
         elif t.dim() == 1:
             state[name] = torch.zeros_like(t)
@@ -93,52 +122,80 @@ def random_state_dict(module: torch.nn.Module, seed: int = 0) -> Dict[str, torch
             # variance_scaling(1, fan_in, truncated_normal): the constant
             # undoes the truncation's shrinkage of the variance
             std = (1.0 / t[0].numel()) ** 0.5 / 0.87962566103423978
-            w = torch.empty(t.shape)
-            torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
-            state[name] = w
+            state[name] = _truncated_normal(t.shape, gen).mul_(std)
     return state
 
 
-def _resolve_weights(model_name: str, spec) -> Any:
-    """``modelWeights`` -> a Flax variables tree or a ``state_dict``."""
+def _ported(model_name: str, spec, port) -> Dict[str, torch.Tensor]:
+    """``port(spec)``, once per ``spec`` object."""
+    key = (model_name, id(spec))
+    hit = _PORTED_CACHE.get(key)
+    if hit is None or hit[0] is not spec:
+        hit = (spec, port(spec))
+        _PORTED_CACHE[key] = hit
+    return hit[1]
+
+
+def _resolve_weights(model_name: str, spec) -> Dict[str, torch.Tensor]:
+    """``modelWeights`` -> the ``state_dict`` of the entry's module."""
     entry = get_keras_application_model(model_name)
     if spec is None or spec == "imagenet":
         if _imagenet_cache_present(model_name):
             raise NotImplementedError(
-                f"imagenet weights for {model_name}: porting the Keras cache "
-                "to PyTorch is not done yet (ROADMAP item 5). Pass "
-                "modelWeights= a Flax variables tree."
+                f"imagenet weights for {model_name}: reading the Keras cache "
+                "needs Keras or h5py, which the port does not use (ROADMAP "
+                "item 5). Pass modelWeights= a built Keras model or a Flax "
+                "variables tree."
             )
         raise RuntimeError(
             f"imagenet weights for {model_name} are unavailable (offline "
-            "and no local Keras cache). Pass modelWeights= a Flax variables "
-            "tree, or opt in to modelWeights='random' for deterministic "
-            "random initialization (testing/benchmarking only)."
+            "and no local Keras cache). Pass modelWeights= a built Keras "
+            "model or a Flax variables tree, or opt in to "
+            "modelWeights='random' for deterministic random initialization "
+            "(testing/benchmarking only)."
         )
-    if spec == "random":
+    if isinstance(spec, str) and spec == "random":
         key = (model_name, "random")
-        if key not in _WEIGHTS_CACHE:
-            _WEIGHTS_CACHE[key] = random_state_dict(entry.make_module())
-        return _WEIGHTS_CACHE[key]
-    if isinstance(spec, dict):
-        return spec
-    raise NotImplementedError(
-        f"modelWeights of type {type(spec).__name__}: a built Keras model is "
-        "not accepted yet (ROADMAP item 5); pass a Flax variables tree"
+        state = _WEIGHTS_CACHE.get(key)
+        if state is None:
+            state = random_state_dict(entry.make_module())
+            _WEIGHTS_CACHE[key] = state
+        return state
+    if isinstance(spec, Mapping):
+        if "params" not in spec:  # a state_dict of the port's module
+            return spec
+        return _ported(model_name, spec, entry.state_dict_from_flax)
+    if hasattr(spec, "layers"):  # a built Keras model
+        return _ported(model_name, spec,
+                       lambda m: entry.state_dict_from_flax(port_keras_weights(m)))
+    raise TypeError(
+        f"modelWeights of type {type(spec).__name__}: expected 'imagenet', "
+        "'random', a Flax variables tree, a state_dict or a built Keras model"
     )
 
 
 def build_module(model_name: str, state: Dict[str, torch.Tensor],
                  dtype: torch.dtype, device) -> torch.nn.Module:
-    """The named CNN as a stage runs it: ``state`` loaded strictly, the conv
-    and Dense weights held in ``dtype`` (the cast at each use is then a
-    no-op; batch norm stays float32), on ``device`` in channels_last, in
-    eval mode. Headless when ``state`` has no ``predictions``."""
+    """The named CNN as a stage runs it: the entry's module that holds
+    exactly ``state``'s layers (headless where it has no ``predictions``;
+    VGG keeps fc1 and fc2, its cut), made by :func:`load_module`."""
     entry = get_keras_application_model(model_name)
-    module = entry.make_module(dtype=dtype, include_top="predictions.weight" in state)
-    module.load_state_dict(state, strict=True)
+    with torch.device("meta"):  # the layout alone: the weights come from state
+        head = state.get("predictions.weight")
+        module = entry.module_for({k.split(".", 1)[0] for k in state},
+                                  None if head is None else head.shape[0], dtype=dtype)
+    return load_module(module, state, dtype, device)
+
+
+def load_module(module: torch.nn.Module, state: Dict[str, torch.Tensor],
+                dtype: torch.dtype, device) -> torch.nn.Module:
+    """``module`` (on the meta device, or anywhere) with ``state`` loaded
+    strictly, the conv and Dense weights held in ``dtype`` (the cast at each
+    use is then a no-op; batch norm stays float32), on ``device`` in
+    channels_last, in eval mode."""
+    module.load_state_dict(state, strict=True, assign=True)
     for m in module.modules():
-        if isinstance(m, (Conv, torch.nn.Linear)):
+        if isinstance(m, CONV_TYPES + (torch.nn.Linear,)):
             m.to(dtype)
     return module.to(device=device, memory_format=torch.channels_last).eval()
 
@@ -155,8 +212,8 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
     modelWeights = Param(
         "undefined",
         "modelWeights",
-        "'imagenet', a Flax variables tree, or 'random' (explicit opt-in to "
-        "deterministic random init)",
+        "'imagenet', a built Keras model, a Flax variables tree, or 'random' "
+        "(explicit opt-in to deterministic random init)",
     )
     batchSize = Param(
         "undefined", "batchSize", "rows per device batch", TypeConverters.toInt
@@ -194,13 +251,12 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
                 f"computeDtype must be one of {sorted(_DTYPES)}, got {dtype_name!r}"
             )
         dtype = _DTYPES[dtype_name]
-        resolved = _resolve_weights(name, self.getOrDefault(self.modelWeights))
-        key = (name, dtype_name, self._featurize, id(resolved), str(device))
-        if key in _FORWARD_CACHE:
-            return _FORWARD_CACHE[key][0]
+        state = _resolve_weights(name, self.getOrDefault(self.modelWeights))
+        key = (name, dtype_name, self._featurize, id(state), str(device))
+        hit = _FORWARD_CACHE.get(key)
+        if hit is not None:
+            return hit[0]
 
-        state = (resolved if "params" not in resolved
-                 else inception_state_dict_from_flax(resolved))
         folded = fold_bgr_flip_into_stem(state, entry.preprocess_mode)
         flip_in_forward = folded is None
         module = build_module(name, state if folded is None else folded, dtype, device)
@@ -218,7 +274,7 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
                 x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
                 return module(x.to(dtype), features_only=featurize).float()
 
-        _FORWARD_CACHE[key] = (forward, resolved)
+        _FORWARD_CACHE[key] = (forward, state)
         return forward
 
     def _transform(self, dataset):

@@ -311,11 +311,20 @@ def test_imagenet_weights_raise_without_a_cache(monkeypatch):
 
 
 def test_keras_model_weights_are_not_accepted_yet():
+    """Built Keras models are accepted now (ported in numpy, never importing
+    Keras); an object that is neither a tree nor a model (no ``layers``)
+    raises ``TypeError``."""
     class KerasLike:
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    with pytest.raises(TypeError, match="built Keras model"):
         named_image._resolve_weights("InceptionV3", KerasLike())
+    keras = pytest.importorskip("keras")
+    km = keras.applications.InceptionV3(weights=None, include_top=False,
+                                        input_shape=(75, 75, 3))
+    state = named_image._resolve_weights("InceptionV3", km)
+    assert state.keys() == InceptionV3(num_classes=None).state_dict().keys()
+    assert named_image._resolve_weights("InceptionV3", km) is state
 
 
 def test_random_weights_are_seeded_and_scaled():

@@ -169,7 +169,7 @@ def test_transform_over_partitions_keeps_row_order(uris, flax_variables):
 def _imports_jax_package(name: str) -> bool:
     return any(
         name == root or name.startswith(root + ".")
-        for root in ("jax", "jaxlib", "flax", "sparkdl_tpu")
+        for root in ("jax", "jaxlib", "flax", "keras", "sparkdl_tpu")
     )
 
 
@@ -178,6 +178,7 @@ def test_import_name_rule():
     assert _imports_jax_package("jax")
     assert not _imports_jax_package("sparkdl_tpu_torch.ops")
     assert not _imports_jax_package("jaxtyping_free")
+    assert _imports_jax_package("keras.applications")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
@@ -209,9 +210,15 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.ml.evaluation",
         "sparkdl_tpu_torch.ml.pipeline",
         "sparkdl_tpu_torch.ml.util",
+        "sparkdl_tpu_torch.ml.tuning",
         "sparkdl_tpu_torch.models.inception_v3",
+        "sparkdl_tpu_torch.models.keras_port",
         "sparkdl_tpu_torch.models.layers",
+        "sparkdl_tpu_torch.models.mobilenet_v2",
         "sparkdl_tpu_torch.models.registry",
+        "sparkdl_tpu_torch.models.resnet",
+        "sparkdl_tpu_torch.models.vgg",
+        "sparkdl_tpu_torch.models.xception",
         "sparkdl_tpu_torch.transformers.named_image",
     ):
         assert module in loaded, module
