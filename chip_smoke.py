@@ -94,6 +94,29 @@ prints no result):
    at batch 32 in bf16 and float32, its operations (convolutions, depthwise
    and separable ones, Dense layers) and share of the bf16 dense peak, a
    profile, and the featurizer's images/s; both Xception widths; the sweep.
+9. graph layer: InceptionV3 (299x299, 2048-d, float32 and bf16) as a
+   ``TorchFunction`` (``from_list`` of the "tf" preprocessor piece, the NCHW
+   permute into channels_last, ``from_module`` of the module as the stages
+   build it) through ``TFImageTransformer(inputShape=(299, 299),
+   channelOrder="RGB")`` over phase 7's 128 image structs (4 partitions, one
+   mixed), held to ``DeepImageFeaturizer(InceptionV3)`` on the same weights
+   (float32 at ``SLICE_TOL``, bf16 within ``CNN_BF16_MAX_REL``) and, in
+   float32, to a CPU run of the port on 4 uniform rows and a mixed partition;
+   ``outputMode="image"`` and ``channelOrder="L"`` card against CPU on 4
+   rows; ViT-B/16 (224x224, ``attn_impl="flash"``, float32) as a function
+   over 64 image structs, its 24 forward-kernel launches counted, held to the
+   same function with dense attention; both float32 functions exported
+   (``torch.export``, the batch a ``Dim``), saved, loaded and run again,
+   each against its in-memory function at ``SLICE_TOL``, the loaded ViT
+   program holding 12 flash-attention op nodes and launching the kernel 24
+   times; ``TFTransformer`` mapping the 2048-d feature column through a
+   two-output function (logits and softmax) at batch 32, against float64
+   numpy; a ``PipelineModel([TFImageTransformer, TFTransformer])`` over the
+   loaded functions saved and loaded, giving the same columns bit for bit.
+   Timed: the export and load, the loaded programs' forward at batch 32
+   against the in-memory functions', and ``TFImageTransformer`` images/s
+   (bf16 function, median of 5) beside the featurizer's, with the
+   ``sparkdl.*`` timers.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -761,10 +784,10 @@ def cnn_forward_times(name: str, state, x, card: str):
     torch.cuda.empty_cache()
 
 
-def featurizer_rate(stage, df, label: str, card: str) -> None:
+def featurizer_rate(stage, df, label: str, card: str, what: str = "featurizer") -> None:
     """Images through ``stage.transform(df).collect()`` per second, module
-    cached and decode paths warm: 5 transforms, each logged, with their
-    median and the ``sparkdl.*`` timers over the 5."""
+    cached and decode paths warm: 5 transforms, each logged (as ``what``),
+    with their median and the ``sparkdl.*`` timers over the 5."""
     from sparkdl_tpu_torch.utils.metrics import metrics
 
     n = df.count()
@@ -776,7 +799,7 @@ def featurizer_rate(stage, df, label: str, card: str) -> None:
         stage.transform(df).collect()
         walls.append(time.perf_counter() - t0)
     median = n / float(np.median(walls))
-    log(f"featurizer images/s ({label}, batch {CNN_BATCH}, {n} images in "
+    log(f"{what} images/s ({label}, batch {CNN_BATCH}, {n} images in "
         f"{df.getNumPartitions()} partitions, one mixed, {card}): "
         + ", ".join(f"{n / w:.1f}" for w in walls) + f"; median {median:.1f}")
     log("  " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.snapshot("sparkdl.").items())))
@@ -1171,6 +1194,317 @@ def cnn_zoo(card: str, counted):
         f"{times[768, torch.bfloat16]:.3f} ms; float32 728 {times[728, torch.float32]:.3f} ms, "
         f"768 {times[768, torch.float32]:.3f} ms")
     torch.cuda.empty_cache()
+
+
+# phase 9: the graph layer
+VIT_IMAGES = 64
+HEAD_CLASSES = 10
+
+
+def struct_rows(images):
+    """Image-struct rows (column ``image``) of stored-BGR uint8 arrays."""
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+
+    return [{"image": imageArrayToStruct(img, origin=f"img_{i}")} for i, img in enumerate(images)]
+
+
+def inception_function(state, dtype, device):
+    """InceptionV3's 2048-d features as a TorchFunction over float RGB NHWC
+    batches in 0-255: the "tf" preprocessor piece, the NCHW permute into
+    channels_last in ``dtype``, the module built as the stages build it,
+    then float32."""
+    import torch
+
+    from sparkdl_tpu_torch.graph import TorchFunction, pieces
+    from sparkdl_tpu_torch.transformers.named_image import build_module
+
+    module = build_module("InceptionV3", state, dtype, torch.device(device))
+    return TorchFunction.from_list([
+        pieces.build_preprocessor("tf"),
+        TorchFunction.from_callable(lambda x: nchw(x).to(dtype)),
+        TorchFunction.from_module(module, features_only=True),
+        TorchFunction.from_callable(lambda y: y.float()),
+    ], name=f"inception_v3_{str(dtype).removeprefix('torch.')}")
+
+
+def vit_function(state, attn_impl: str):
+    """ViT-B/16 (224x224, 1000 classes, float32) on the card as a
+    TorchFunction over float RGB NHWC batches in 0-255."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    module = ViT(variant="ViT-B/16", attn_impl=attn_impl)
+    module.load_state_dict(state, strict=True)
+    return TorchFunction.from_list([
+        TorchFunction.from_callable(lambda x: x / 255.0),
+        TorchFunction.from_module(module.cuda()),
+    ], name=f"vit_b16_{attn_impl}")
+
+
+def vectors(rows, col: str) -> np.ndarray:
+    return np.stack([r[col].toArray() for r in rows])
+
+
+def saved_and_loaded(fn, spec, tmp: Path):
+    """``fn`` saved to a directory under ``tmp`` (exported on its params'
+    device) and loaded back; with the export's and the load's seconds."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+
+    path = tmp / fn.name
+    t0 = time.perf_counter()
+    fn.save(str(path), spec)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = TorchFunction.load(str(path))
+    load_s = time.perf_counter() - t0
+    size = (path / "function.pt2").stat().st_size
+    log(f"  {fn.name}: export and save {export_s:.2f} s ({size / 1e6:.1f} MB), load "
+        f"{load_s:.2f} s; fingerprint {loaded.fingerprint[:16]}...")
+    return loaded
+
+
+def graph_layer(card: str, counted):
+    """Phase 9: the graph layer on the card (see the docstring). Returns the
+    lse-free forward kernel's launches on the ViT function's run."""
+    import torch
+
+    from sparkdl_tpu_torch import (
+        DeepImageFeaturizer,
+        PipelineModel,
+        TFImageTransformer,
+        TFTransformer,
+    )
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.ml.util import load_stage
+    from sparkdl_tpu_torch.models.convert import (
+        inception_state_dict_from_flax,
+        vit_state_dict_from_flax,
+    )
+    from sparkdl_tpu_torch.sql.session import TorchSession
+
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    df = session.createDataFrame(cnn_image_rows(CNN_IMAGES, seed=0), numPartitions=4)
+    tree = flax_layout_inception_params(seed=3)
+    state = {k: v for k, v in inception_state_dict_from_flax(tree).items()
+             if not k.startswith("predictions")}
+    stage_args = dict(inputCol="image", outputCol="features", inputShape=(299, 299),
+                      channelOrder="RGB", batchSize=CNN_BATCH)
+    fns = {dtype: inception_function(state, dtype, "cuda")
+           for dtype in (torch.float32, torch.bfloat16)}
+
+    # the CNN function through TFImageTransformer, against the featurizer
+    feats = {}
+    for dtype, fn in fns.items():
+        stage = TFImageTransformer(graph=fn, **stage_args)
+        counted[0]()
+        rows = stage.transform(df).collect()
+        launches = counted[1]()
+        feats[dtype] = vectors(rows, "features")
+        if len(rows) != CNN_IMAGES or feats[dtype].shape != (CNN_IMAGES, 2048) \
+                or not np.isfinite(feats[dtype]).all():
+            raise AssertionError(f"bad TFImageTransformer rows: {feats[dtype].shape}")
+        if any(launches.values()):
+            raise AssertionError(f"the CNN function launched attention kernels: {launches}")
+        name = str(dtype).removeprefix("torch.")
+        want = vectors(DeepImageFeaturizer(
+            inputCol="image", outputCol="features", modelName="InceptionV3",
+            modelWeights=tree, batchSize=CNN_BATCH, computeDtype=name,
+        ).transform(df).collect(), "features")
+        err = np.abs(feats[dtype] - want).max()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(feats[dtype], want, **SLICE_TOL)
+        elif not err <= CNN_BF16_MAX_REL * np.abs(want).max():
+            raise AssertionError(f"bf16 function vs bf16 featurizer {err:.3e}")
+        log(f"graph: TFImageTransformer(InceptionV3 {name} function) over {len(rows)} rows "
+            f"in 4 partitions (one mixed) vs DeepImageFeaturizer(InceptionV3, {name}): "
+            f"max abs err {err:.3e} ({err / np.abs(want).max():.3e} of the largest)")
+    bf16_err = np.abs(feats[torch.bfloat16] - feats[torch.float32]).max()
+    if not bf16_err <= CNN_BF16_MAX_REL * np.abs(feats[torch.float32]).max():
+        raise AssertionError(f"bf16 function {bf16_err:.3e} from float32")
+    log(f"  bf16 vs float32 function: max abs err {bf16_err:.3e} "
+        f"({bf16_err / np.abs(feats[torch.float32]).max():.3e} of the largest)")
+
+    # float32 card against the CPU: 4 uniform rows, and the mixed partition
+    test_rows = df.collect()
+    small = [r for r in test_rows if r["image"]["height"] == 96]
+    large = [r for r in test_rows if r["image"]["height"] == 240]
+    on_card_stage = TFImageTransformer(graph=fns[torch.float32], **stage_args)
+    on_cpu_stage = TFImageTransformer(graph=fns[torch.float32], device="cpu", **stage_args)
+    for what, picked in (("uniform 96x96", small[:4]),
+                         ("mixed 96x96 + 240x320", small[:2] + large[:2])):
+        few = session.createDataFrame([{"image": r["image"]} for r in picked],
+                                      numPartitions=1)
+        on_card = vectors(on_card_stage.transform(few).collect(), "features")
+        on_cpu = vectors(on_cpu_stage.transform(few).collect(), "features")
+        np.testing.assert_allclose(on_card, on_cpu, **SLICE_TOL)
+        log(f"  float32 function, card vs CPU ({len(picked)} images, one {what} "
+            f"partition): max abs err {np.abs(on_card - on_cpu).max():.3e}")
+
+    # outputMode="image" and channelOrder="L", card against CPU
+    few = session.createDataFrame([{"image": r["image"]} for r in small[:2] + large[:2]],
+                                  numPartitions=1)
+    halve = TorchFunction.from_callable(lambda x: x * 0.5, name="halve")
+    chan_mean = TorchFunction.from_callable(lambda x: x.mean(dim=(1, 2)), name="chan_mean")
+    for label, args in (("image", dict(graph=halve, outputMode="image", inputShape=(64, 48))),
+                        ("L", dict(graph=chan_mean, channelOrder="L", inputShape=(64, 48)))):
+        got = [TFImageTransformer(inputCol="image", outputCol="out", device=device, **args)
+               .transform(few).collect() for device in (None, "cpu")]
+        if label == "image":
+            from sparkdl_tpu_torch.image.imageIO import imageStructToArray
+
+            arrays = [np.stack([imageStructToArray(r["out"]) for r in rows]) for rows in got]
+            if arrays[0].shape != (4, 64, 48, 3):
+                raise AssertionError(f"image mode gave {arrays[0].shape}")
+        else:
+            arrays = [vectors(rows, "out") for rows in got]
+            if arrays[0].shape != (4, 1):
+                raise AssertionError(f"channelOrder='L' gave {arrays[0].shape}")
+        np.testing.assert_allclose(arrays[0], arrays[1], **SLICE_TOL)
+        log(f"  {label}: card vs CPU on 4 rows (one mixed partition), max abs err "
+            f"{np.abs(arrays[0] - arrays[1]).max():.3e}")
+
+    # the ViT function, through the forward kernel, against dense attention
+    vit_state = vit_state_dict_from_flax(flax_layout_vit_params(seed=0))
+    rng = np.random.RandomState(2)
+    vit_df = session.createDataFrame(
+        struct_rows(rng.randint(0, 256, (VIT_IMAGES, 224, 224, 3), dtype=np.uint8)),
+        numPartitions=1)
+    vit_args = dict(inputCol="image", outputCol="logits", inputShape=(224, 224),
+                    batchSize=BATCH)
+    vit_fn = vit_function(vit_state, "flash")
+    counted[0]()
+    vit_rows = TFImageTransformer(graph=vit_fn, **vit_args).transform(vit_df).collect()
+    vit_launches = counted[1]()
+    expected = 12 * (VIT_IMAGES // BATCH)
+    log(f"graph: TFImageTransformer(ViT-B/16 flash function) over {len(vit_rows)} rows, "
+        f"launches {vit_launches} (expected {expected} lse-free: 12 blocks x "
+        f"{VIT_IMAGES // BATCH} chunks)")
+    if list(vit_launches.values()) != [expected, 0, 0, 0]:
+        raise AssertionError(f"ViT function launches {vit_launches}")
+    logits = vectors(vit_rows, "logits")
+    if logits.shape != (VIT_IMAGES, 1000) or not np.isfinite(logits).all():
+        raise AssertionError(f"bad ViT function rows: {logits.shape}")
+    dense_fn = vit_function(vit_state, "full")
+    dense = vectors(TFImageTransformer(graph=dense_fn, **vit_args).transform(vit_df)
+                    .collect(), "logits")
+    np.testing.assert_allclose(logits, dense, **SLICE_TOL)
+    log(f"  flash vs dense attention: max abs err {np.abs(logits - dense).max():.3e}")
+    del dense_fn
+
+    # export: save, load, the loaded program against the in-memory function
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-graph-") as tmp:
+        tmp = Path(tmp)
+        log("graph: export (torch.export, batch as a Dim, params frozen in):")
+        loaded_cnn = saved_and_loaded(fns[torch.float32], ((2, 299, 299, 3), torch.float32), tmp)
+        loaded_vit = saved_and_loaded(vit_fn, ((2, 224, 224, 3), torch.float32), tmp)
+        vit_ops = [str(n.target) for n in loaded_vit.exported_program.graph.nodes]
+        if vit_ops.count("sparkdl_tpu_torch.flash_attention_fwd.default") != 12:
+            raise AssertionError("the exported ViT program lost its flash-attention op nodes")
+        cnn_loaded = vectors(TFImageTransformer(graph=loaded_cnn, **stage_args)
+                             .transform(df).collect(), "features")
+        np.testing.assert_allclose(cnn_loaded, feats[torch.float32], **SLICE_TOL)
+        counted[0]()
+        vit_loaded = vectors(TFImageTransformer(graph=loaded_vit, **vit_args)
+                             .transform(vit_df).collect(), "logits")
+        loaded_launches = counted[1]()
+        if list(loaded_launches.values()) != [expected, 0, 0, 0]:
+            raise AssertionError(f"the loaded ViT program launched {loaded_launches}")
+        np.testing.assert_allclose(vit_loaded, logits, **SLICE_TOL)
+        log(f"  loaded vs in-memory: InceptionV3 float32 max abs err "
+            f"{np.abs(cnn_loaded - feats[torch.float32]).max():.3e}; ViT-B/16 flash "
+            f"{np.abs(vit_loaded - logits).max():.3e}, launches {loaded_launches}")
+
+        # the loaded program's forward at batch 32 against the in-memory one's
+        dev = torch.device("cuda")
+        for label, fn, loaded, hw in (("InceptionV3 float32", fns[torch.float32], loaded_cnn, 299),
+                                      ("ViT-B/16 flash", vit_fn, loaded_vit, 224)):
+            x = torch.from_numpy(np.random.default_rng(4).uniform(
+                0, 255, (CNN_BATCH, hw, hw, 3)).astype(np.float32)).to(dev)
+            with torch.inference_mode():
+                eager_ms = time_ms(lambda: fn.apply(fn.params, x), iters=10)
+                program_ms = time_ms(lambda: loaded.apply({}, x), iters=10)
+            log(f"  forward at batch {CNN_BATCH}, {label} ({card}): in-memory "
+                f"{eager_ms:.3f} ms, loaded program {program_ms:.3f} ms")
+        # the holder's own cost on a launch-bound forward: the bf16 function
+        # against the same ops on its module called alone
+        from sparkdl_tpu_torch.models.registry import preprocess_input
+        from sparkdl_tpu_torch.transformers.named_image import build_module
+
+        bare = build_module("InceptionV3", state, torch.bfloat16, dev)
+        bf16_fn = fns[torch.bfloat16]
+        x = torch.from_numpy(np.random.default_rng(4).uniform(
+            0, 255, (CNN_BATCH, 299, 299, 3)).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            bare_ms = time_ms(lambda: bare(nchw(preprocess_input(x, "tf")).to(torch.bfloat16),
+                                           features_only=True).float(), iters=10)
+            fn_ms = time_ms(lambda: bf16_fn.apply(bf16_fn.params, x), iters=10)
+        log(f"  forward at batch {CNN_BATCH}, InceptionV3 bf16 ({card}): the module alone "
+            f"{bare_ms:.3f} ms, as a TorchFunction {fn_ms:.3f} ms ({len(bare.state_dict())} "
+            "tensors swapped in by functional_call a call)")
+        del bare
+
+        # tensor columns: a two-output head over the 2048-d features
+        rng = np.random.default_rng(6)
+        w = (rng.standard_normal((2048, HEAD_CLASSES)) / np.sqrt(2048)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(HEAD_CLASSES)).astype(np.float32)
+        head = TorchFunction.from_callable(
+            lambda p, f: (f @ p["w"] + p["b"], torch.softmax(f @ p["w"] + p["b"], dim=-1)),
+            params={"w": w, "b": b}, takes_params=True, input_names=("features",),
+            output_names=("logits", "probs"), name="head")
+        feature_df = session.createDataFrame(
+            [{"features": v} for v in feats[torch.float32]], numPartitions=4)
+        tensor_stage = TFTransformer(
+            tfInputGraph=head, inputMapping={"features": "features"},
+            outputMapping={"logits": "logits", "probs": "probs"}, batchSize=CNN_BATCH)
+        scored = tensor_stage.transform(feature_df).collect()
+        got_logits = np.stack([r["logits"] for r in scored])
+        got_probs = np.stack([r["probs"] for r in scored])
+        want_logits = feats[torch.float32].astype(np.float64) @ w + b
+        z = np.exp(want_logits - want_logits.max(axis=1, keepdims=True))
+        want_probs = z / z.sum(axis=1, keepdims=True)
+        if got_logits.shape != (CNN_IMAGES, HEAD_CLASSES):
+            raise AssertionError(f"TFTransformer gave {got_logits.shape}")
+        np.testing.assert_allclose(got_logits, want_logits, **SLICE_TOL)
+        np.testing.assert_allclose(got_probs, want_probs, **PROB_TOL)
+        log(f"graph: TFTransformer(logits, softmax) over {len(scored)} rows of 2048-d "
+            f"features at batch {CNN_BATCH}: logits max abs err "
+            f"{np.abs(got_logits - want_logits).max():.3e}, probabilities "
+            f"{np.abs(got_probs - want_probs).max():.3e} against float64 numpy")
+
+        # persistence: a PipelineModel of both stages, over the loaded
+        # functions, saved and loaded
+        head.input_specs = [((2, 2048), torch.float32)]
+        loaded_head = saved_and_loaded(head, ((2, 2048), torch.float32), tmp)
+        model = PipelineModel(stages=[
+            TFImageTransformer(graph=loaded_cnn, **stage_args),
+            TFTransformer(tfInputGraph=loaded_head, inputMapping={"features": "features"},
+                          outputMapping={"logits": "logits", "probs": "probs"},
+                          batchSize=CNN_BATCH),
+        ])
+        first = model.transform(df).collect()
+        model.write().overwrite().save(str(tmp / "pipeline"))
+        again = load_stage(str(tmp / "pipeline")).transform(df).collect()
+        for col in ("logits", "probs"):
+            if not np.array_equal(np.stack([r[col] for r in first]),
+                                  np.stack([r[col] for r in again])):
+                raise AssertionError(f"the reloaded PipelineModel's {col} differ")
+        if not np.array_equal(vectors(first, "features"), vectors(again, "features")):
+            raise AssertionError("the reloaded PipelineModel's features differ")
+        log("  save/load: the reloaded PipelineModel([TFImageTransformer, TFTransformer]) "
+            "gives the same features, logits and probabilities bit for bit")
+        del loaded_cnn, loaded_vit, model
+
+    # times: the stage's images/s beside the featurizer's
+    featurizer_rate(TFImageTransformer(graph=fns[torch.bfloat16], **stage_args), df,
+                    "TFImageTransformer, InceptionV3 bf16 function", card,
+                    what="TFImageTransformer")
+    featurizer_rate(DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                        modelName="InceptionV3", modelWeights=tree,
+                                        batchSize=CNN_BATCH, computeDtype="bfloat16"),
+                    df, "InceptionV3 bf16, beside it", card)
+    del fns, vit_fn
+    torch.cuda.empty_cache()
+    return vit_launches["flash_attention_fwd"] + loaded_launches["flash_attention_fwd"]
 
 
 def import_package() -> bool:
@@ -1633,7 +1967,8 @@ def main() -> int:
     records.append({
         "name": "flash_attention_fwd", **common, "source": source.format("fwd"),
         "replaces": "sparkdl_tpu/ops/flash_attention.py:284",
-        # the lse-free launches: inference (f32 and bf16) and the fitted transform
+        # the lse-free launches: inference (f32 and bf16), the fitted
+        # transform, and phase 9's ViT function (in memory and loaded)
         "launches": (serve_counts["flash_attention_fwd"] + bf16_counts["flash_attention_fwd"]
                      + tuned_counts["flash_attention_fwd"]),
         "max_abs_err": fwd_err, "ms": ms, "plain_ms": plain_ms,
@@ -1675,6 +2010,10 @@ def main() -> int:
 
     # phase 8: the rest of the CNN zoo at full width, and the sweep over it
     cnn_zoo(card, counted=(reset_counts, counts))
+
+    # phase 9: the graph layer: TorchFunction, TFImageTransformer,
+    # TFTransformer, export, persistence
+    records[0]["launches"] += graph_layer(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -18,7 +18,9 @@ _EXPORTS = {
     "CrossValidatorModel": "sparkdl_tpu_torch.ml.tuning",
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "GraphFunction": "sparkdl_tpu_torch.graph.function",
     "InceptionV3": "sparkdl_tpu_torch.models.inception_v3",
+    "IsolatedSession": "sparkdl_tpu_torch.graph.builder",
     "LogisticRegression": "sparkdl_tpu_torch.ml.classification",
     "MobileNetV2": "sparkdl_tpu_torch.models.mobilenet_v2",
     "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.ml.evaluation",
@@ -26,9 +28,14 @@ _EXPORTS = {
     "Pipeline": "sparkdl_tpu_torch.ml.pipeline",
     "PipelineModel": "sparkdl_tpu_torch.ml.pipeline",
     "ResNet50": "sparkdl_tpu_torch.models.resnet",
+    "TFImageTransformer": "sparkdl_tpu_torch.transformers.tf_image",
+    "TFTransformer": "sparkdl_tpu_torch.transformers.tf_tensor",
+    "TorchFunction": "sparkdl_tpu_torch.graph.function",
     "TorchImageFileEstimator": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
     "TorchImageFileTransformer": "sparkdl_tpu_torch.estimators.torch_image_file_estimator",
+    "TorchImageTransformer": "sparkdl_tpu_torch.transformers.tf_image",
     "TorchSession": "sparkdl_tpu_torch.sql.session",
+    "TorchTransformer": "sparkdl_tpu_torch.transformers.tf_tensor",
     "VGG16": "sparkdl_tpu_torch.models.vgg",
     "VGG19": "sparkdl_tpu_torch.models.vgg",
     "ViT": "sparkdl_tpu_torch.models.vit",

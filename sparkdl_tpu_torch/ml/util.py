@@ -7,12 +7,16 @@ and typed artifacts beside it; ``Class.load(path)`` or :func:`load_stage`
 rebuilds the stage. Each param value is encoded as:
 
 - JSON-safe values: inline in the metadata;
+- a :class:`~sparkdl_tpu_torch.graph.TorchFunction` (the JAX package's
+  ``XlaFunction`` encoding): a directory written by ``TorchFunction.save``
+  (``function.pt2`` and ``manifest.json``), loaded back by
+  ``TorchFunction.load``;
 - numpy arrays and nested dicts of arrays (Flax variables): ``.npz``;
 - anything else (callables such as ``imageLoader``): pickle.
 
-The JAX package's ``XlaFunction`` and Keras-model encodings are not ported
-yet (ROADMAP items 6-7): such a value raises. A directory saved by the JAX
-package does not load here: its metadata names the JAX package's classes.
+The JAX package's Keras-model encoding is not ported yet (ROADMAP item 7):
+such a value raises. A directory saved by the JAX package does not load
+here: its metadata names the JAX package's classes.
 """
 
 from __future__ import annotations
@@ -77,14 +81,18 @@ def _not_ported(value) -> Optional[str]:
     mod = type(value).__module__ or ""
     if mod.startswith("keras") and hasattr(value, "save"):
         return "a Keras model (ROADMAP item 7)"
-    if type(value).__name__ == "XlaFunction":
-        return "an XlaFunction (ROADMAP item 6)"
     return None
 
 
 def _encode_param(instance, name: str, value, path: str) -> Dict[str, Any]:
+    from sparkdl_tpu_torch.graph.function import TorchFunction
+
     if _is_jsonable(value):
         return {"t": "json", "v": value}
+    if isinstance(value, TorchFunction):
+        ref = f"param_{name}_torchfn"
+        value.save(os.path.join(path, ref))
+        return {"t": "torch_function", "ref": ref}
     what = _not_ported(value)
     if what is not None:
         raise NotImplementedError(
@@ -116,6 +124,10 @@ def _decode_param(desc: Dict[str, Any], path: str):
     if kind == "json":
         return desc["v"]
     ref = os.path.join(path, desc["ref"])
+    if kind == "torch_function":
+        from sparkdl_tpu_torch.graph.function import TorchFunction
+
+        return TorchFunction.load(ref)
     if kind in ("pytree", "ndarray"):
         with np.load(ref) as data:
             flat = {k: data[k] for k in data.files}
@@ -155,10 +167,21 @@ def _check_savable(stage):
     holds, cannot be saved, so that an overwrite never removes the old
     directory for nothing. A class that cannot be saved names the ROADMAP
     item it waits for in ``_not_savable``; a composite lists its stages in
-    ``_held_stages()``."""
+    ``_held_stages()``. A function-valued param needs the input specs that
+    its export traces with (or a loaded program to write back)."""
+    from sparkdl_tpu_torch.graph.function import TorchFunction
+
     reason = getattr(stage, "_not_savable", None)
     if reason is not None:
         raise NotImplementedError(reason)
+    for param, value in stage._paramMap.items():
+        if (isinstance(value, TorchFunction) and not value.input_specs
+                and value.exported_program is None):
+            raise ValueError(
+                f"param {param.name!r} of {type(stage).__name__} holds the "
+                f"TorchFunction {value.name!r}, which has no recorded input "
+                "specs; set its input_specs to (shape, dtype) per input to save it"
+            )
     if hasattr(stage, "_held_stages"):
         for held in stage._held_stages():
             _check_savable(held)

@@ -14,6 +14,15 @@ the lse-free forward. CUDA tensors launch the kernels; CPU tensors run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`,
 the same functions in plain PyTorch: only a caller that asked for the CPU
 holds those. A build or launch failure raises; nothing falls back.
+
+The forward, with and without the lse, is a ``torch.library`` op
+(``sparkdl_tpu_torch::flash_attention_fwd`` and
+``sparkdl_tpu_torch::flash_attention_fwd_lse``) whose CUDA implementation
+launches the kernel and whose CPU implementation is the plain version, with
+a fake implementation for tracing. So ``torch.export`` keeps the op as one
+node of the graph wherever it traces: a program exported on either device
+and loaded on the card launches the kernel, and no saved program holds the
+plain attention in its place.
 """
 
 from __future__ import annotations
@@ -156,8 +165,13 @@ def flash_attention_bwd_reference(
 
 def _check_cuda(q, k, v) -> None:
     """What the kernels take: CUDA tensors of one float32 / bfloat16 type on
-    one device, contiguous along head_dim, with a head_dim in HEAD_DIMS."""
-    b, s, h, d = q.shape
+    one device, contiguous along head_dim, with a head_dim in HEAD_DIMS and
+    a batch and heads of at most 65535. Checked where the forward op
+    launches, on real tensors only (never while ``torch.export`` traces, so
+    the symbolic batch stays unbounded), which covers eager calls and
+    loaded programs alike; the backward takes the tensors its forward
+    checked."""
+    b, _, h, d = q.shape
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -174,16 +188,71 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError(f"batch {b} and heads {h} must be at most 65535")
 
 
+def _fwd_plain(q, k, v, causal, scale, kv_len) -> torch.Tensor:
+    return flash_attention_reference(
+        q, k, v, causal=causal, scale=scale, kv_len=kv_len
+    ).contiguous()
+
+
+def _fwd_lse_plain(q, k, v, causal, scale, kv_len):
+    out, lse = flash_attention_reference(
+        q, k, v, causal=causal, scale=scale, kv_len=kv_len, return_lse=True
+    )
+    return out.contiguous(), lse.contiguous()
+
+
+def _fwd_cuda(q, k, v, causal, scale, kv_len):
+    return _forward_cuda(q, k, v, causal, scale, kv_len, return_lse=False)
+
+
+def _fwd_lse_cuda(q, k, v, causal, scale, kv_len):
+    return _forward_cuda(q, k, v, causal, scale, kv_len, return_lse=True)
+
+
+def _fwd_fake(q, k, v, causal, scale, kv_len):
+    return q.new_empty(q.shape)
+
+
+def _fwd_lse_fake(q, k, v, causal, scale, kv_len):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+# The forward as two ops of the dispatcher (a ``torch.library.Library``
+# rather than ``custom_op``, whose Python wrapper cost ~20 us a call: the
+# bf16 ViT forward is launch-bound). CPU tensors run the plain version, CUDA
+# tensors one launch of FLASH_FWD or FLASH_FWD_LSE, fake tensors the shapes.
+_LIB = torch.library.Library("sparkdl_tpu_torch", "DEF")
+_FWD_ARGS_SCHEMA = "(Tensor q, Tensor k, Tensor v, bool causal, float scale, int kv_len)"
+for _name, _out, _plain, _cuda, _fake in (
+    ("flash_attention_fwd", "Tensor", _fwd_plain, _fwd_cuda, _fwd_fake),
+    ("flash_attention_fwd_lse", "(Tensor, Tensor)", _fwd_lse_plain, _fwd_lse_cuda,
+     _fwd_lse_fake),
+):
+    _LIB.define(f"{_name}{_FWD_ARGS_SCHEMA} -> {_out}")
+    _LIB.impl(_name, _plain, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"sparkdl_tpu_torch::{_name}", _fake, lib=_LIB)
+
+#: the lse-free forward op (``fwd_only``)
+flash_attention_fwd_op = torch.ops.sparkdl_tpu_torch.flash_attention_fwd.default
+#: the forward op with the lse (``fwd_call``)
+flash_attention_fwd_lse_op = torch.ops.sparkdl_tpu_torch.flash_attention_fwd_lse.default
+
+
 def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
+    """The forward op, with the lse or without: one launch of the kernel
+    for CUDA tensors, the plain version for CPU tensors. ``scale`` and
+    ``kv_len`` are resolved."""
+    op = flash_attention_fwd_lse_op if return_lse else flash_attention_fwd_op
+    return op(q, k, v, bool(causal), float(scale), int(kv_len))
+
+
+def _forward_cuda(q, k, v, causal, scale, kv_len, return_lse) -> Out:
     """One launch of the forward kernel (``FLASH_FWD``, or ``FLASH_FWD_LSE``
-    with the lse), or its plain version for CPU tensors. ``scale`` and
-    ``kv_len`` are resolved. An input whose rows are not 16-byte aligned is
-    copied to a contiguous tensor first."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(
-            q, k, v, causal=causal, scale=scale, kv_len=kv_len,
-            return_lse=return_lse,
-        )
+    with the lse) into new contiguous outputs. An input whose rows are not
+    16-byte aligned is copied to a contiguous tensor first."""
+    _check_cuda(q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (
@@ -201,7 +270,7 @@ def _forward(q, k, v, causal, scale, kv_len, return_lse) -> Out:
 def _launch_fwd(kernel, q, k, v, out, lse, causal, scale, kv_len) -> None:
     """One launch of ``kernel`` (``FLASH_FWD``, ``FLASH_FWD_LSE`` or a tile
     sweep's variant) into ``out`` and, unless it is None, ``lse``: CUDA
-    tensors as :func:`_forward` prepares them (rows 16-byte aligned)."""
+    tensors as :func:`_forward_cuda` prepares them (rows 16-byte aligned)."""
     b, s, h, d = q.shape
     with torch.cuda.device(q.device):
         kernel(
@@ -327,8 +396,6 @@ def flash_attention(
     scale, kv_len = _resolve(q, k, v, scale, kv_len)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if q.device.type == "cuda":
-        _check_cuda(q, k, v)
     causal = bool(causal)
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad

@@ -46,6 +46,32 @@ class HasLabelCol(Params):
         return self.getOrDefault(self.labelCol)
 
 
+OUTPUT_MODES = ("vector", "image")
+
+
+def _toOutputMode(value):
+    if isinstance(value, str) and value.lower() in OUTPUT_MODES:
+        return value.lower()
+    raise ValueError("outputMode must be one of %s, got %r" % (OUTPUT_MODES, value))
+
+
+class HasOutputMode(Params):
+    outputMode = Param(
+        "undefined",
+        "outputMode",
+        'how the output column should be formatted. "vector" for a 1-d MLlib '
+        'Vector of floats. "image" to format the output to work with the '
+        "image tools in this package.",
+        _toOutputMode,
+    )
+
+    def setOutputMode(self, value):
+        return self._set(outputMode=value)
+
+    def getOutputMode(self):
+        return self.getOrDefault(self.outputMode)
+
+
 class CanLoadImage(Params):
     """Mixin for stages taking an ``imageLoader`` callable:
     ``imageLoader(uri) -> np.ndarray`` loads and preprocesses one image."""

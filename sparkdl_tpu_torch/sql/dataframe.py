@@ -4,7 +4,8 @@ that the port's transformers use.
 Data lives as partitions of column -> list dicts; ``mapPartitions`` is the
 primitive every model transformer builds on, so whole partitions reach the
 batched model runner. ``select`` takes column names, ``withColumn`` a
-row-wise callable over named input columns, ``randomSplit`` draws as the
+row-wise callable over named input columns, ``filter`` a callable over
+rows, ``randomSplit`` draws as the
 JAX package's does, so one seed splits the same rows, and ``union`` appends
 partitions. Column expressions,
 the SQL dialect, joins and windows are not ported yet.
@@ -124,6 +125,25 @@ class DataFrame:
                 schema.add(f.name, f.dataType)
         schema.add(name, self._column_type(parts, name))
         return self._with_partitions(parts, schema)
+
+    def filter(self, condition: Callable[[Row], bool]) -> "DataFrame":
+        """Keep the rows for which ``condition(row)`` is true, in their
+        partitions (the JAX package's callable form; column expressions are
+        not ported)."""
+        if not callable(condition):
+            raise TypeError(
+                f"filter takes a callable over rows, got {type(condition).__name__}"
+            )
+        names = self.columns
+        parts = []
+        for part in self._partitions:
+            mask = [bool(condition(Row._make(names, vals)))
+                    for vals in zip(*(part[c] for c in names))]
+            parts.append({c: [v for v, m in zip(vals, mask) if m]
+                          for c, vals in part.items()})
+        return self._with_partitions(parts)
+
+    where = filter
 
     def randomSplit(
         self, weights: Sequence[float], seed: Optional[int] = None

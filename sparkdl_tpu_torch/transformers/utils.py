@@ -3,17 +3,19 @@ decode and resize in front of it.
 
 Ports of ``sparkdl_tpu.transformers.utils``:
 
-- ``make_loader_decode_plan`` and ``run_batched_rows``. The JAX loop padded
-  the ragged last chunk to ``batch_size`` so that XLA compiled one static
-  shape; PyTorch runs eagerly, so the last chunk runs at its own size and
-  every row still comes back once, in input order;
+- ``make_loader_decode_plan``, ``run_batched_rows``, ``run_batched_multi``
+  and ``run_batched``. The JAX loops padded the ragged last chunk to
+  ``batch_size`` so that XLA compiled one static shape; PyTorch runs
+  eagerly, so the last chunk runs at its own size and every row still
+  comes back once, in input order. On the card all of them go through one
+  pinned, two-slot loop (:func:`_run_cuda`);
 - ``decode_image_batch`` and ``make_image_decode_plan`` on their numpy
-  paths: uint8 rows of one size pack as uint8 at source size, anything else
-  packs as float32, resized while packing where the sizes are mixed. They
-  give three channels in stored (BGR) order: the reference's ``to_rgb``
-  and one-channel options wait for the Keras image UDF (ROADMAP items
-  6-7). The C++ ``native/batchpack.cpp`` bridge is not ported yet (ROADMAP
-  item 13);
+  paths: uint8 three-channel rows of one size pack as uint8 at source size,
+  anything else packs as float32, resized while packing where the sizes are
+  mixed; ``n_channels=1`` gives ITU-R 601 luminance and ``to_rgb`` flips
+  the stored BGR order. The C++ ``native/batchpack.cpp`` bridge is not
+  ported yet (ROADMAP item 13);
+- ``normalize_channels``, ``place_params`` and ``make_input_prologue``;
 - ``device_resize`` and ``cast_and_resize_on_device``. The resize is
   ``jax.image.resize(..., "bilinear")``'s: half-pixel centers, a triangle
   kernel widened by the downscale factor (antialiasing), weights
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.image import imageIO
-from sparkdl_tpu_torch.utils.device import resolve_device
+from sparkdl_tpu_torch.utils.device import place_params, resolve_device  # noqa: F401
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 DEFAULT_BATCH_SIZE = 32
@@ -47,19 +49,25 @@ class MixedImageSizesError(ValueError):
     """A partition mixes (H, W) shapes and no target size is configured."""
 
 
-def normalize_channels(img: np.ndarray) -> np.ndarray:
-    """Coerce an HWC array to 3 channels (replicate gray, drop alpha) so a
-    partition with mixed image modes still forms one batch."""
+def normalize_channels(img: np.ndarray, n_channels: int = 3) -> np.ndarray:
+    """Coerce an HWC array to ``n_channels`` (3: replicate gray, drop alpha;
+    1: ITU-R 601 luminance of the stored BGR order) so a partition with
+    mixed image modes still forms one batch."""
     if img.ndim == 2:
         img = img[:, :, None]
     c = img.shape[-1]
-    if c == 3:
+    if c == n_channels:
         return img
-    if c == 1:
-        return np.repeat(img, 3, axis=-1)
-    if c == 4:
-        return img[:, :, :3]
-    raise ValueError(f"Cannot convert image with {c} channels to 3 channels")
+    if n_channels == 3:
+        if c == 1:
+            return np.repeat(img, 3, axis=-1)
+        if c == 4:
+            return img[:, :, :3]
+    if n_channels == 1 and c >= 3:
+        return (
+            0.114 * img[:, :, :1] + 0.587 * img[:, :, 1:2] + 0.299 * img[:, :, 2:3]
+        ).astype(img.dtype)
+    raise ValueError(f"Cannot convert image with {c} channels to {n_channels} channels")
 
 
 @functools.lru_cache(maxsize=32)
@@ -85,7 +93,8 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Resize a float NHWC batch to ``size`` on its own device, as
     ``jax.image.resize(x, (n, h, w, c), "bilinear")``: one matrix product per
-    axis whose size changes."""
+    axis whose size changes. The result is contiguous NHWC, the layout an
+    exported program was traced with."""
     height, width = int(size[0]), int(size[1])
     if x.shape[1] != height:
         w = torch.tensor(resize_weights(x.shape[1], height), dtype=x.dtype, device=x.device)
@@ -93,7 +102,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     if x.shape[2] != width:
         w = torch.tensor(resize_weights(x.shape[2], width), dtype=x.dtype, device=x.device)
         x = torch.einsum("nhwc,wk->nhkc", x, w)
-    return x
+    return x.contiguous()
 
 
 def device_resize(
@@ -127,15 +136,19 @@ def decode_image_batch(
     always_resize: bool = False,
     prefer_uint8: bool = False,
     device=None,
+    n_channels: int = 3,
+    to_rgb: bool = False,
 ) -> np.ndarray:
-    """Decode image-struct Rows into one 3-channel NHWC batch, in stored
-    (BGR) channel order.
+    """Decode image-struct Rows into one NHWC batch of ``n_channels``
+    (:func:`normalize_channels`), in stored (BGR) channel order unless
+    ``to_rgb``.
 
     Rows of one (H, W) pack at source size (the caller's forward resizes);
-    with ``prefer_uint8`` and uint8 rows they pack as uint8, a quarter of
-    the bytes to the card. Mixed sizes (or ``always_resize``) pack as
-    float32 resized to ``target_hw`` on ``device`` (``None``: the card);
-    ``target_hw=None`` requires one size. Advances ``sparkdl.decode``."""
+    with ``prefer_uint8`` and uint8 rows they pack as uint8 in three
+    channels, a quarter of the bytes to the card. Everything else packs as
+    float32; mixed sizes (or ``always_resize``) resized to ``target_hw`` on
+    ``device`` (``None``: the card); ``target_hw=None`` requires one size.
+    Advances ``sparkdl.decode``."""
     hws = {(int(r["height"]), int(r["width"])) for r in rows}
     uniform = len(hws) == 1
     source_hw = next(iter(hws)) if uniform else None
@@ -150,17 +163,23 @@ def decode_image_batch(
         out_hw = (int(target_hw[0]), int(target_hw[1]))
     metrics.counter("sparkdl.images_processed").add(len(rows))
 
-    if (prefer_uint8 and out_hw == source_hw
+    if (prefer_uint8 and out_hw == source_hw and n_channels == 3
             and all(int(r["mode"]) in _U8_MODES for r in rows)):
         with metrics.timer("sparkdl.decode").time():
-            return np.stack([normalize_channels(imageIO.imageStructToArray(r))
-                             for r in rows])
+            images = [normalize_channels(imageIO.imageStructToArray(r), 3)
+                      for r in rows]
+            if to_rgb:
+                images = [img[..., ::-1] for img in images]
+            return np.stack(images)
 
     with metrics.timer("sparkdl.decode").time():
         images = [
-            normalize_channels(imageIO.imageStructToArray(r).astype(np.float32))
+            normalize_channels(imageIO.imageStructToArray(r).astype(np.float32),
+                               n_channels)
             for r in rows
         ]
+        if to_rgb and n_channels >= 3:
+            images = [img[..., ::-1] for img in images]
     return device_resize(images, out_hw, device)
 
 
@@ -168,6 +187,8 @@ def make_image_decode_plan(
     rows: Sequence,
     size: Optional[Tuple[int, int]],
     device=None,
+    n_channels: int = 3,
+    to_rgb: bool = False,
 ) -> Callable[[Sequence], np.ndarray]:
     """One decode policy for a whole partition, for :func:`run_batched_rows`.
 
@@ -175,7 +196,8 @@ def make_image_decode_plan(
     over ALL rows, so no two chunks of one partition reach the forward in
     two dtypes or shapes. Raises :class:`MixedImageSizesError` when the
     partition mixes sizes and ``size`` is None. ``device=None`` resizes
-    on the card."""
+    on the card; ``n_channels`` and ``to_rgb`` as
+    :func:`decode_image_batch` takes them."""
     device = resolve_device(device)
     hws = {(int(r["height"]), int(r["width"])) for r in rows}
     uniform = len(hws) == 1
@@ -189,7 +211,7 @@ def make_image_decode_plan(
     def decode(chunk):
         return decode_image_batch(
             chunk, size, prefer_uint8=prefer_u8, always_resize=not uniform,
-            device=device,
+            device=device, n_channels=n_channels, to_rgb=to_rgb,
         )
 
     return decode
@@ -205,6 +227,25 @@ def cast_and_resize_on_device(
     if size is not None and tuple(x.shape[1:3]) != (int(size[0]), int(size[1])):
         x = resize_bilinear(x, size)
     return x
+
+
+def make_input_prologue(
+    size: Optional[Tuple[int, int]] = None,
+    preprocess: Optional[Callable] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The input prologue of a forward as one callable: cast (uint8
+    ingest), bilinear resize to ``size`` where the batch is at another size,
+    then ``preprocess`` (such as a registry entry's ``preprocess_input``).
+    ``preprocess`` must keep rows apart: row i of its output depends only
+    on row i of its input."""
+
+    def prologue(x: torch.Tensor) -> torch.Tensor:
+        x = cast_and_resize_on_device(x, size)
+        if preprocess is not None:
+            x = preprocess(x)
+        return x
+
+    return prologue
 
 
 def make_loader_decode_plan(
@@ -268,34 +309,73 @@ def _prefetched(
 
 
 class _PinnedSlot:
-    """Pinned host buffers of one chunk in flight, and the event recorded
-    after the last copy that reads or writes them. A slot is refilled only
-    after that event: a ``non_blocking`` copy still reading a buffer that
-    the host overwrites would ship the next chunk's rows."""
+    """Pinned host buffers of one chunk in flight (one per input and per
+    output), and the event recorded after the last copy that reads or
+    writes them. A slot is refilled only after that event: a
+    ``non_blocking`` copy still reading a buffer that the host overwrites
+    would ship the next chunk's rows."""
 
     def __init__(self):
-        self.inp: Optional[torch.Tensor] = None
-        self.out: Optional[torch.Tensor] = None
+        self.inp: Dict[int, torch.Tensor] = {}
+        self.out: Dict[int, torch.Tensor] = {}
         self.done = torch.cuda.Event()
 
     @staticmethod
-    def _fit(buf, rows, like: torch.Tensor) -> torch.Tensor:
+    def _fit(bufs: Dict[int, torch.Tensor], j: int, rows: int,
+             like: torch.Tensor) -> torch.Tensor:
+        buf = bufs.get(j)
         if buf is None or buf.shape[1:] != like.shape[1:] or buf.dtype != like.dtype:
-            buf = torch.empty(
+            buf = bufs[j] = torch.empty(
                 (rows, *like.shape[1:]), dtype=like.dtype, pin_memory=True
             )
         return buf
 
 
 def _single_output(result) -> torch.Tensor:
-    """The one tensor the loop fetches; bfloat16, which numpy cannot hold,
-    widened (exactly) to float32 where it lies."""
+    """The one tensor :func:`run_batched_rows` fetches."""
     if isinstance(result, (tuple, list)):
         raise TypeError(
             "run_batched_rows requires a single-output fn "
-            f"(got {len(result)} outputs); unwrap the output in the forward"
+            f"(got {len(result)} outputs); unwrap the output in the forward, "
+            "or use run_batched_multi"
         )
-    return result.float() if result.dtype == torch.bfloat16 else result
+    return result
+
+
+def _outputs(result) -> Tuple[torch.Tensor, ...]:
+    """A forward's output as a tuple of tensors; bfloat16, which numpy
+    cannot hold, widened (exactly) to float32 where it lies."""
+    result = tuple(result) if isinstance(result, (tuple, list)) else (result,)
+    return tuple(y.float() if y.dtype == torch.bfloat16 else y for y in result)
+
+
+def _run_chunks(
+    fn: Callable,
+    chunks: Iterator[Tuple[np.ndarray, ...]],
+    batch_size: int,
+    device: torch.device,
+    forward_timer,
+) -> List[List[np.ndarray]]:
+    """``fn(*inputs)`` over host chunks (tuples of row-aligned arrays of at
+    most ``batch_size`` rows) on ``device``: per output, the host arrays of
+    every chunk, in order."""
+    collected: List[List[np.ndarray]] = []
+
+    def collect(host: Sequence[np.ndarray]) -> None:
+        if not collected:
+            collected.extend([] for _ in host)
+        for acc, y in zip(collected, host):
+            acc.append(y)
+
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            _run_cuda(fn, chunks, batch_size, device, collect, forward_timer)
+    else:
+        for arrays in chunks:
+            with forward_timer.time():
+                ys = _outputs(fn(*(torch.from_numpy(a).to(device) for a in arrays)))
+                collect([y.detach().cpu().numpy() for y in ys])
+    return collected
 
 
 def run_batched_rows(
@@ -323,7 +403,6 @@ def run_batched_rows(
     if n == 0:
         raise ValueError("run_batched_rows requires non-empty rows")
     bounds = [(lo, min(lo + batch_size, n)) for lo in range(0, n, batch_size)]
-    collected: List[np.ndarray] = []
     # 'sparkdl.forward' times dispatch + fetch; 'sparkdl.serve' the whole
     # loop, load waits included (the rate images_per_sec() reports)
     serve_timer = metrics.timer("sparkdl.serve")
@@ -331,46 +410,79 @@ def run_batched_rows(
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sparkdl-decode")
     try:
         with serve_timer.time():
-            chunks = _prefetched(pool, decode, rows, bounds)
-            if device.type == "cuda":
-                with torch.cuda.device(device):
-                    _run_cuda(fn, chunks, batch_size, device, collected, forward_timer)
-            else:
-                for batch in chunks:
-                    with forward_timer.time():
-                        y = _single_output(fn(torch.from_numpy(batch).to(device)))
-                        collected.append(y.detach().cpu().numpy())
+            chunks = ((batch,) for batch in _prefetched(pool, decode, rows, bounds))
+            collected = _run_chunks(lambda x: _single_output(fn(x)), chunks,
+                                    batch_size, device, forward_timer)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     metrics.counter("sparkdl.rows_processed").add(n)
     metrics.counter("sparkdl.batches_run").add(len(bounds))
-    return np.concatenate(collected, axis=0)
+    return np.concatenate(collected[0], axis=0)
 
 
-def _run_cuda(fn, chunks, batch_size, device, collected, forward_timer):
+def run_batched_multi(
+    fn: Callable,
+    arrays: Sequence[np.ndarray],
+    batch_size: int = DEFAULT_BATCH_SIZE,
+    device: "torch.device | str" = "cuda",
+) -> Tuple[np.ndarray, ...]:
+    """``fn(*inputs)`` over row-aligned host arrays in chunks of
+    ``batch_size`` rows on ``device``, through the same loop as
+    :func:`run_batched_rows` (pinned two-slot copies on CUDA). ``fn`` takes
+    one tensor per array and returns one tensor or a tuple. Returns one
+    host array per output, all rows in order."""
+    device = torch.device(device)
+    n = arrays[0].shape[0] if len(arrays) else 0
+    if n == 0:
+        raise ValueError("run_batched requires non-empty inputs")
+    bounds = [(lo, min(lo + batch_size, n)) for lo in range(0, n, batch_size)]
+    # the inputs come decoded, so the loop is all dispatch + fetch
+    serve_timer = metrics.timer("sparkdl.serve")
+    forward_timer = metrics.timer("sparkdl.forward")
+    with serve_timer.time():
+        chunks = (tuple(a[lo:hi] for a in arrays) for lo, hi in bounds)
+        collected = _run_chunks(fn, chunks, batch_size, device, forward_timer)
+    metrics.counter("sparkdl.rows_processed").add(n)
+    metrics.counter("sparkdl.batches_run").add(len(bounds))
+    return tuple(np.concatenate(acc, axis=0) for acc in collected)
+
+
+def run_batched(
+    fn: Callable,
+    batch: np.ndarray,
+    batch_size: int = DEFAULT_BATCH_SIZE,
+    device: "torch.device | str" = "cuda",
+) -> np.ndarray:
+    """Single-input, single-output :func:`run_batched_multi`."""
+    return run_batched_multi(fn, [batch], batch_size, device)[0]
+
+
+def _run_cuda(fn, chunks, batch_size, device, collect, forward_timer):
     slots = (_PinnedSlot(), _PinnedSlot())
-    pending: List[Tuple[_PinnedSlot, int]] = []
+    pending: List[Tuple[_PinnedSlot, int, int]] = []
 
-    def fetch(slot: _PinnedSlot, k: int) -> None:
+    def fetch(slot: _PinnedSlot, k: int, n_out: int) -> None:
         slot.done.synchronize()
-        collected.append(slot.out[:k].numpy().copy())
+        collect([slot.out[j][:k].numpy().copy() for j in range(n_out)])
 
-    for i, batch in enumerate(chunks):
+    for i, arrays in enumerate(chunks):
         with forward_timer.time():
-            k = batch.shape[0]
+            k = arrays[0].shape[0]
             slot = slots[i % 2]
             slot.done.synchronize()
-            host = torch.from_numpy(batch)
-            slot.inp = _PinnedSlot._fit(slot.inp, batch_size, host)
-            slot.inp[:k].copy_(host)
-            x = slot.inp[:k].to(device, non_blocking=True)
-            y = _single_output(fn(x))
-            slot.out = _PinnedSlot._fit(slot.out, batch_size, y)
-            slot.out[:k].copy_(y, non_blocking=True)
+            xs = []
+            for j, a in enumerate(arrays):
+                host = torch.from_numpy(a)
+                buf = _PinnedSlot._fit(slot.inp, j, batch_size, host)
+                buf[:k].copy_(host)
+                xs.append(buf[:k].to(device, non_blocking=True))
+            ys = _outputs(fn(*xs))
+            for j, y in enumerate(ys):
+                _PinnedSlot._fit(slot.out, j, batch_size, y)[:k].copy_(y, non_blocking=True)
             slot.done.record()
-            pending.append((slot, k))
+            pending.append((slot, k, len(ys)))
             if len(pending) == len(slots):
                 fetch(*pending.pop(0))
     with forward_timer.time():
-        for slot, k in pending:
-            fetch(slot, k)
+        for slot, k, n_out in pending:
+            fetch(slot, k, n_out)

@@ -265,3 +265,47 @@ def test_no_grad_call_takes_the_lse_free_forward(cuda):
         out = flash_attention(leaf, k, v)
     assert not out.requires_grad
     assert (FLASH_FWD.launches, FLASH_BWD_DQ.launches) == (launches[0] + 1, launches[1])
+
+
+@pytest.mark.parametrize("traced_on", ["cpu", "cuda"])
+def test_exported_flash_vit_launches_the_kernel(cuda, tmp_path, traced_on):
+    """A ViT-Ti function with attn_impl="flash", exported on either device,
+    saved and loaded: its program runs on the card through the forward op,
+    12 launches a call, and gives the in-memory function's rows."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    torch.manual_seed(0)
+    module = ViT(variant="ViT-Ti/16", num_classes=4, image_size=32, attn_impl="flash")
+    fn = TorchFunction.from_module(module, {k: v.to(traced_on)
+                                            for k, v in module.state_dict().items()})
+    fn.save(str(tmp_path / "vit"), ((2, 32, 32, 3), torch.float32))
+    loaded = TorchFunction.load(str(tmp_path / "vit"))
+    x = torch.from_numpy(np.random.RandomState(0).rand(3, 32, 32, 3).astype(np.float32))
+    on_card = TorchFunction.from_module(module.to(cuda))
+    want = on_card(x.to(cuda))
+    launches = FLASH_FWD.launches
+    got = loaded(x.to(cuda))
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == launches + 12
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got, want, atol=5e-4, rtol=5e-3)
+
+
+def test_loaded_program_checks_the_kernel_input(cuda, tmp_path):
+    """A program traced on the CPU whose q, k, v are strided along head_dim:
+    loaded and run on the card, the op's launch refuses them as an eager
+    call does, rather than reading head_dim as contiguous."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+
+    fn = TorchFunction.from_callable(
+        lambda x: flash_attention(*(x.transpose(2, 3),) * 3))
+    fn.save(str(tmp_path / "strided"), ((2, 16, 64, 2), torch.float32))
+    loaded = TorchFunction.load(str(tmp_path / "strided"))
+    x = torch.zeros((2, 16, 64, 2), device=cuda)
+    with pytest.raises(ValueError, match="contiguous along head_dim"):
+        flash_attention(*(x.transpose(2, 3),) * 3)
+    launches = FLASH_FWD.launches
+    with pytest.raises(ValueError, match="contiguous along head_dim"):
+        loaded(x)
+    assert FLASH_FWD.launches == launches

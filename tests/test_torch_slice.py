@@ -169,7 +169,8 @@ def test_transform_over_partitions_keeps_row_order(uris, flax_variables):
 def _imports_jax_package(name: str) -> bool:
     return any(
         name == root or name.startswith(root + ".")
-        for root in ("jax", "jaxlib", "flax", "keras", "sparkdl_tpu")
+        for root in ("jax", "jaxlib", "flax", "keras", "tensorflow", "orbax",
+                     "sparkdl_tpu")
     )
 
 
@@ -179,6 +180,8 @@ def test_import_name_rule():
     assert not _imports_jax_package("sparkdl_tpu_torch.ops")
     assert not _imports_jax_package("jaxtyping_free")
     assert _imports_jax_package("keras.applications")
+    assert _imports_jax_package("tensorflow")
+    assert _imports_jax_package("orbax.checkpoint")
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
@@ -220,6 +223,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.models.vgg",
         "sparkdl_tpu_torch.models.xception",
         "sparkdl_tpu_torch.transformers.named_image",
+        "sparkdl_tpu_torch.transformers.tf_image",
+        "sparkdl_tpu_torch.transformers.tf_tensor",
+        "sparkdl_tpu_torch.graph.builder",
+        "sparkdl_tpu_torch.graph.function",
+        "sparkdl_tpu_torch.graph.pieces",
+        "sparkdl_tpu_torch.graph.utils",
+        "sparkdl_tpu_torch.param.converters",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -227,6 +237,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 def test_port_sources_import_no_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for module in ("graph/function.py", "graph/pieces.py", "graph/builder.py",
+                   "graph/utils.py", "param/converters.py", "transformers/tf_image.py",
+                   "transformers/tf_tensor.py"):
+        assert PACKAGE / module in files, module
     offenders = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
