@@ -117,6 +117,32 @@ prints no result):
    against the in-memory functions', and ``TFImageTransformer`` images/s
    (bf16 function, median of 5) beside the featurizer's, with the
    ``sparkdl.*`` timers.
+10. Keras half of the graph layer: InceptionV3's Keras config
+   (``tests/torch_fixtures/keras_inception_v3.config.json.gz``, 313 layers,
+   23.85 M weights) with seeded weights drawn as phase 7's, written as a
+   ``.keras`` file by the port's own writer (no Keras, no ``h5py``), and a
+   2048 -> 10 softmax head file; ``TorchFunction.from_keras`` of the file in
+   float32 and bf16; ``KerasImageFileTransformer`` over 128 ``.npy`` files of
+   299x299x3 floats (``np.load`` and the "tf" ``preprocess_input``) in 4
+   partitions at batch 32, float32 and bf16; ``registerKerasImageUDF`` with
+   ``session.sql("SELECT inception_udf(image) AS preds FROM images")`` over
+   phase 7's 128 image structs; ``KerasTransformer`` and ``makeGraphUDF``
+   over the head on phase 7's float32 features. Checks: rows out = rows in;
+   the float32 function's probabilities against the registry's hand-written
+   InceptionV3 on the same weights (read from the file through
+   ``port_keras_weights``) on one preprocessed 299x299 batch at
+   ``PROB_TOL``, and against a CPU run of the port on 4 images at
+   ``SLICE_TOL``; bf16 within ``CNN_BF16_MAX_REL`` of the largest float32
+   probability (function and stage); the stage's rows against the function
+   on the same batch; the UDF's rows against the function on the same
+   decoded, resized batch; the head's against float64 numpy; the function
+   exported, saved and loaded; a saved ``KerasImageFileTransformer`` whose
+   model file was removed giving the same rows bit for bit; no attention
+   kernel launched. Timed: the file's write, read and build; the forward
+   at batch 32 in float32 and bf16 beside the registry module's; a profile
+   of the bf16 forward, and the host's time by operator in it beside the
+   registry module's; the stage's and the UDF's images/s (bf16, median of
+   5) beside the featurizer's.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -784,25 +810,30 @@ def cnn_forward_times(name: str, state, x, card: str):
     torch.cuda.empty_cache()
 
 
-def featurizer_rate(stage, df, label: str, card: str, what: str = "featurizer") -> None:
-    """Images through ``stage.transform(df).collect()`` per second, module
-    cached and decode paths warm: 5 transforms, each logged (as ``what``),
-    with their median and the ``sparkdl.*`` timers over the 5."""
+def images_per_s(run, n: int, what: str, label: str, card: str) -> None:
+    """``run()`` (a transform or query, collected) over ``n`` images, warm:
+    5 runs, each logged (as ``what``), their median, and the ``sparkdl.*``
+    timers over the 5."""
     from sparkdl_tpu_torch.utils.metrics import metrics
 
-    n = df.count()
-    stage.transform(df).collect()
+    run()
     walls = []
     metrics.reset()
     for _ in range(5):
         t0 = time.perf_counter()
-        stage.transform(df).collect()
+        run()
         walls.append(time.perf_counter() - t0)
     median = n / float(np.median(walls))
-    log(f"{what} images/s ({label}, batch {CNN_BATCH}, {n} images in "
-        f"{df.getNumPartitions()} partitions, one mixed, {card}): "
+    log(f"{what} images/s ({label}, batch {CNN_BATCH}, {n} images, {card}): "
         + ", ".join(f"{n / w:.1f}" for w in walls) + f"; median {median:.1f}")
     log("  " + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.snapshot("sparkdl.").items())))
+
+
+def featurizer_rate(stage, df, label: str, card: str, what: str = "featurizer") -> None:
+    """Images through ``stage.transform(df).collect()`` per second, module
+    cached and decode paths warm (:func:`images_per_s`)."""
+    images_per_s(lambda: stage.transform(df).collect(), df.count(), what,
+                 f"{label}, {df.getNumPartitions()} partitions, one mixed", card)
 
 
 def cnn_pipeline(card: str, counted):
@@ -1507,6 +1538,348 @@ def graph_layer(card: str, counted):
     return vit_launches["flash_attention_fwd"] + loaded_launches["flash_attention_fwd"]
 
 
+# phase 10: the Keras half of the graph layer
+KERAS_CONFIG = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / \
+    "keras_inception_v3.config.json.gz"
+KERAS_HEAD_IN = 2048
+
+
+def load_npy_tf(uri):
+    """The Keras files' imageLoader: a float32 299x299x3 array in 0-255
+    from ``.npy``, through the "tf" ``preprocess_input`` (to [-1, 1]), in
+    place."""
+    x = np.load(uri)
+    x /= np.float32(127.5)
+    x -= np.float32(1.0)
+    return x
+
+
+def keras_inception_weights(config, seed: int):
+    """Random weights for InceptionV3's Keras config, layer name -> arrays
+    in Keras's variable order, drawn as phase 7 draws them: conv kernels
+    He-normal, BN moving variances 1 + 0.1|n|, means and betas 0.1 n, the
+    Dense at 1/sqrt(in). Shapes from each layer's ``build_config``."""
+    rng = np.random.default_rng(seed)
+    weights = {}
+    for layer in config["config"]["layers"]:
+        cfg, cls = layer["config"], layer["class_name"]
+        cin = (layer.get("build_config") or {}).get("input_shape", [None])[-1]
+        if cls == "Conv2D":
+            kh, kw = cfg["kernel_size"]
+            kernel = rng.standard_normal((kh, kw, cin, cfg["filters"]), dtype=np.float32)
+            weights[cfg["name"]] = [kernel * np.float32((2.0 / (kh * kw * cin)) ** 0.5)]
+            if cfg["use_bias"]:
+                weights[cfg["name"]].append(np.zeros(cfg["filters"], np.float32))
+        elif cls == "BatchNormalization":
+            assert not cfg["scale"] and cfg["center"], cfg["name"]
+            beta, mean = (0.1 * rng.standard_normal(cin, dtype=np.float32) for _ in range(2))
+            var = 1 + 0.1 * np.abs(rng.standard_normal(cin, dtype=np.float32))
+            weights[cfg["name"]] = [beta, mean, var]
+        elif cls == "Dense":
+            kernel = rng.standard_normal((cin, cfg["units"]), dtype=np.float32)
+            weights[cfg["name"]] = [kernel * np.float32(cin ** -0.5),
+                                    0.1 * rng.standard_normal(cfg["units"], dtype=np.float32)]
+    return weights
+
+
+def keras_head_config(units: int):
+    """A Sequential Keras config: a ``KERAS_HEAD_IN``-wide input, one Dense
+    of ``units`` with softmax, as Keras 3 writes it."""
+    return {"module": "keras", "class_name": "Sequential", "config": {
+        "name": "head", "layers": [
+            {"module": "keras.layers", "class_name": "InputLayer", "config": {
+                "name": "input_layer", "batch_shape": [None, KERAS_HEAD_IN],
+                "dtype": "float32"}},
+            {"module": "keras.layers", "class_name": "Dense", "config": {
+                "name": "dense", "units": units, "activation": "softmax",
+                "use_bias": True, "dtype": {"module": "keras", "class_name": "DTypePolicy",
+                                            "config": {"name": "float32"}}}},
+        ]}}
+
+
+def keras_file_view(path):
+    """A Keras file as ``models/keras_port.py::port_keras_weights`` reads a
+    built model, duck-typed: ``layers``, each with its Keras class's name,
+    ``name``, ``get_weights()`` and the ``use_bias`` / ``scale`` /
+    ``center`` flags of its config."""
+    from types import SimpleNamespace
+
+    from sparkdl_tpu_torch.models.keras_model import read_keras_file
+
+    config, weights = read_keras_file(path)
+    layers = []
+    for layer in config["config"]["layers"]:
+        cfg = layer["config"]
+        view = type(layer["class_name"], (), {})()
+        view.name = cfg["name"]
+        view.use_bias = cfg.get("use_bias", False)
+        view.scale, view.center = cfg.get("scale", True), cfg.get("center", True)
+        view.get_weights = (lambda arrays: lambda: list(arrays))(weights.get(cfg["name"], []))
+        layers.append(view)
+    return SimpleNamespace(layers=layers)
+
+
+def host_ops(label: str, fn) -> None:
+    """The host's time by ATen operator of one call of ``fn`` (a forward
+    that the host's launches bound), under ``torch.profiler`` with CPU
+    activity only: the self times summed, the calls counted, the six
+    largest. Logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]
+    log(f"  host ({label}): ATen self time {sum(e.self_cpu_time_total for e in ops) / 1e3:.3f} "
+        f"ms over {sum(e.count for e in ops)} calls; "
+        + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+
+
+def keras_half(card: str, counted):
+    """Phase 10: InceptionV3 from a ``.keras`` file at full width on the
+    card, through ``TorchFunction.from_keras``, ``KerasImageFileTransformer``
+    and ``registerKerasImageUDF`` + ``session.sql``, and a Dense head through
+    ``KerasTransformer`` and ``makeGraphUDF``, with the checks and times of
+    the docstring."""
+    import gzip
+    import shutil
+
+    import torch
+
+    from sparkdl_tpu_torch import (
+        DeepImageFeaturizer,
+        KerasImageFileTransformer,
+        KerasTransformer,
+        makeGraphUDF,
+        registerKerasImageUDF,
+    )
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.models.keras_model import (
+        KerasModel,
+        read_keras_file,
+        write_keras_file,
+    )
+    from sparkdl_tpu_torch.models.keras_port import port_keras_weights
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.named_image import build_module
+    from sparkdl_tpu_torch.transformers.utils import decode_image_batch
+
+    dev = torch.device("cuda")
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    counted[0]()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-keras-") as tmp:
+        tmp = Path(tmp)
+        # the files, made without Keras
+        config = json.loads(gzip.decompress(KERAS_CONFIG.read_bytes()))
+        weights = keras_inception_weights(config, seed=11)
+        n_weights = sum(a.size for arrays in weights.values() for a in arrays)
+        path = str(tmp / "inception_v3.keras")
+        t0 = time.perf_counter()
+        write_keras_file(path, config, weights)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        file_config, file_weights = read_keras_file(path)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        KerasModel(file_config, file_weights)
+        build_s = time.perf_counter() - t0
+        size_mb = Path(path).stat().st_size / 1e6
+        log(f"keras: InceptionV3 .keras ({len(config['config']['layers'])} layers, "
+            f"{n_weights} weights, {size_mb:.1f} MB) written in {write_s:.2f} s, read in "
+            f"{read_s:.2f} s, built in {build_s:.2f} s")
+        if n_weights != 23_851_784:
+            raise AssertionError(f"InceptionV3 holds {n_weights} weights")
+        rng = np.random.default_rng(12)
+        head_w = (rng.standard_normal((KERAS_HEAD_IN, HEAD_CLASSES)) / np.sqrt(KERAS_HEAD_IN)
+                  ).astype(np.float32)
+        head_b = (0.1 * rng.standard_normal(HEAD_CLASSES)).astype(np.float32)
+        head_path = str(tmp / "head.keras")
+        write_keras_file(head_path, keras_head_config(HEAD_CLASSES), {"dense": [head_w, head_b]})
+
+        # the weights carried across, float32 and bf16
+        t0 = time.perf_counter()
+        fns = {name: TorchFunction.from_keras(path, compute_dtype=name)
+               for name in ("float32", "bfloat16")}
+        log(f"  TorchFunction.from_keras, float32 and bf16: {time.perf_counter() - t0:.2f} s; "
+            f"input_hw {fns['float32'].input_hw}, fingerprint "
+            f"{fns['float32'].fingerprint.rsplit(':', 3)[-3:]}")
+        if fns["float32"].input_hw != (299, 299):
+            raise AssertionError(f"input_hw {fns['float32'].input_hw}")
+
+        # the config-built graph against the registry's hand-written
+        # InceptionV3 on the same weights and the same preprocessed batch
+        x = torch.from_numpy(rng.uniform(0, 255, (CNN_BATCH, 299, 299, 3))
+                             .astype(np.float32)).to(dev)
+        xp = x / 127.5 - 1.0
+        f32 = fns["float32"]
+        f32_params = f32.placed_params(dev)
+        with torch.inference_mode():
+            probs = f32.apply(f32_params, xp)[0]
+        entry = get_keras_application_model("InceptionV3")
+        state = entry.state_dict_from_flax(port_keras_weights(keras_file_view(path)))
+        hand = {dtype: build_module("InceptionV3", state, dtype, dev)
+                for dtype in (torch.float32, torch.bfloat16)}
+        with torch.inference_mode():
+            want = torch.softmax(hand[torch.float32](nchw(xp)), dim=-1)
+        err = (probs - want).abs().max().item()
+        log(f"  float32 function vs the registry's InceptionV3 (hand-written) on the same "
+            f"weights, {CNN_BATCH} preprocessed 299x299 images: max abs err {err:.3e} "
+            f"(largest probability {want.max().item():.3e})")
+        torch.testing.assert_close(probs, want, **PROB_TOL)
+
+        # the function on the card against a CPU run of the port, 4 rows
+        on_cpu = f32(xp[:4].cpu(), device="cpu")
+        cpu_err = (probs[:4].cpu() - on_cpu).abs().max().item()
+        log(f"  float32 function, card vs CPU (4 images): max abs err {cpu_err:.3e}")
+        torch.testing.assert_close(probs[:4].cpu(), on_cpu, **SLICE_TOL)
+        with torch.inference_mode():
+            probs16 = fns["bfloat16"].apply(fns["bfloat16"].placed_params(dev), xp)[0].float()
+        bf16_err = (probs16 - probs).abs().max().item()
+        log(f"  bf16 vs float32 function: max abs err {bf16_err:.3e} "
+            f"({bf16_err / probs.abs().max().item():.3e} of the largest)")
+        if not bf16_err <= CNN_BF16_MAX_REL * probs.abs().max().item():
+            raise AssertionError(f"bf16 function {bf16_err:.3e} from float32")
+
+        # KerasImageFileTransformer over 128 .npy files
+        uri_dir = tmp / "npy"
+        uri_dir.mkdir()
+        pixels = np.random.RandomState(13).randint(0, 256, (CNN_IMAGES, 299, 299, 3))
+        uris = []
+        for i, img in enumerate(pixels.astype(np.float32)):
+            uris.append(str(uri_dir / f"img_{i:03d}.npy"))
+            np.save(uris[-1], img)
+        uri_df = session.createDataFrame([{"uri": u} for u in uris], numPartitions=4)
+        stage_args = dict(inputCol="uri", outputCol="preds", modelFile=path,
+                          imageLoader=load_npy_tf, batchSize=CNN_BATCH)
+        rows = {}
+        for dtype in ("float32", "bfloat16"):
+            out = KerasImageFileTransformer(computeDtype=dtype, **stage_args
+                                            ).transform(uri_df).collect()
+            rows[dtype] = vectors(out, "preds")
+            if len(out) != CNN_IMAGES or rows[dtype].shape != (CNN_IMAGES, 1000) \
+                    or not np.isfinite(rows[dtype]).all():
+                raise AssertionError(f"bad KerasImageFileTransformer rows: {rows[dtype].shape}")
+        batch = torch.from_numpy(np.stack([load_npy_tf(u) for u in uris[:CNN_BATCH]])).to(dev)
+        with torch.inference_mode():
+            direct = f32.apply(f32_params, batch)[0].cpu().numpy()
+        np.testing.assert_allclose(rows["float32"][:CNN_BATCH], direct, **PROB_TOL)
+        stage_bf16_err = np.abs(rows["bfloat16"] - rows["float32"]).max()
+        log(f"keras: KerasImageFileTransformer over {CNN_IMAGES} .npy files in 4 partitions: "
+            f"float32 rows vs the function on the same batch max abs err "
+            f"{np.abs(rows['float32'][:CNN_BATCH] - direct).max():.3e}; bf16 vs float32 "
+            f"{stage_bf16_err:.3e}")
+        if not stage_bf16_err <= CNN_BF16_MAX_REL * np.abs(rows["float32"]).max():
+            raise AssertionError(f"bf16 stage rows {stage_bf16_err:.3e} from float32")
+
+        # registerKerasImageUDF in session.sql over phase 7's image structs
+        image_df = session.createDataFrame(cnn_image_rows(CNN_IMAGES, seed=0), numPartitions=4)
+        image_df.createOrReplaceTempView("images")
+        registerKerasImageUDF("inception_udf", path, batchSize=CNN_BATCH)
+        query = "SELECT inception_udf(image) AS preds FROM images"
+        udf_rows = session.sql(query).collect()
+        preds = vectors(udf_rows, "preds")
+        if preds.shape != (CNN_IMAGES, 1000) or not np.isfinite(preds).all():
+            raise AssertionError(f"bad UDF rows: {preds.shape}")
+        images = [r["image"] for r in image_df.collect()]
+        resized = decode_image_batch(images, (299, 299), always_resize=True, device=dev,
+                                     to_rgb=True)
+        want = np.concatenate([
+            f32.apply(f32_params, torch.from_numpy(resized[i:i + CNN_BATCH]).to(dev))[0]
+            .cpu().numpy() for i in range(0, CNN_IMAGES, CNN_BATCH)])
+        np.testing.assert_allclose(preds, want, **SLICE_TOL)
+        log(f"keras: registerKerasImageUDF + session.sql over {len(udf_rows)} image structs "
+            f"(4 partitions, one mixed) vs the function on the same decoded, resized batch: "
+            f"max abs err {np.abs(preds - want).max():.3e}")
+
+        # the head: KerasTransformer and makeGraphUDF against float64 numpy
+        feats = rows_array(DeepImageFeaturizer(
+            inputCol="image", outputCol="features", modelName="InceptionV3",
+            modelWeights=flax_layout_inception_params(seed=3), batchSize=CNN_BATCH,
+            computeDtype="float32").transform(image_df).collect())
+        logits = feats.astype(np.float64) @ head_w + head_b
+        z = np.exp(logits - logits.max(axis=1, keepdims=True))
+        head_want = z / z.sum(axis=1, keepdims=True)
+        feature_df = session.createDataFrame([{"features": v} for v in feats.astype(np.float32)],
+                                             numPartitions=4)
+        head_rows = KerasTransformer(inputCol="features", outputCol="probs",
+                                     modelFile=head_path, batchSize=CNN_BATCH
+                                     ).transform(feature_df).collect()
+        head_got = np.stack([r["probs"] for r in head_rows])
+        np.testing.assert_allclose(head_got, head_want, **PROB_TOL)
+        makeGraphUDF(TorchFunction.from_keras(head_path), "head_udf", batchSize=CNN_BATCH)
+        feature_df.createOrReplaceTempView("features")
+        udf_probs = vectors(session.sql("SELECT head_udf(features) AS probs FROM features")
+                            .collect(), "probs")
+        np.testing.assert_allclose(udf_probs, head_want, **PROB_TOL)
+        log(f"keras: the 2048 -> {HEAD_CLASSES} head over {len(head_rows)} rows of phase 7's "
+            f"features: KerasTransformer max abs err {np.abs(head_got - head_want).max():.3e}, "
+            f"makeGraphUDF {np.abs(udf_probs - head_want).max():.3e} against float64 numpy")
+        launches = counted[1]()
+        if any(launches.values()):
+            raise AssertionError(f"the Keras path launched attention kernels: {launches}")
+        log(f"  attention launches over the phase's path: {launches} (none)")
+
+        # export, and a saved stage whose model file is gone
+        loaded = saved_and_loaded(f32, ((2, 299, 299, 3), torch.float32), tmp)
+        with torch.inference_mode():
+            again = loaded.apply({}, xp)[0]
+        torch.testing.assert_close(again, probs, **SLICE_TOL)
+        log(f"  the .keras function exported, saved, loaded: max abs err "
+            f"{(again - probs).abs().max().item():.3e} against the in-memory function")
+        own_copy = str(tmp / "stage_model.keras")
+        shutil.copy(path, own_copy)
+        stage = KerasImageFileTransformer(**{**stage_args, "modelFile": own_copy})
+        first = vectors(stage.transform(uri_df).collect(), "preds")
+        stage.write().overwrite().save(str(tmp / "stage"))
+        Path(own_copy).unlink()
+        reloaded = KerasImageFileTransformer.load(str(tmp / "stage"))
+        if not np.array_equal(vectors(reloaded.transform(uri_df).collect(), "preds"), first):
+            raise AssertionError("the reloaded KerasImageFileTransformer's rows differ")
+        log("  save/load: the reloaded KerasImageFileTransformer, its model file removed, "
+            "gives the same rows bit for bit")
+        del loaded, reloaded, stage
+
+        # times
+        for dtype, module in hand.items():
+            name = str(dtype).removeprefix("torch.")
+            fn = fns[name]
+            params = fn.placed_params(dev)
+            with torch.inference_mode():
+                fn_ms = time_ms(lambda: fn.apply(params, xp), iters=10)
+                hand_ms = time_ms(lambda: module(nchw(xp).to(dtype)), iters=10)
+            log(f"keras: forward at batch {CNN_BATCH}, InceptionV3 {name} ({card}): the .keras "
+                f"function {fn_ms:.3f} ms, the registry's module {hand_ms:.3f} ms")
+        bf16_params = fns["bfloat16"].placed_params(dev)
+        with torch.inference_mode():
+            wall = time_ms(lambda: fns["bfloat16"].apply(bf16_params, xp), iters=10)
+            profile_forward(lambda: fns["bfloat16"].apply(bf16_params, xp), wall)
+            host_ops("bf16, the .keras function", lambda: fns["bfloat16"].apply(bf16_params, xp))
+            host_ops("bf16, the registry's module",
+                     lambda: hand[torch.bfloat16](nchw(xp).to(torch.bfloat16)))
+        del hand
+        images_per_s(lambda: KerasImageFileTransformer(computeDtype="bfloat16", **stage_args)
+                     .transform(uri_df).collect(), CNN_IMAGES, "KerasImageFileTransformer",
+                     "InceptionV3 bf16, .npy files, 4 partitions", card)
+        registerKerasImageUDF("inception_udf_bf16", path, batchSize=CNN_BATCH,
+                              computeDtype="bfloat16")
+        images_per_s(lambda: session.sql("SELECT inception_udf_bf16(image) AS preds "
+                                         "FROM images").collect(),
+                     CNN_IMAGES, "registerKerasImageUDF",
+                     "InceptionV3 bf16, image structs, 4 partitions, one mixed", card)
+        featurizer_rate(DeepImageFeaturizer(inputCol="image", outputCol="features",
+                                            modelName="InceptionV3",
+                                            modelWeights=flax_layout_inception_params(seed=3),
+                                            batchSize=CNN_BATCH, computeDtype="bfloat16"),
+                        image_df, "InceptionV3 bf16, beside them", card)
+    del fns
+    torch.cuda.empty_cache()
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -2014,6 +2387,10 @@ def main() -> int:
     # phase 9: the graph layer: TorchFunction, TFImageTransformer,
     # TFTransformer, export, persistence
     records[0]["launches"] += graph_layer(card, counted=(reset_counts, counts))
+
+    # phase 10: the Keras half of the graph layer: a .keras InceptionV3
+    # through TorchFunction.from_keras, KerasImageFileTransformer, the UDFs
+    keras_half(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -21,6 +21,8 @@ _EXPORTS = {
     "GraphFunction": "sparkdl_tpu_torch.graph.function",
     "InceptionV3": "sparkdl_tpu_torch.models.inception_v3",
     "IsolatedSession": "sparkdl_tpu_torch.graph.builder",
+    "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
+    "KerasTransformer": "sparkdl_tpu_torch.transformers.keras_tensor",
     "LogisticRegression": "sparkdl_tpu_torch.ml.classification",
     "MobileNetV2": "sparkdl_tpu_torch.models.mobilenet_v2",
     "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.ml.evaluation",
@@ -40,10 +42,12 @@ _EXPORTS = {
     "VGG19": "sparkdl_tpu_torch.models.vgg",
     "ViT": "sparkdl_tpu_torch.models.vit",
     "Xception": "sparkdl_tpu_torch.models.xception",
-    "vit_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
     "flash_attention": "sparkdl_tpu_torch.ops.flash_attention",
     "inception_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
+    "makeGraphUDF": "sparkdl_tpu_torch.graph.tensorframes_udf",
+    "registerKerasImageUDF": "sparkdl_tpu_torch.udf.keras_image_model",
     "resolve_device": "sparkdl_tpu_torch.utils.device",
+    "vit_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
 }
 
 __all__ = ["VERSION", *sorted(_EXPORTS)]

@@ -27,9 +27,10 @@ Differences by design:
   runs its program on the device of its inputs (the card when it has no
   tensor input), moved there once by
   ``torch.export.passes.move_to_device_pass``;
-- ``from_keras`` and ``from_saved_model`` raise ``NotImplementedError``:
-  neither Keras, ``h5py`` nor TensorFlow is available to the port (ROADMAP
-  item 6b).
+- ``from_keras`` builds the Keras config into a torch module and reads the
+  file's weights with the port's own HDF5 reader: neither Keras nor
+  ``h5py`` is available to the port. ``from_saved_model`` raises
+  ``NotImplementedError``: TensorFlow is not available either.
 
 The port's flash-attention forward is a ``torch.library`` op, so a
 function that reaches it exports with the op node in its graph, and its
@@ -203,18 +204,21 @@ class TorchFunction:
         params are placed once per device. One output comes back alone,
         several as a tuple."""
         device = resolve_device(device)
-        if params is not None:
-            params = place_params(params, device)
-        else:
-            placed = self._placed
-            if placed is None or placed[0] is not self.params or placed[1] != device:
-                placed = self._placed = (self.params, device,
-                                         place_params(self.params, device))
-            params = placed[2]
+        params = self.placed_params(device) if params is None else place_params(params, device)
         args = place_params(args, device)
         with torch.inference_mode():
             out = self.apply(params, *args)
         return out[0] if len(self.output_names) == 1 else out
+
+    def placed_params(self, device=None):
+        """The function's own params on ``device`` (``None``: the card),
+        placed once per device and kept, so that a stage run again does not
+        copy the weights again."""
+        device = resolve_device(device)
+        placed = self._placed
+        if placed is None or placed[0] is not self.params or placed[1] != device:
+            placed = self._placed = (self.params, device, place_params(self.params, device))
+        return placed[2]
 
     # ------------------------------------------------------------------
     # composition (the GraphFunction.fromList analog)
@@ -302,11 +306,62 @@ class TorchFunction:
     @classmethod
     def from_keras(cls, model_or_path, name: Optional[str] = None,
                    compute_dtype: Optional[str] = None) -> "TorchFunction":
-        raise NotImplementedError(
-            "TorchFunction.from_keras is not ported yet (ROADMAP item 6b): "
-            "Keras and h5py are not available to the port, so a .keras or "
-            ".h5 file needs a Keras-free reader of its own"
+        """From a Keras model, or a ``.keras`` / ``.h5`` file, without Keras:
+        the config is built into a torch module
+        (:class:`~sparkdl_tpu_torch.models.keras_model.KerasModel`) that takes
+        NHWC batches as Keras does, its weights read by the port's HDF5
+        reader, then :meth:`from_module`.
+
+        ``compute_dtype="bfloat16"`` (or ``"float16"``) runs a file under
+        Keras's ``mixed_<dtype>`` policy: every layer computes in that type,
+        the variables stay float32. It applies to files only: an in-memory
+        model's layers already carry their dtype policy. As in the JAX
+        package, the function's ``input_hw`` is the first input's static
+        ``(H, W)`` (else None), ``input_specs`` is set when every non-batch
+        dimension is static, and a file's fingerprint is
+        ``keras:<abspath>:<mtime_ns>:<size>:<dtype>``."""
+        from sparkdl_tpu_torch.models.keras_model import (
+            KerasModel,
+            read_keras_file,
+            read_keras_model,
         )
+
+        if compute_dtype == "float32":
+            compute_dtype = None  # the saved-model default; a no-op
+        if compute_dtype not in (None, "bfloat16", "float16"):
+            raise ValueError(
+                f"unsupported compute_dtype {compute_dtype!r}; expected "
+                "'float32', 'bfloat16', or 'float16'"
+            )
+        fingerprint = None
+        if isinstance(model_or_path, (str, os.PathLike)):
+            src = os.path.abspath(os.fspath(model_or_path))
+            st = os.stat(src)
+            fingerprint = (f"keras:{src}:{st.st_mtime_ns}:{st.st_size}:"
+                           f"{compute_dtype or 'float32'}")
+            config, weights = read_keras_file(src)
+        else:
+            if compute_dtype is not None:
+                raise ValueError(
+                    "compute_dtype applies when loading from a saved file; "
+                    "set a keras dtype policy before building in-memory "
+                    "models instead"
+                )
+            config, weights = read_keras_model(model_or_path)
+        module = KerasModel(config, weights, compute_dtype=compute_dtype)
+        fn = cls.from_module(module, name=name or module.name)
+        fn.fingerprint = fingerprint
+        # static NHWC spatial input size, when the model declares one:
+        # image-serving callers (udf.keras_image_model) resize to it
+        shape = module.input_shapes[0] if module.input_shapes else None
+        fn.input_hw = (
+            (int(shape[1]), int(shape[2]))
+            if shape is not None and len(shape) == 4 and shape[1] and shape[2]
+            else None
+        )
+        if shape is not None and all(d is not None for d in shape[1:]):
+            fn.input_specs = [((1,) + tuple(int(d) for d in shape[1:]), np.float32)]
+        return fn
 
     @classmethod
     def from_saved_model(cls, path: str, signature: str = "serving_default",

@@ -12,11 +12,15 @@ rebuilds the stage. Each param value is encoded as:
   (``function.pt2`` and ``manifest.json``), loaded back by
   ``TorchFunction.load``;
 - numpy arrays and nested dicts of arrays (Flax variables): ``.npz``;
-- anything else (callables such as ``imageLoader``): pickle.
+- anything else (callables such as ``imageLoader``): pickle;
+- a param a stage names in ``_file_params`` (``HasKerasModel.modelFile``):
+  the file it names, copied into the directory, so the saved stage no
+  longer needs the original.
 
-The JAX package's Keras-model encoding is not ported yet (ROADMAP item 7):
-such a value raises. A directory saved by the JAX package does not load
-here: its metadata names the JAX package's classes.
+The JAX package's Keras-model encoding (an in-memory model as a param) is
+not ported yet (ROADMAP item 7): such a value raises. A directory saved by
+the JAX package does not load here: its metadata names the JAX package's
+classes.
 """
 
 from __future__ import annotations
@@ -87,6 +91,10 @@ def _not_ported(value) -> Optional[str]:
 def _encode_param(instance, name: str, value, path: str) -> Dict[str, Any]:
     from sparkdl_tpu_torch.graph.function import TorchFunction
 
+    if name in getattr(instance, "_file_params", ()) and isinstance(value, (str, os.PathLike)):
+        ref = f"param_{name}{os.path.splitext(str(value))[1]}"
+        shutil.copy2(str(value), os.path.join(path, ref))
+        return {"t": "file", "ref": ref}
     if _is_jsonable(value):
         return {"t": "json", "v": value}
     if isinstance(value, TorchFunction):
@@ -124,6 +132,8 @@ def _decode_param(desc: Dict[str, Any], path: str):
     if kind == "json":
         return desc["v"]
     ref = os.path.join(path, desc["ref"])
+    if kind == "file":
+        return ref
     if kind == "torch_function":
         from sparkdl_tpu_torch.graph.function import TorchFunction
 

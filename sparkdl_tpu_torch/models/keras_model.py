@@ -1,0 +1,749 @@
+"""Keras 3 models built as torch modules, from a ``.keras`` or ``.h5`` file
+or a built model, without Keras.
+
+The torch counterpart of what ``keras.models.load_model`` and
+``model.stateless_call`` do for ``sparkdl_tpu.graph.function``'s
+``XlaFunction.from_keras``:
+
+- :func:`read_keras_file` reads a file's architecture and weights with
+  :mod:`sparkdl_tpu_torch.utils.hdf5`: a ``.keras`` zip (``config.json`` and
+  ``model.weights.h5``, whose variables sit at ``layers/<class>/vars/<i>``)
+  or a legacy ``.h5`` (the ``model_config`` attribute, the weights under
+  ``model_weights`` in the order of each layer's ``weight_names``);
+- :func:`read_keras_model` reads a built model duck-typed, as
+  :mod:`~sparkdl_tpu_torch.models.keras_port` does: ``model.get_config()``
+  and each layer's ``get_weights()``;
+- :class:`KerasModel` runs the config's graph in topological order:
+  Sequential and Functional models in the node format Keras 3 writes
+  (``inbound_nodes`` of ``__keras_tensor__`` args with ``keras_history``);
+- :func:`write_keras_file` writes a ``.keras`` file of a config and its
+  weights (with :func:`sparkdl_tpu_torch.utils.hdf5.write`), so a machine
+  without Keras can make one.
+
+Layout: Keras is NHWC; every 4-D tensor here is held NCHW in channels_last
+memory, as the port's CNNs run, permuted once at the input and back at a
+4-D output. Keras axis ``-1`` of a 4-D tensor (``BatchNormalization``,
+``Concatenate``, ``Softmax``, ``Dense``) is then dim 1, and ``Flatten`` and
+``Reshape`` go through NHWC so that the weights after them see Keras's order.
+
+Each layer computes in its dtype policy's compute type (a ``mixed_bfloat16``
+layer casts its floating inputs to bf16, its float32 weights at each use),
+batch norm in float32 as Keras does under a mixed policy. Layer classes:
+InputLayer, Conv2D, DepthwiseConv2D, SeparableConv2D, BatchNormalization,
+Dense, Activation, ReLU, Softmax, Add, Concatenate, Flatten, Reshape,
+Rescaling, Dropout (identity at inference), ZeroPadding2D, MaxPooling2D,
+AveragePooling2D and GlobalAveragePooling2D; activations ``linear``,
+``relu``, ``relu6``, ``sigmoid``, ``softmax``, ``tanh``, ``swish`` /
+``silu``, ``gelu``, ``elu``, ``softplus`` and ``hard_sigmoid``. Another
+class, a nested model, ``channels_first`` data or Keras 2's node format
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import time
+import zipfile
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sparkdl_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv,
+    Dense,
+    avg_pool,
+    conv2d,
+    global_avg_pool,
+    max_pool,
+)
+from sparkdl_tpu_torch.utils import hdf5
+
+Weights = Dict[str, List[np.ndarray]]
+
+_MODEL_CLASSES = ("Functional", "Sequential")
+# the Keras whose file format write_keras_file follows, as metadata.json records it
+_KERAS_VERSION = "3.13.1"
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+# ----------------------------------------------------------------------
+# reading
+# ----------------------------------------------------------------------
+
+def read_keras_file(path) -> Tuple[Dict[str, Any], Weights]:
+    """A Keras file's config (``{"class_name": ..., "config": ...}``) and
+    its weights, layer name -> arrays in the layer's variable order."""
+    path = os.fspath(path)
+    if zipfile.is_zipfile(path):
+        with zipfile.ZipFile(path) as archive:
+            config = json.loads(archive.read("config.json"))
+            weights_file = hdf5.File(archive.read("model.weights.h5"))
+        weights: Weights = {}
+        for name, path in _variable_paths(config).items():
+            if path in weights_file:
+                group = weights_file[path]
+                weights[name] = [group[k].read() for k in sorted(group.keys(), key=int)]
+        return config, weights
+    weights_file = hdf5.File(path)
+    if "model_config" not in weights_file.attrs:
+        raise ValueError(f"{path}: neither a .keras zip nor an HDF5 file with a "
+                         "model_config attribute")
+    config = json.loads(weights_file.attrs["model_config"])
+    root = weights_file["model_weights"] if "model_weights" in weights_file else weights_file
+    weights = {}
+    for name in root.attrs["layer_names"]:
+        group = root[str(name)]
+        weights[str(name)] = [group[str(w)].read() for w in group.attrs["weight_names"]]
+    return config, weights
+
+
+def _snake_case(name: str) -> str:
+    """``keras.src.utils.naming.to_snake_case``."""
+    name = re.sub(r"\W+", "", name)
+    name = re.sub("(.)([A-Z][a-z]+)", r"\1_\2", name)
+    return re.sub("([a-z])([A-Z])", r"\1_\2", name).lower()
+
+
+def _variable_paths(config: Mapping[str, Any]) -> Dict[str, str]:
+    """Layer name -> the group of its variables in a ``.keras`` weights
+    file. Keras names a model's layers there by class, not by name (so
+    that two builds of one model match): ``layers/<snake_case class>``, then
+    ``_1``, ``_2``, ... for the next of a class, in the order of
+    ``model.layers`` (which leaves out a Sequential model's InputLayer)."""
+    layers = list(config["config"].get("layers", ()))
+    if config.get("class_name") == "Sequential" and layers \
+            and layers[0]["class_name"] == "InputLayer":
+        layers = layers[1:]
+    used: Dict[str, int] = {}
+    paths = {}
+    for layer in layers:
+        base = _snake_case(layer["class_name"])
+        count = used[base] = used.get(base, -1) + 1
+        paths[layer["config"]["name"]] = f"layers/{base}" + (f"_{count}" if count else "") + "/vars"
+    return paths
+
+
+def read_keras_model(model) -> Tuple[Dict[str, Any], Weights]:
+    """A built Keras model's config and weights, read duck-typed
+    (``get_config()``, ``layers``, each layer's ``name`` and
+    ``get_weights()``); Keras is never imported."""
+    if not hasattr(model, "get_config") or not hasattr(model, "layers"):
+        raise TypeError(f"expected a built Keras model, got {type(model).__name__}")
+    config = {"class_name": type(model).__name__, "config": model.get_config()}
+    weights = {layer.name: [np.asarray(w) for w in layer.get_weights()]
+               for layer in model.layers}
+    return config, weights
+
+
+# ----------------------------------------------------------------------
+# layout helpers: a 4-D tensor is held NCHW for Keras's NHWC
+# ----------------------------------------------------------------------
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1) if x.dim() == 4 else x
+
+
+def _from_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2) if x.dim() == 4 else x
+
+
+def _dim(x: torch.Tensor, axis: int) -> int:
+    """Keras axis ``axis`` of the tensor ``x`` holds."""
+    axis = axis % x.dim()
+    return (0, 2, 3, 1)[axis] if x.dim() == 4 else axis
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (int(v), int(v)) if isinstance(v, (int, float)) else (int(v[0]), int(v[1]))
+
+
+# ----------------------------------------------------------------------
+# activations, as Keras 3 defines them
+# ----------------------------------------------------------------------
+
+def _relu(x, negative_slope=0.0, max_value=None, threshold=0.0):
+    """``keras.activations.relu``, in the same steps."""
+    negative = 1
+    if negative_slope != 0.0:
+        if max_value is None and threshold == 0:
+            return F.leaky_relu(x, negative_slope)
+        negative = torch.relu(threshold - x)
+    clip = max_value is not None
+    if threshold != 0:
+        x = x * (x > threshold).to(x.dtype)
+    elif max_value == 6:
+        x, clip = F.relu6(x), False
+    else:
+        x = torch.relu(x)
+    if clip:
+        x = x.clamp(0.0, float(max_value))
+    if negative_slope != 0.0:
+        x = x - negative_slope * negative
+    return x
+
+
+def _softmax(x: torch.Tensor, axis=-1) -> torch.Tensor:
+    axes = axis if isinstance(axis, (list, tuple)) else [axis]
+    if len(axes) == 1:
+        return torch.softmax(x, dim=_dim(x, axes[0]))
+    dims = [_dim(x, a) for a in axes]
+    return torch.exp(x - torch.logsumexp(x, dim=dims, keepdim=True))
+
+
+_ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "linear": lambda x: x,
+    "relu": _relu,
+    "relu6": F.relu6,
+    "sigmoid": torch.sigmoid,
+    "softmax": _softmax,
+    "tanh": torch.tanh,
+    "swish": F.silu,
+    "silu": F.silu,
+    # keras.activations.gelu's default: the exact (erf) form
+    "gelu": F.gelu,
+    "elu": F.elu,
+    # log(1 + exp(x)), with no linear cut-over as torch's default has
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "hard_sigmoid": lambda x: F.relu6(x + 3.0) / 6.0,
+}
+
+
+def _activation(spec, layer: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if spec is None:
+        return _ACTIVATIONS["linear"]
+    if isinstance(spec, str) and spec in _ACTIVATIONS:
+        return _ACTIVATIONS[spec]
+    raise NotImplementedError(f"activation {spec!r} of layer {layer!r} is not supported")
+
+
+def policy_dtype(spec) -> torch.dtype:
+    """The compute type of a serialized Keras dtype policy: ``"float32"``,
+    ``"mixed_bfloat16"`` or ``{"class_name": "DTypePolicy", "config":
+    {"name": ...}}``; float32 when absent."""
+    if isinstance(spec, Mapping):
+        spec = spec.get("config", {}).get("name")
+    if spec is None:
+        return torch.float32
+    name = str(spec).removeprefix("mixed_")
+    if name not in _DTYPES:
+        raise NotImplementedError(f"Keras dtype policy {spec!r} is not supported")
+    return _DTYPES[name]
+
+
+# ----------------------------------------------------------------------
+# layers
+# ----------------------------------------------------------------------
+
+class _Layer(nn.Module):
+    """One Keras layer: ``call(*args)`` over its node's inputs (a tensor,
+    or a list of them for the merge layers) in its compute type."""
+
+    n_weights: Tuple[int, ...] = (0,)
+
+    def __init__(self, cfg: Mapping[str, Any], weights: List[np.ndarray], dtype: torch.dtype):
+        super().__init__()
+        self.layer_name = cfg["name"]
+        self.dtype = dtype
+        if cfg.get("data_format", "channels_last") != "channels_last":
+            raise NotImplementedError(
+                f"layer {self.layer_name!r}: data_format {cfg['data_format']!r}")
+        if len(weights) not in self.n_weights:
+            raise ValueError(f"layer {self.layer_name!r} ({type(self).__name__[1:]}) has "
+                             f"{len(weights)} weights; expected {self.n_weights}")
+
+    def cast(self, x):
+        if isinstance(x, (list, tuple)):
+            return [self.cast(t) for t in x]
+        # tested here, not by a no-op x.to(): a launch-bound forward pays
+        # for every call into the dispatcher
+        if x.is_floating_point() and x.dtype != self.dtype:
+            return x.to(self.dtype)
+        return x
+
+    def call(self, x):
+        raise NotImplementedError
+
+
+def _tensor(array: np.ndarray) -> torch.Tensor:
+    """A float32 copy of ``array`` in its own contiguous memory (file
+    buffers are read-only views, and kernels come transposed)."""
+    return torch.from_numpy(np.array(array, dtype=np.float32, order="C"))
+
+
+def _param(array: np.ndarray) -> nn.Parameter:
+    return nn.Parameter(_tensor(array), requires_grad=False)
+
+
+def _kernel(oihw: np.ndarray) -> nn.Parameter:
+    """A convolution kernel in channels_last memory, the layout of the
+    activations it meets: a contiguous NCHW kernel would be converted at
+    every call (and its bf16 cast with it)."""
+    return nn.Parameter(_tensor(oihw).contiguous(memory_format=torch.channels_last),
+                        requires_grad=False)
+
+
+class _InputLayer(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, policy_dtype(cfg.get("dtype")))
+        shape = cfg.get("batch_shape", cfg.get("batch_input_shape"))
+        self.batch_shape = None if shape is None else tuple(shape)
+
+    def call(self, x):
+        return self.cast(x)
+
+
+def _depthwise_oihw(kernel: np.ndarray) -> np.ndarray:
+    """Keras ``(kh, kw, cin, mult)`` -> ``(cin * mult, 1, kh, kw)``: output
+    channel ``c * mult + m``, as Keras orders it."""
+    kh, kw, cin, mult = kernel.shape
+    return kernel.transpose(2, 3, 0, 1).reshape(cin * mult, 1, kh, kw)
+
+
+class _Conv2D(_Layer):
+    n_weights = (1, 2)
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        if cfg.get("use_bias", True) != (len(weights) == 2):
+            raise ValueError(f"layer {self.layer_name!r}: use_bias and its weights disagree")
+        kernel = weights[0]
+        groups = int(cfg.get("groups", 1))
+        self.conv = Conv(kernel.shape[2] * groups, kernel.shape[3], kernel.shape[:2],
+                         _pair(cfg.get("strides", 1)), cfg.get("padding", "valid").upper(),
+                         use_bias=len(weights) == 2, groups=groups,
+                         dilation=_pair(cfg.get("dilation_rate", 1)))
+        self.conv.weight = _kernel(kernel.transpose(3, 2, 0, 1))
+        if len(weights) == 2:
+            self.conv.bias = _param(weights[1])
+        self.activation = _activation(cfg.get("activation"), self.layer_name)
+
+    def call(self, x):
+        return self.activation(self.conv(self.cast(x)))
+
+
+class _DepthwiseConv2D(_Layer):
+    n_weights = (1, 2)
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        kernel = weights[0]
+        cin = kernel.shape[2]
+        self.conv = Conv(cin, cin * kernel.shape[3], kernel.shape[:2],
+                         _pair(cfg.get("strides", 1)), cfg.get("padding", "valid").upper(),
+                         use_bias=len(weights) == 2, groups=cin,
+                         dilation=_pair(cfg.get("dilation_rate", 1)))
+        self.conv.weight = _kernel(_depthwise_oihw(kernel))
+        if len(weights) == 2:
+            self.conv.bias = _param(weights[1])
+        self.activation = _activation(cfg.get("activation"), self.layer_name)
+
+    def call(self, x):
+        return self.activation(self.conv(self.cast(x)))
+
+
+class _SeparableConv2D(_Layer):
+    """The depthwise convolution (strides, padding, dilation), then the 1x1
+    pointwise one, then the bias, as Keras's ``separable_conv``."""
+
+    n_weights = (2, 3)
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.depthwise_kernel = _kernel(_depthwise_oihw(weights[0]))
+        self.pointwise_kernel = _kernel(weights[1].transpose(3, 2, 0, 1))
+        self.bias = _param(weights[2]) if len(weights) == 3 else None
+        self.strides = _pair(cfg.get("strides", 1))
+        self.padding = cfg.get("padding", "valid").upper()
+        self.dilation = _pair(cfg.get("dilation_rate", 1))
+        self.activation = _activation(cfg.get("activation"), self.layer_name)
+
+    def call(self, x):
+        x = self.cast(x)
+        x = conv2d(x, self.depthwise_kernel.to(x.dtype), self.strides, self.padding,
+                   groups=x.shape[1], dilation=self.dilation)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self.activation(F.conv2d(x, self.pointwise_kernel.to(x.dtype), bias))
+
+
+class _BatchNormalization(_Layer):
+    """Keras's inference batch norm on one axis (its config's ``axis``),
+    in float32 and rounded once to the input's type."""
+
+    n_weights = (2, 3, 4)
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        axis = cfg.get("axis", -1)
+        axes = axis if isinstance(axis, (list, tuple)) else [axis]
+        if len(axes) != 1:
+            raise NotImplementedError(f"layer {self.layer_name!r}: batch norm over {axes}")
+        self.axis = int(axes[0])
+        scale, center = bool(cfg.get("scale", True)), bool(cfg.get("center", True))
+        if len(weights) != 2 + scale + center:
+            raise ValueError(f"layer {self.layer_name!r}: {len(weights)} weights for "
+                             f"scale={scale}, center={center}")
+        features = weights[-1].shape[0]
+        self.bn = BatchNorm(features, float(cfg.get("epsilon", 1e-3)), use_scale=scale)
+        i = 0
+        if scale:
+            self.bn.scale, i = _param(weights[0]), 1
+        if center:
+            self.bn.bias = _param(weights[i])
+        self.bn.mean = _tensor(weights[-2])
+        self.bn.var = _tensor(weights[-1])
+
+    def call(self, x):
+        x = self.cast(x)
+        dim = _dim(x, self.axis)
+        if dim == 1:
+            return self.bn(x)
+        return self.bn(x.movedim(dim, 1)).movedim(1, dim)
+
+
+class _Dense(_Layer):
+    """``x @ kernel + bias`` on the last (Keras) axis."""
+
+    n_weights = (1, 2)
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        kernel = weights[0]
+        self.dense = Dense(kernel.shape[0], kernel.shape[1], bias=len(weights) == 2)
+        self.dense.weight = _param(kernel.T)
+        if len(weights) == 2:
+            self.dense.bias = _param(weights[1])
+        self.activation = _activation(cfg.get("activation"), self.layer_name)
+
+    def call(self, x):
+        y = _from_nhwc(self.dense(_nhwc(self.cast(x))))
+        return self.activation(y)
+
+
+class _Activation(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.activation = _activation(cfg.get("activation"), self.layer_name)
+
+    def call(self, x):
+        return self.activation(self.cast(x))
+
+
+class _ReLU(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        max_value = cfg.get("max_value")
+        self.kwargs = dict(negative_slope=float(cfg.get("negative_slope", 0.0)),
+                           max_value=None if max_value is None else float(max_value),
+                           threshold=float(cfg.get("threshold", 0.0)))
+
+    def call(self, x):
+        return _relu(self.cast(x), **self.kwargs)
+
+
+class _Softmax(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.axis = cfg.get("axis", -1)
+
+    def call(self, x):
+        return _softmax(self.cast(x), self.axis)
+
+
+class _Add(_Layer):
+    def call(self, xs):
+        xs = self.cast(xs)
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+
+class _Concatenate(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.axis = int(cfg.get("axis", -1))
+
+    def call(self, xs):
+        xs = self.cast(xs)
+        return torch.cat(xs, dim=_dim(xs[0], self.axis))
+
+
+class _Flatten(_Layer):
+    def call(self, x):
+        x = self.cast(x)
+        return _nhwc(x).reshape(x.shape[0], -1)
+
+
+class _Reshape(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.target = tuple(int(d) for d in cfg["target_shape"])
+
+    def call(self, x):
+        x = self.cast(x)
+        return _from_nhwc(_nhwc(x).reshape(x.shape[0], *self.target))
+
+
+class _Rescaling(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.scale = np.asarray(cfg.get("scale", 1.0), dtype=np.float64)
+        self.offset = np.asarray(cfg.get("offset", 0.0), dtype=np.float64)
+
+    def _const(self, value: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+        t = torch.tensor(value, dtype=x.dtype, device=x.device)
+        return t.view(1, -1, 1, 1) if x.dim() == 4 and t.dim() == 1 else t
+
+    def call(self, x):
+        x = self.cast(x)
+        return x * self._const(self.scale, x) + self._const(self.offset, x)
+
+
+class _Dropout(_Layer):
+    def call(self, x):
+        return self.cast(x)
+
+
+class _ZeroPadding2D(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        pad = cfg.get("padding", 1)
+        if isinstance(pad, int):
+            pad = ((pad, pad), (pad, pad))
+        elif all(isinstance(p, int) for p in pad):
+            pad = ((pad[0], pad[0]), (pad[1], pad[1]))
+        (top, bottom), (left, right) = pad
+        self.pads = (int(left), int(right), int(top), int(bottom))
+
+    def call(self, x):
+        return F.pad(self.cast(x), self.pads)
+
+
+class _Pooling2D(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.window = _pair(cfg.get("pool_size", 2))
+        strides = cfg.get("strides")
+        self.strides = self.window if strides is None else _pair(strides)
+        self.padding = cfg.get("padding", "valid").upper()
+
+
+class _MaxPooling2D(_Pooling2D):
+    def call(self, x):
+        return max_pool(self.cast(x), self.window, self.strides, self.padding)
+
+
+class _AveragePooling2D(_Pooling2D):
+    def call(self, x):
+        return avg_pool(self.cast(x), self.window, self.strides, self.padding)
+
+
+class _GlobalAveragePooling2D(_Layer):
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.keepdims = bool(cfg.get("keepdims", False))
+
+    def call(self, x):
+        y = global_avg_pool(self.cast(x))
+        return y[:, :, None, None] if self.keepdims else y
+
+
+_LAYERS = {cls.__name__[1:]: cls for cls in (
+    _InputLayer, _Conv2D, _DepthwiseConv2D, _SeparableConv2D, _BatchNormalization,
+    _Dense, _Activation, _ReLU, _Softmax, _Add, _Concatenate, _Flatten, _Reshape,
+    _Rescaling, _Dropout, _ZeroPadding2D, _MaxPooling2D, _AveragePooling2D,
+    _GlobalAveragePooling2D,
+)}
+
+
+# ----------------------------------------------------------------------
+# the graph
+# ----------------------------------------------------------------------
+
+def _history(arg) -> Optional[Tuple[str, int, int]]:
+    if isinstance(arg, Mapping) and arg.get("class_name") == "__keras_tensor__":
+        name, node, index = arg["config"]["keras_history"]
+        return (str(name), int(node), int(index))
+    return None
+
+
+def _refs(args) -> List[Tuple[str, int, int]]:
+    """Every keras tensor an inbound node's args name, in order."""
+    found = _history(args)
+    if found is not None:
+        return [found]
+    if isinstance(args, (list, tuple)):
+        return [r for a in args for r in _refs(a)]
+    if isinstance(args, Mapping):
+        return [r for a in args.values() for r in _refs(a)]
+    return []
+
+
+def _substitute(args, values: Mapping[Tuple[str, int, int], torch.Tensor]):
+    found = _history(args)
+    if found is not None:
+        return values[found]
+    if isinstance(args, (list, tuple)):
+        return [_substitute(a, values) for a in args]
+    return args
+
+
+def _as_list(spec) -> List:
+    """``input_layers`` / ``output_layers``: one ``[name, node, index]`` or
+    a list of them."""
+    if spec and isinstance(spec[0], str):
+        return [spec]
+    return list(spec)
+
+
+class KerasModel(nn.Module):
+    """A Keras 3 model (Sequential or Functional) as a torch module.
+
+    ``KerasModel(config, weights, compute_dtype=None)``: ``config`` is
+    ``{"class_name": ..., "config": ...}`` as a file holds it; ``weights``
+    maps each layer's name to its arrays in the layer's variable order;
+    ``compute_dtype`` (``"bfloat16"`` or ``"float16"``) overrides every
+    layer's policy to ``mixed_<dtype>``, else each layer's serialized policy
+    holds. ``forward`` takes NHWC inputs as Keras does and returns the
+    model's output (a tuple where it has several)."""
+
+    def __init__(self, config: Mapping[str, Any], weights: Mapping[str, Sequence[np.ndarray]],
+                 compute_dtype: Optional[str] = None):
+        super().__init__()
+        cls = config.get("class_name")
+        if cls not in _MODEL_CLASSES:
+            raise NotImplementedError(f"Keras model class {cls!r} is not supported")
+        cfg = config["config"]
+        self.name = cfg.get("name", "model")
+        override = None if compute_dtype is None else policy_dtype(f"mixed_{compute_dtype}")
+        self.layers = nn.ModuleDict()
+        self._keys: Dict[str, str] = {}
+        for layer in cfg["layers"]:
+            self._add_layer(layer, weights, override)
+        if cls == "Sequential":
+            self._sequential(cfg)
+        else:
+            self._functional(cfg)
+
+    def _add_layer(self, layer: Mapping[str, Any], weights, override) -> None:
+        cls, lcfg = layer["class_name"], layer["config"]
+        name = lcfg["name"]
+        if cls in _MODEL_CLASSES + ("Model",):
+            raise NotImplementedError(f"layer {name!r} is a nested model ({cls})")
+        if cls not in _LAYERS:
+            raise NotImplementedError(f"Keras layer class {cls!r} (layer {name!r}) is not supported")
+        dtype = policy_dtype(lcfg.get("dtype")) if override is None else override
+        key = name.replace(".", "_")
+        if key in self.layers:
+            raise ValueError(f"two layers named {name!r}")
+        self._keys[name] = key
+        self.layers[key] = _LAYERS[cls](lcfg, [np.asarray(w) for w in weights.get(name, [])],
+                                        dtype)
+
+    def _layer(self, name: str) -> _Layer:
+        return self.layers[self._keys[name]]
+
+    def _sequential(self, cfg) -> None:
+        names = [layer["config"]["name"] for layer in cfg["layers"]]
+        if not names:
+            raise ValueError(f"Sequential model {self.name!r} has no layers")
+        first = self._layer(names[0])
+        if isinstance(first, _InputLayer):
+            self._inputs, chain = [(names[0], 0, 0)], names[1:]
+            self.input_shapes = [first.batch_shape]
+        else:
+            # no InputLayer: the input feeds the first layer ("" names it)
+            self._inputs, chain = [("", 0, 0)], names
+            shape = cfg.get("build_input_shape")
+            self.input_shapes = [None if shape is None else tuple(shape)]
+        self._nodes = []
+        previous = self._inputs[0][0]
+        for name in chain:
+            self._nodes.append((name, 0, [{"class_name": "__keras_tensor__",
+                                           "config": {"keras_history": [previous, 0, 0]}}]))
+            previous = name
+        self._outputs = [(previous, 0, 0)]
+
+    def _functional(self, cfg) -> None:
+        pending = []
+        for layer in cfg["layers"]:
+            name = layer["config"]["name"]
+            for node_index, node in enumerate(layer.get("inbound_nodes", [])):
+                if not isinstance(node, Mapping) or "args" not in node:
+                    raise NotImplementedError(
+                        f"layer {name!r}: Keras 2's node format is not supported "
+                        "(save the model with Keras 3)")
+                if _refs(node.get("kwargs", {})):
+                    raise NotImplementedError(f"layer {name!r} takes tensors as kwargs")
+                pending.append((name, node_index, node["args"]))
+        self._inputs = [tuple(spec) for spec in _as_list(cfg["input_layers"])]
+        self._outputs = [tuple(spec) for spec in _as_list(cfg["output_layers"])]
+        self.input_shapes = []
+        for name, _, _ in self._inputs:
+            layer = self._layer(name)
+            self.input_shapes.append(getattr(layer, "batch_shape", None))
+        # topological order: a node runs once every tensor it reads exists
+        ready = {(str(n), int(i), int(j)) for n, i, j in self._inputs}
+        self._nodes = []
+        while pending:
+            left = []
+            for name, node_index, args in pending:
+                if all(r in ready for r in _refs(args)):
+                    self._nodes.append((name, node_index, args))
+                    ready.add((name, node_index, 0))
+                else:
+                    left.append((name, node_index, args))
+            if len(left) == len(pending):
+                raise ValueError(f"the graph cannot run: layers {[p[0] for p in left]} "
+                                 "read tensors no layer makes")
+            pending = left
+
+    def forward(self, *inputs: torch.Tensor):
+        if len(inputs) != len(self._inputs):
+            raise ValueError(f"{self.name} takes {len(self._inputs)} inputs, got {len(inputs)}")
+        values: Dict[Tuple[str, int, int], torch.Tensor] = {}
+        for (name, node, index), x in zip(self._inputs, inputs):
+            # NHWC in: a 4-D input goes NCHW into channels_last memory once
+            if x.dim() == 4:
+                x = _from_nhwc(x).contiguous(memory_format=torch.channels_last)
+            if name:
+                x = self._layer(name).call(x)
+            values[(name, node, index)] = x
+        for name, node_index, args in self._nodes:
+            values[(name, node_index, 0)] = self._layer(name).call(*_substitute(args, values))
+        outputs = tuple(_nhwc(values[spec]) for spec in self._outputs)
+        return outputs[0] if len(outputs) == 1 else outputs
+
+
+# ----------------------------------------------------------------------
+# writing
+# ----------------------------------------------------------------------
+
+def write_keras_file(path, config: Mapping[str, Any],
+                     weights: Mapping[str, Sequence[np.ndarray]]) -> None:
+    """Write a ``.keras`` file: the zip Keras 3 writes (``metadata.json``,
+    ``config.json`` and ``model.weights.h5``, stored), each layer's weights
+    at ``<its group>/<i>`` of the HDF5 file (:func:`_variable_paths`), written by
+    :func:`sparkdl_tpu_torch.utils.hdf5.write`."""
+    tree: Dict[str, Any] = {"layers": {}, "vars": {}}
+    attrs = {"vars": {"name": config["config"].get("name", "model")}}
+    for name, group in _variable_paths(config).items():
+        arrays = weights.get(name, ())
+        if len(arrays):
+            tree["layers"][group.split("/")[1]] = {
+                "vars": {str(i): np.asarray(a) for i, a in enumerate(arrays)}}
+            attrs[group] = {"name": name}
+    blob = hdf5.write(None, tree, attrs)
+    metadata = {"keras_version": _KERAS_VERSION,
+                "date_saved": time.strftime("%Y-%m-%d@%H:%M:%S")}
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as archive:
+        archive.writestr("metadata.json", json.dumps(metadata))
+        archive.writestr("config.json", json.dumps(config))
+        archive.writestr("model.weights.h5", blob)

@@ -69,18 +69,21 @@ def _flat(pads) -> Tuple[int, int, int, int]:
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, strides: IntPair = 1,
            padding: str = "SAME", bias: Optional[torch.Tensor] = None,
-           groups: int = 1) -> torch.Tensor:
+           groups: int = 1, dilation: IntPair = 1) -> torch.Tensor:
     """Convolution of NCHW ``x`` with an OIHW ``weight`` (``(cout, cin /
     groups, kh, kw)``) under TF padding: symmetric pads go to the
     convolution, asymmetric ones to an explicit zero pad before a
-    ``'VALID'`` convolution."""
-    strides = _pair(strides)
-    pads = _pads(x, weight.shape[2:], strides, padding)
+    ``'VALID'`` convolution. A dilated kernel pads as its spread
+    ``(k - 1) * d + 1``."""
+    strides, dilation = _pair(strides), _pair(dilation)
+    spread = tuple((k - 1) * d + 1 for k, d in zip(weight.shape[2:], dilation))
+    pads = _pads(x, spread, strides, padding)
     if _symmetric(pads):
         return F.conv2d(x, weight, bias, stride=strides,
-                        padding=(pads[0][0], pads[1][0]), groups=groups)
+                        padding=(pads[0][0], pads[1][0]), dilation=dilation,
+                        groups=groups)
     return F.conv2d(F.pad(x, _flat(pads)), weight, bias, stride=strides,
-                    groups=groups)
+                    dilation=dilation, groups=groups)
 
 
 class Conv(nn.Module):
@@ -90,25 +93,28 @@ class Conv(nn.Module):
     kh, kw)``."""
 
     def __init__(self, cin: int, cout: int, kernel, strides=1, padding: str = "SAME",
-                 use_bias: bool = False, groups: int = 1):
+                 use_bias: bool = False, groups: int = 1, dilation=1):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros((cout, cin // groups, *_pair(kernel))))
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
         self.strides = _pair(strides)
         self.padding = padding
         self.groups = groups
+        self.dilation = _pair(dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return conv2d(x, self.weight.to(x.dtype), self.strides, self.padding,
-                      bias, self.groups)
+                      bias, self.groups, self.dilation)
 
 
 class BatchNorm(nn.Module):
     """Flax ``BatchNorm(use_running_average=True)``: ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias`` in float32, rounded once to the
     input's type (a bf16 ``x`` meets float32 ``mean`` and promotes, as in
-    Flax). Without ``use_scale`` the multiplier is ``rsqrt(var + eps)``."""
+    Flax). Without ``use_scale`` the multiplier is ``rsqrt(var + eps)``.
+    The features are dim 1 of an input of any rank (NCHW, or a batch of
+    vectors)."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, use_scale: bool = True):
         super().__init__()
@@ -119,7 +125,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(self.var + self.epsilon)
         if self.scale is not None:
             mul = mul * self.scale
@@ -149,16 +155,18 @@ class SeparableConv(nn.Module):
 
 class Dense(nn.Linear):
     """Flax ``nn.Dense``: ``x @ kernel + bias`` in the input's type;
-    ``weight`` is ``(out, in)``. Made at zero: its values come from a
-    ``state_dict``."""
+    ``weight`` is ``(out, in)``; ``bias=False`` leaves the bias out. Made at
+    zero: its values come from a ``state_dict``."""
 
     def reset_parameters(self) -> None:
         with torch.no_grad():
             self.weight.zero_()
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 # the layers whose weights a stage holds in the computation type

@@ -55,6 +55,36 @@ def _toOutputMode(value):
     raise ValueError("outputMode must be one of %s, got %r" % (OUTPUT_MODES, value))
 
 
+class HasKerasModel(Params):
+    # persistence: modelFile names a model artifact, so save() copies the
+    # file into the save directory instead of recording a path that may go
+    _file_params = ("modelFile",)
+
+    modelFile = Param(
+        "undefined",
+        "modelFile",
+        "h5py file containing the Keras model (architecture and weights)",
+        TypeConverters.toString,
+    )
+    kerasFitParams = Param(
+        "undefined",
+        "kerasFitParams",
+        "dict with parameters passed to Keras model fit method",
+    )
+
+    def setModelFile(self, value):
+        return self._set(modelFile=value)
+
+    def getModelFile(self):
+        return self.getOrDefault(self.modelFile)
+
+    def setKerasFitParams(self, value):
+        return self._set(kerasFitParams=value)
+
+    def getKerasFitParams(self):
+        return self.getOrDefault(self.kerasFitParams)
+
+
 class HasOutputMode(Params):
     outputMode = Param(
         "undefined",

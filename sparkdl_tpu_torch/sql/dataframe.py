@@ -3,12 +3,14 @@ that the port's transformers use.
 
 Data lives as partitions of column -> list dicts; ``mapPartitions`` is the
 primitive every model transformer builds on, so whole partitions reach the
-batched model runner. ``select`` takes column names, ``withColumn`` a
-row-wise callable over named input columns, ``filter`` a callable over
-rows, ``randomSplit`` draws as the
-JAX package's does, so one seed splits the same rows, and ``union`` appends
-partitions. Column expressions,
-the SQL dialect, joins and windows are not ported yet.
+batched model runner. ``select`` takes column names and
+:class:`~sparkdl_tpu_torch.sql.functions.Column` references and UDF calls,
+``withColumn`` a row-wise callable over named input columns, ``filter`` a
+callable over rows, ``randomSplit`` draws as the JAX package's does, so one
+seed splits the same rows, ``union`` appends partitions, and
+``createOrReplaceTempView`` names the frame for ``session.table`` and
+``session.sql``. The rest of the column expressions, of the SQL dialect,
+joins and windows are not ported yet (ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -94,18 +96,31 @@ class DataFrame:
         if missing:
             raise KeyError(f"No such column(s): {missing}; have {self.columns}")
 
-    def select(self, *cols: str) -> "DataFrame":
-        """Keep the named columns, in the order given (``"*"`` is all)."""
+    def select(self, *cols: "Column | str") -> "DataFrame":
+        """Project columns, in the order given: a name (``"*"`` is all) or a
+        :class:`~sparkdl_tpu_torch.sql.functions.Column` (``col("x")``,
+        ``udf("x").alias("y")``), evaluated a partition at a time."""
+        from sparkdl_tpu_torch.sql.functions import Column
+
         if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
             cols = tuple(cols[0])
-        names: List[str] = []
+        exprs: List[Any] = []
         for c in cols:
-            names.extend(self.columns if c == "*" else [c])
-        self._check_columns(names)
-        parts = [{c: part[c] for c in names} for part in self._partitions]
+            if isinstance(c, Column):
+                exprs.append(c)
+            else:
+                exprs.extend(self.columns if c == "*" else [c])
+        self._check_columns([e for e in exprs if isinstance(e, str)])
+        names = [e if isinstance(e, str) else e._name for e in exprs]
+        parts = []
+        for part in self._partitions:
+            n = _partition_nrows(part)
+            parts.append({name: part[e] if isinstance(e, str) else e._eval(part, n)
+                          for name, e in zip(names, exprs)})
         schema = StructType()
-        for c in names:
-            schema.add(c, self._field_type(c))
+        for name, e in zip(names, exprs):
+            schema.add(name, self._field_type(e) if isinstance(e, str)
+                       else self._column_type(parts, name))
         return self._with_partitions(parts, schema)
 
     def withColumn(self, name: str, fn: Callable, *input_cols: str) -> "DataFrame":
@@ -182,6 +197,13 @@ class DataFrame:
                 f"Union requires same columns: {self.columns} vs {other.columns}"
             )
         return self._with_partitions(self._partitions + other._partitions)
+
+    def createOrReplaceTempView(self, name: str) -> None:
+        """Name this frame in its session, for ``session.table(name)`` and
+        ``session.sql("... FROM name")``."""
+        if self.sparkSession is None:
+            raise RuntimeError("DataFrame has no session")
+        self.sparkSession._views[name] = self
 
     def mapPartitions(
         self,

@@ -10,6 +10,8 @@ import importlib
 _EXPORTS = {
     "DeepImageFeaturizer": "sparkdl_tpu_torch.transformers.named_image",
     "DeepImagePredictor": "sparkdl_tpu_torch.transformers.named_image",
+    "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
+    "KerasTransformer": "sparkdl_tpu_torch.transformers.keras_tensor",
     "TFImageTransformer": "sparkdl_tpu_torch.transformers.tf_image",
     "TFTransformer": "sparkdl_tpu_torch.transformers.tf_tensor",
     "TorchImageTransformer": "sparkdl_tpu_torch.transformers.tf_image",

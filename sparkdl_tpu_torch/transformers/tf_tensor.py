@@ -21,11 +21,7 @@ from sparkdl_tpu_torch.ml.base import Transformer
 from sparkdl_tpu_torch.param.base import Param, TypeConverters, keyword_only
 from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 from sparkdl_tpu_torch.param.shared import HasDevice
-from sparkdl_tpu_torch.transformers.utils import (
-    DEFAULT_BATCH_SIZE,
-    place_params,
-    run_batched_multi,
-)
+from sparkdl_tpu_torch.transformers.utils import DEFAULT_BATCH_SIZE, run_batched_multi
 from sparkdl_tpu_torch.utils.device import resolve_device
 
 
@@ -111,7 +107,7 @@ class TFTransformer(Transformer, HasDevice):
             )
         ordered_cols = [col_for_input[name] for name in fn.input_names]
         device = resolve_device(self.getDevice())
-        params = place_params(fn.params, device)
+        params = fn.placed_params(device)
 
         def forward(*xs):
             with torch.inference_mode():

@@ -15,7 +15,8 @@ Ports of ``sparkdl_tpu.transformers.utils``:
   mixed; ``n_channels=1`` gives ITU-R 601 luminance and ``to_rgb`` flips
   the stored BGR order. The C++ ``native/batchpack.cpp`` bridge is not
   ported yet (ROADMAP item 13);
-- ``normalize_channels``, ``place_params`` and ``make_input_prologue``;
+- ``normalize_channels``, ``place_params``, ``make_input_prologue`` and
+  ``load_keras_function``;
 - ``device_resize`` and ``cast_and_resize_on_device``. The resize is
   ``jax.image.resize(..., "bilinear")``'s: half-pixel centers, a triangle
   kernel widened by the downscale factor (antialiasing), weights
@@ -37,6 +38,7 @@ import torch
 
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.utils.device import place_params, resolve_device  # noqa: F401
+from sparkdl_tpu_torch.utils.lru import LRUCache
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 DEFAULT_BATCH_SIZE = 32
@@ -486,3 +488,24 @@ def _run_cuda(fn, chunks, batch_size, device, collect, forward_timer):
     with forward_timer.time():
         for slot, k, n_out in pending:
             fetch(slot, k, n_out)
+
+
+_KERAS_FN_CACHE = LRUCache(8)
+
+
+def load_keras_function(path: str, compute_dtype: Optional[str] = None):
+    """``TorchFunction.from_keras`` cached per (path, mtime, dtype): repeated
+    transforms of the same saved model reuse one function, and so its
+    params placed on the card (:meth:`TorchFunction.placed_params`)."""
+    import os
+
+    from sparkdl_tpu_torch.graph.function import TorchFunction
+
+    if compute_dtype == "float32":
+        compute_dtype = None  # same artifact as the default: share the entry
+    key = (os.path.abspath(path), os.path.getmtime(path), compute_dtype)
+    fn = _KERAS_FN_CACHE.get(key)
+    if fn is None:
+        fn = TorchFunction.from_keras(path, compute_dtype=compute_dtype)
+        _KERAS_FN_CACHE[key] = fn
+    return fn

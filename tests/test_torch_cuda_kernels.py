@@ -309,3 +309,51 @@ def test_loaded_program_checks_the_kernel_input(cuda, tmp_path):
     with pytest.raises(ValueError, match="contiguous along head_dim"):
         loaded(x)
     assert FLASH_FWD.launches == launches
+
+
+def _layer(cls, name, **config):
+    return {"module": "keras.layers", "class_name": cls, "config": {"name": name, **config}}
+
+
+def test_keras_file_function_on_the_card(cuda, tmp_path):
+    """A small Sequential ``.keras`` file, written by the port's writer (no
+    Keras on the card's machine), read by ``from_keras`` and run on the
+    card against the CPU, in float32 and under ``mixed_bfloat16``; no
+    attention kernel runs."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.models.keras_model import write_keras_file
+
+    config = {"module": "keras", "class_name": "Sequential", "config": {
+        "name": "card_cnn", "layers": [
+            _layer("InputLayer", "input_layer", batch_shape=[None, 32, 30, 3]),
+            _layer("Conv2D", "conv2d", filters=8, kernel_size=[3, 3], strides=[2, 2],
+                   padding="same", activation="relu", use_bias=True),
+            _layer("BatchNormalization", "batch_normalization", axis=-1, epsilon=1e-3,
+                   center=True, scale=False),
+            _layer("DepthwiseConv2D", "depthwise_conv2d", kernel_size=[3, 3],
+                   padding="same", depth_multiplier=2, activation="relu6", use_bias=False),
+            _layer("AveragePooling2D", "average_pooling2d", pool_size=[3, 3],
+                   strides=[2, 2], padding="same"),
+            _layer("GlobalAveragePooling2D", "global_average_pooling2d"),
+            _layer("Dense", "dense", units=5, activation="softmax", use_bias=True),
+        ]}}
+    rng = np.random.default_rng(0)
+    weights = {
+        "conv2d": [rng.standard_normal((3, 3, 3, 8)) * 0.3, rng.standard_normal(8) * 0.1],
+        "batch_normalization": [rng.standard_normal(8) * 0.1, rng.standard_normal(8) * 0.1,
+                                rng.uniform(0.5, 1.5, 8)],
+        "depthwise_conv2d": [rng.standard_normal((3, 3, 8, 2)) * 0.3],
+        "dense": [rng.standard_normal((16, 5)) * 0.3, rng.standard_normal(5) * 0.1],
+    }
+    path = str(tmp_path / "card_cnn.keras")
+    write_keras_file(path, config, {k: [w.astype(np.float32) for w in v]
+                                    for k, v in weights.items()})
+    x = rng.uniform(-1, 1, (6, 32, 30, 3)).astype(np.float32)
+    launches = FLASH_FWD.launches
+    for dtype, tol in (("float32", dict(atol=1e-5, rtol=1e-4)),
+                       ("bfloat16", dict(atol=2e-2, rtol=2e-2))):
+        fn = TorchFunction.from_keras(path, compute_dtype=dtype)
+        got = fn(x)
+        assert got.device.type == "cuda" and got.shape == (6, 5)
+        torch.testing.assert_close(got.float().cpu(), fn(x, device="cpu").float(), **tol)
+    assert FLASH_FWD.launches == launches

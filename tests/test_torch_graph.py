@@ -6,7 +6,11 @@ way; composition and ``from_list``; every piece; the name utils and the
 ``IsolatedSession`` shim; the save and load round trips of the port's own
 format (``torch.export`` ``.pt2`` beside ``manifest.json``). Beside them, a
 ViT-Ti with ``attn_impl="flash"`` exported with the flash forward as one op
-node of its graph, and ``from_keras`` / ``from_saved_model``, which raise.
+node of its graph; ``from_keras`` on a ``.keras`` file, a legacy ``.h5``
+file and an in-memory model, held to ``XlaFunction.from_keras`` on its
+outputs and on what it records (names, ``input_hw``, ``input_specs``, the
+fingerprint), exported, saved and loaded; and ``from_saved_model``, which
+raises.
 """
 
 import hashlib
@@ -167,10 +171,79 @@ def test_from_checkpoint(tmp_path):
 
 
 def test_from_keras_and_from_saved_model_raise():
-    with pytest.raises(NotImplementedError, match="6b"):
-        TorchFunction.from_keras("model.keras")
+    # from_keras is ported (the from_keras tests below); from_saved_model
+    # still raises: the port has no TensorFlow
     with pytest.raises(NotImplementedError, match="6b"):
         TorchFunction.from_saved_model("saved_model_dir")
+
+
+@pytest.fixture(scope="module")
+def keras_cnn(tmp_path_factory):
+    """A small Keras CNN with seeded weights, saved as .keras and .h5."""
+    import keras
+
+    model = keras.Sequential([
+        keras.Input((12, 10, 3)),
+        keras.layers.Conv2D(4, 3, strides=2, padding="same", activation="relu"),
+        keras.layers.BatchNormalization(),
+        keras.layers.GlobalAveragePooling2D(),
+        keras.layers.Dense(3, activation="softmax"),
+    ], name="small_cnn")
+    rng = np.random.RandomState(3)
+    model.set_weights([np.abs(rng.randn(*w.shape)).astype(np.float32) * 0.3 + 0.1
+                       for w in model.get_weights()])
+    root = tmp_path_factory.mktemp("keras_cnn")
+    paths = {fmt: str(root / f"small_cnn.{fmt}") for fmt in ("keras", "h5")}
+    for path in paths.values():
+        model.save(path)
+    return model, paths
+
+
+@pytest.mark.parametrize("source", ["keras", "h5", "model"])
+def test_from_keras_matches_the_jax_package(keras_cnn, source):
+    model, paths = keras_cnn
+    arg = model if source == "model" else paths[source]
+    fn, jax_fn = TorchFunction.from_keras(arg), XlaFunction.from_keras(arg)
+    x = np.random.RandomState(4).uniform(0, 1, (5, 12, 10, 3)).astype(np.float32)
+    np.testing.assert_allclose(fn(x, device="cpu").numpy(), np.asarray(jax_fn(x)),
+                               rtol=1e-4, atol=1e-5)
+    assert (fn.name, fn.input_names, fn.output_names) == \
+        (jax_fn.name, jax_fn.input_names, jax_fn.output_names) == \
+        ("small_cnn", ["input"], ["output"])
+    assert fn.input_hw == jax_fn.input_hw == (12, 10)
+    assert [(tuple(s), np.dtype(d)) for s, d in fn.input_specs] == \
+        [(tuple(s), np.dtype(d)) for s, d in jax_fn.input_specs] == [((1, 12, 10, 3), np.float32)]
+    if source == "model":
+        assert fn.fingerprint is None and jax_fn.fingerprint is None
+    else:
+        st = os.stat(paths[source])
+        want = f"keras:{os.path.abspath(paths[source])}:{st.st_mtime_ns}:{st.st_size}:float32"
+        assert fn.fingerprint == jax_fn.fingerprint == want
+        bf16 = TorchFunction.from_keras(paths[source], compute_dtype="bfloat16")
+        assert bf16.fingerprint == want.replace(":float32", ":bfloat16")
+
+
+def test_from_keras_without_a_static_input_size(tmp_path):
+    import keras
+
+    model = keras.Sequential([keras.Input((None, None, 3)),
+                              keras.layers.GlobalAveragePooling2D()])
+    fn, jax_fn = TorchFunction.from_keras(model), XlaFunction.from_keras(model)
+    assert fn.input_hw is None and jax_fn.input_hw is None
+    assert fn.input_specs is None and getattr(jax_fn, "input_specs", None) is None
+    x = np.random.RandomState(5).rand(2, 7, 9, 3).astype(np.float32)
+    np.testing.assert_allclose(fn(x, device="cpu").numpy(), x.mean(axis=(1, 2)), **TOL)
+
+
+def test_from_keras_exports_saves_and_loads(keras_cnn, tmp_path):
+    _, paths = keras_cnn
+    fn = TorchFunction.from_keras(paths["keras"])
+    fn.save(str(tmp_path / "saved"))  # the recorded input specs
+    loaded = TorchFunction.load(str(tmp_path / "saved"))
+    assert loaded.name == "small_cnn"
+    x = np.random.RandomState(6).rand(3, 12, 10, 3).astype(np.float32)
+    np.testing.assert_array_equal(loaded(x, device="cpu").numpy(),
+                                  fn(x, device="cpu").numpy())
 
 
 # -- serialization --------------------------------------------------------
