@@ -143,10 +143,37 @@ prints no result):
    of the bf16 forward, and the host's time by operator in it beside the
    registry module's; the stage's and the UDF's images/s (bf16, median of
    5) beside the featurizer's.
+11. Keras fine-tune (BASELINE.json ``configs[3]``): the configuration
+   ``benchmarks/bench_finetune.py`` measures, ``Sequential([ResNet50(
+   include_top=False, pooling="avg", 224x224x3), Dense(5, softmax)])``
+   (``tests/torch_fixtures/keras_resnet50_head.config.json.gz``, a nested
+   Functional, 23,597,957 weights) with seeded weights, written as a
+   ``.keras`` file by the port's writer. Checks: one sgd(0.01) step at
+   batch 64 (sparse categorical cross-entropy) on the card and on the CPU,
+   TF32 off, each held to a float64 step on the CPU (the loss within 1e-4;
+   each leaf's change within 1e-3 of the float64 change or within 3x the
+   CPU float32 step's own error; the moving statistics card against CPU at
+   ``atol=1e-5, rtol=1e-4``); the stepped weights written by
+   ``write_keras_file`` read back bit for bit; a step with the base's
+   ``trainable: false`` leaves all its weights and moving statistics bit for
+   bit and moves the head; ``KerasImageFileEstimator.fit`` over 128
+   generated 224x224 ``.npy`` files (epochs 1, batch 64) returns a
+   ``KerasImageFileTransformer`` on a tuned file whose weights moved, whose
+   scores on the card are finite rows summing to 1; ``fitMultiple`` over a
+   ``ParamGridBuilder`` grid of two learning rates on 32 images gives two
+   models on two files; no attention kernel launched. Timed: the step as
+   ``bench_finetune.py`` times it (2 warm steps, then 10 chained and
+   synchronized once, the median of 3, CUDA events) under PyTorch's default
+   TF32 setting (cuDNN convolutions in TF32) and with TF32 off, beside its
+   bound from the shapes; a profile of one step (device busy, idle share,
+   kernels); the fit's images/s with ``sparkdl.load`` and ``estimator.step``;
+   the fitted transformer's images/s; the sweep's seconds a fit and each
+   model's training accuracy by argmax.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
-products and convolutions run in full float32 (TF32 off) throughout.
+products and convolutions run in full float32 (TF32 off) throughout, but
+for phase 11's timing under the library's default.
 """
 
 from __future__ import annotations
@@ -1880,6 +1907,377 @@ def keras_half(card: str, counted):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 11: the Keras fine-tune, BASELINE.json configs[3]
+# ----------------------------------------------------------------------
+RESNET_HEAD_CONFIG = Path(__file__).resolve().parent / "tests" / "torch_fixtures" / \
+    "keras_resnet50_head.config.json.gz"
+FT_BATCH = 64           # benchmarks/bench_finetune.py's shape
+FT_CLASSES = 5
+FT_IMAGE = 224
+FT_STEPS = 10
+FT_LR = 0.01
+FT_FIT_IMAGES = 128
+FT_SWEEP_IMAGES = 32
+# one sgd step of the ResNet50 head on the card (TF32 off) and on the CPU,
+# both held to a float64 step on the CPU: the loss to 1e-4 relative; each
+# trainable leaf's change (of at least 1e-3 of the largest change in norm:
+# the conv biases before each batch norm take a gradient that is zero but
+# for float noise) within 1e-3 of the float64 change, or within 3x the CPU
+# float32 step's own error where float32 cannot do better (a batch norm's
+# gamma gradient sums 64 x 14 x 14 terms that nearly cancel); each moving
+# statistic to atol=1e-5, rtol=1e-4 of the CPU float32 step's
+FT_LOSS_RTOL = 1e-4
+FT_CHANGE_RTOL = 1e-3
+FT_CHANGE_CPU_FACTOR = 3.0
+FT_STAT_TOL = dict(atol=1e-5, rtol=1e-4)
+# PyTorch's defaults, under which the step is timed: cuDNN convolutions in
+# TF32, matrix products in full float32 (the script sets both off for its
+# checks)
+LIBRARY_TF32 = (True, False)
+
+
+def resnet_head_weights(config, seed: int):
+    """Seeded weights for the ResNet50-head config, in the nested form
+    ``read_keras_file`` gives: He-normal conv kernels, zero biases, batch
+    norm gamma 1, beta 0, moving mean 0 and variance 1, the Dense at
+    1/sqrt(in). Shapes from each layer's ``build_config``. The batch norm
+    that ends each residual branch (``_3_bn``) takes gamma 0.2, as phase 8's
+    zoo weights do: at gamma 1 the residual sums double the variance each
+    block, and the head's softmax saturates at inference, where the clipped
+    cross-entropy has no gradient."""
+    rng = np.random.default_rng(seed)
+
+    def draw(layers):
+        weights = {}
+        for layer in layers:
+            cfg, cls = layer["config"], layer["class_name"]
+            if cls == "Functional":
+                weights[cfg["name"]] = draw(cfg["layers"])
+                continue
+            shape = (layer.get("build_config") or {}).get("input_shape")
+            if cls == "Conv2D":
+                kh, kw = cfg["kernel_size"]
+                cin, cout = shape[-1], cfg["filters"]
+                kernel = rng.standard_normal((kh, kw, cin, cout), dtype=np.float32)
+                weights[cfg["name"]] = [kernel * np.float32((2.0 / (kh * kw * cin)) ** 0.5),
+                                        np.zeros(cout, np.float32)]
+            elif cls == "BatchNormalization":
+                c = shape[cfg["axis"][0] if isinstance(cfg["axis"], list) else cfg["axis"]]
+                gamma = np.float32(0.2 if cfg["name"].endswith("_3_bn") else 1.0)
+                weights[cfg["name"]] = [np.full(c, gamma), np.zeros(c, np.float32),
+                                        np.zeros(c, np.float32), np.ones(c, np.float32)]
+            elif cls == "Dense":
+                cin = shape[-1]
+                kernel = rng.standard_normal((cin, cfg["units"]), dtype=np.float32)
+                weights[cfg["name"]] = [kernel * np.float32(cin ** -0.5),
+                                        np.zeros(cfg["units"], np.float32)]
+        return weights
+
+    return draw(config["config"]["layers"])
+
+
+def flat_weights(tree, prefix=""):
+    """A nested weights mapping as ``{"layer/i" or "model/layer/i": array}``."""
+    out = {}
+    for name, arrays in tree.items():
+        if isinstance(arrays, dict):
+            out.update(flat_weights(arrays, f"{prefix}{name}/"))
+        else:
+            out.update({f"{prefix}{name}/{i}": a for i, a in enumerate(arrays)})
+    return out
+
+
+def keras_step(path, device, batch, frozen_base: bool = False, float64: bool = False):
+    """A ``KerasModel`` of the file on ``device`` and its one-step sgd
+    state and step: ``(module, state, step, batch on the device)``.
+    ``float64`` runs every layer in float64 (the reference step)."""
+    import torch
+
+    from sparkdl_tpu_torch.estimators.losses import get_optimizer, get_per_sample_loss_fn
+    from sparkdl_tpu_torch.models.keras_model import KerasModel, read_keras_file
+    from sparkdl_tpu_torch.parallel.keras_train import (
+        init_keras_train_state,
+        make_keras_train_step,
+    )
+
+    config, weights = read_keras_file(path)
+    if frozen_base:
+        config["config"]["layers"][1]["config"]["trainable"] = False
+    module = KerasModel(config, weights).to(device)
+    if float64:
+        module.double()
+        for layer in module.modules():
+            if hasattr(layer, "layer_name"):
+                layer.dtype = torch.float64
+    state = init_keras_train_state(module, get_optimizer("sgd", FT_LR))
+    step = make_keras_train_step(get_per_sample_loss_fn("sparse_categorical_crossentropy"),
+                                 weighted=True)
+    placed = {k: v.to(device) for k, v in batch.items()}
+    return module, state, step, placed
+
+
+def keras_train_flops(module, x) -> float:
+    """Operations of one training step of ``module`` on ``x``: the forward's
+    convolutions and Dense layers, 2 per multiply-add, counted from the
+    shapes of what ran, times 3 (the backward takes two products per
+    forward product: the input's gradient and the weight's)."""
+    import torch
+
+    from sparkdl_tpu_torch.models.layers import Conv
+
+    total = [0.0]
+
+    def hook(mod, _inp, out):
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * mod.in_features
+        else:
+            total[0] += 2.0 * out.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (Conv, torch.nn.Linear))]
+    module.eval()  # the moving statistics stay as they are
+    try:
+        with torch.inference_mode():
+            module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * total[0]
+
+
+def keras_fine_tune(card: str, counted):
+    """Phase 11: ``KerasImageFileEstimator`` fine-tuning the ResNet50 head
+    of BASELINE.json ``configs[3]`` at full width, with the checks and
+    times of the docstring."""
+    import gzip
+
+    import torch
+
+    from sparkdl_tpu_torch import (
+        KerasImageFileEstimator,
+        KerasImageFileTransformer,
+        ParamGridBuilder,
+    )
+    from sparkdl_tpu_torch.models.keras_model import read_keras_file, write_keras_file
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    dev = torch.device("cuda")
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    counted[0]()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-finetune-") as tmp:
+        tmp = Path(tmp)
+        config = json.loads(gzip.decompress(RESNET_HEAD_CONFIG.read_bytes()))
+        weights = resnet_head_weights(config, seed=21)
+        start = flat_weights(weights)
+        n_weights = sum(a.size for a in start.values())
+        path = str(tmp / "resnet50_head.keras")
+        t0 = time.perf_counter()
+        write_keras_file(path, config, weights)
+        log(f"finetune: the ResNet50 head .keras (nested Functional of "
+            f"{len(config['config']['layers'][1]['config']['layers'])} layers + Dense "
+            f"{FT_CLASSES}, {n_weights} weights, {Path(path).stat().st_size / 1e6:.1f} MB) "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        if n_weights != 23_597_957:
+            raise AssertionError(f"the ResNet50 head holds {n_weights} weights")
+        rng = np.random.default_rng(22)
+        batch = {"x": torch.from_numpy(rng.uniform(0, 1, (FT_BATCH, FT_IMAGE, FT_IMAGE, 3))
+                                       .astype(np.float32)),
+                 "y": torch.from_numpy(rng.integers(0, FT_CLASSES, FT_BATCH).astype(np.int32)),
+                 "w": torch.ones(FT_BATCH)}
+
+        # 1. one sgd step on the card and on the CPU, TF32 off, each held to
+        # a float64 step on the CPU
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        results = {}
+        for label, device, wide in (("card", "cuda", False), ("cpu", "cpu", False),
+                                    ("float64", "cpu", True)):
+            module, state, step, placed = keras_step(path, device, batch, float64=wide)
+            t0 = time.perf_counter()
+            state, loss = step(state, placed)
+            loss = float(loss)
+            results[label] = loss, flat_weights(module.keras_weights()), \
+                time.perf_counter() - t0
+            trainable = {n for n, p in module.named_parameters() if p.requires_grad}
+            del module, state, placed
+        torch.cuda.empty_cache()
+        (card_loss, got, card_s), (cpu_loss, want, cpu_s), (loss64, ref, ref_s) = (
+            results["card"], results["cpu"], results["float64"])
+        bn_names = {layer["config"]["name"] for layer
+                    in config["config"]["layers"][1]["config"]["layers"]
+                    if layer["class_name"] == "BatchNormalization"}
+        stats = [k for k in start if k.split("/")[-1] in ("2", "3")
+                 and k.split("/")[-2] in bn_names]
+        changes = {k: ref[k] - start[k] for k in start if k not in stats}
+        floor = 1e-3 * max(np.linalg.norm(c) for c in changes.values())
+
+        def change_errors(weights):
+            return {k: float(np.linalg.norm((weights[k] - start[k]) - c)
+                             / max(np.linalg.norm(c), floor)) for k, c in changes.items()}
+
+        card_errs, cpu_errs = change_errors(got), change_errors(want)
+        bad = [k for k in changes if not card_errs[k] <= max(
+            FT_CHANGE_RTOL, FT_CHANGE_CPU_FACTOR * cpu_errs[k])]
+        worst = sorted(card_errs, key=lambda k: -card_errs[k])[:3]
+        stat_errs = {k: float(np.abs(got[k] - want[k]).max()) for k in stats}
+        log(f"finetune: one sgd({FT_LR}) step at batch {FT_BATCH}, {FT_IMAGE}x{FT_IMAGE}, "
+            f"TF32 off: loss card {card_loss:.7f}, CPU {cpu_loss:.7f}, float64 {loss64:.7f}; "
+            f"{len(trainable)} trainable tensors, {len(changes)} weight leaves; change errors "
+            f"against float64, card (CPU float32): median "
+            f"{np.median(list(card_errs.values())):.3e} ({np.median(list(cpu_errs.values())):.3e}), "
+            f"worst " + ", ".join(f"{k} {card_errs[k]:.3e} ({cpu_errs[k]:.3e})" for k in worst)
+            + f"; {sum(card_errs[k] > FT_CHANGE_RTOL for k in changes)} leaves past "
+            f"{FT_CHANGE_RTOL:g}; {len(stats)} moving statistics, card vs CPU max abs err "
+            f"{max(stat_errs.values()):.3e}; card step {card_s:.2f} s (first), CPU "
+            f"{cpu_s:.2f} s, float64 {ref_s:.2f} s")
+        for other in (card_loss, cpu_loss):
+            if not abs(other - loss64) <= FT_LOSS_RTOL * abs(loss64):
+                raise AssertionError(f"fine-tune loss {other} vs float64 {loss64}")
+        if bad:
+            raise AssertionError("fine-tune weight changes differ: " + ", ".join(
+                f"{k} {card_errs[k]:.3e} (CPU {cpu_errs[k]:.3e})" for k in bad[:5]))
+        for k in stats:
+            np.testing.assert_allclose(got[k], want[k], **FT_STAT_TOL, err_msg=k)
+        if all(np.array_equal(got[k], start[k]) for k in stats):
+            raise AssertionError("no moving statistic moved")
+        del results, got, want, ref
+
+        # the weights written back: the port's file reads back bit for bit
+        module, state, step, placed = keras_step(path, dev, batch)
+        state, _ = step(state, placed)
+        tuned = module.keras_weights()
+        write_keras_file(str(tmp / "tuned.keras"), config, tuned)
+        back = flat_weights(read_keras_file(str(tmp / "tuned.keras"))[1])
+        if not all(np.array_equal(a, back[k]) for k, a in flat_weights(tuned).items()):
+            raise AssertionError("the tuned .keras file does not read back bit for bit")
+        log("  the stepped module's weights written by write_keras_file read back bit for bit")
+
+        # 2. a frozen base: bit for bit unchanged; the head moves
+        fmodule, fstate, fstep, fplaced = keras_step(path, dev, batch, frozen_base=True)
+        fstate, _ = fstep(fstate, fplaced)
+        frozen = flat_weights(fmodule.keras_weights())
+        base = [k for k in start if k.startswith("resnet50/")]
+        moved = [k for k in base if not np.array_equal(frozen[k], start[k])]
+        head_moved = [k for k in start if k.startswith("dense/")
+                      and not np.array_equal(frozen[k], start[k])]
+        log(f"  frozen base (trainable: false): {len(base) - len(moved)} of {len(base)} base "
+            f"arrays bit for bit unchanged, {len(head_moved)} of 2 head arrays moved; "
+            f"{len(fstate.opt_state.param_groups[0]['params'])} tensors optimized")
+        if moved or len(head_moved) != 2:
+            raise AssertionError(f"frozen base moved {moved[:3]}, head moved {head_moved}")
+        del fmodule, fstate, fplaced
+
+        # 3. the step time, bench_finetune.py's way: 2 warm steps, then 10
+        # chained and synchronized once; the median of 3, CUDA events
+        setting = (f"the library's default: cudnn.allow_tf32={LIBRARY_TF32[0]}, "
+                   f"matmul.allow_tf32={LIBRARY_TF32[1]}")
+        flops = keras_train_flops(module, placed["x"])
+        nbytes = 4 * (3 * n_weights + placed["x"].numel())
+        ops_ms, bytes_ms = (flops / PEAK_FLOPS["float32"] * 1e3,
+                            nbytes / PEAK_BYTES_PER_S * 1e3)
+        tf32_ms = flops / 495e12 * 1e3
+
+        def steps(k):
+            nonlocal state
+            for _ in range(k):
+                state, _ = step(state, placed)
+
+        times = {}
+        for label, flags in (("default", LIBRARY_TF32), ("TF32 off", (False, False))):
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            steps(2)
+            torch.cuda.reset_peak_memory_stats()
+            times[label] = sorted(time_ms(lambda: steps(FT_STEPS), iters=1, warmup=0)
+                                  / FT_STEPS for _ in range(3))
+        ms = times["default"][1]
+        log(f"finetune: ResNet50 head training step at batch {FT_BATCH}, {FT_IMAGE}x"
+            f"{FT_IMAGE}, {FT_CLASSES} classes, sgd, all layers trainable ({card}): "
+            f"{ms:.3f} ms/step median of "
+            + ", ".join(f"{t:.3f}" for t in times["default"])
+            + f" ({setting}); TF32 off: " + ", ".join(f"{t:.3f}" for t in times["TF32 off"])
+            + f" ms; {FT_BATCH / ms * 1e3:.1f} images/s; {flops / 1e12:.3f} TFLOP a step "
+            f"from the shapes, bound {max(ops_ms, bytes_ms):.3f} ms at the float32 peak "
+            f"({tf32_ms:.3f} ms at the TF32 peak, bytes {bytes_ms:.4f} ms); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = LIBRARY_TF32
+        profile_forward(lambda: steps(1), ms)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del module, state, placed
+        torch.cuda.empty_cache()
+
+        # 4. KerasImageFileEstimator.fit over 128 .npy files, epochs 1, batch 64
+        uri_dir = tmp / "npy"
+        uri_dir.mkdir()
+        pixels = np.random.RandomState(23).uniform(0, 1, (FT_FIT_IMAGES, FT_IMAGE, FT_IMAGE, 3))
+        rows = []
+        for i, img in enumerate(pixels.astype(np.float32)):
+            # the class lifts one channel, so the labels are in the pixels
+            label = i % FT_CLASSES
+            img[..., label % 3] += 0.5 * (label / FT_CLASSES)
+            rows.append({"uri": str(uri_dir / f"img_{i:03d}.npy"), "label": label})
+            np.save(rows[-1]["uri"], img)
+        df = session.createDataFrame(rows, numPartitions=4)
+        est = KerasImageFileEstimator(
+            inputCol="uri", outputCol="probs", labelCol="label", imageLoader=load_npy,
+            modelFile=path, kerasOptimizer="sgd", kerasLoss="sparse_categorical_crossentropy",
+            kerasFitParams={"epochs": 1, "batch_size": FT_BATCH, "learning_rate": FT_LR})
+        metrics.reset()
+        t0 = time.perf_counter()
+        fitted = est.fit(df)
+        fit_s = time.perf_counter() - t0
+        snap = metrics.snapshot()
+        if not isinstance(fitted, KerasImageFileTransformer) or \
+                len(fitted._training_losses) != FT_FIT_IMAGES // FT_BATCH \
+                or not np.isfinite(fitted._training_losses).all():
+            raise AssertionError(f"bad fit: {getattr(fitted, '_training_losses', None)}")
+        log(f"finetune: KerasImageFileEstimator.fit, {FT_FIT_IMAGES} .npy files "
+            f"{FT_IMAGE}x{FT_IMAGE}, epochs 1, batch {FT_BATCH} ({card}): {fit_s:.2f} s, "
+            f"{FT_FIT_IMAGES / fit_s:.1f} images/s; sparkdl.load "
+            f"{snap.get('sparkdl.load.seconds', 0.0):.3f} s, estimator.step "
+            f"{snap.get('estimator.step.seconds', 0.0):.3f} s over "
+            f"{snap.get('estimator.steps', 0.0):.0f} steps; losses "
+            + ", ".join(f"{v:.4f}" for v in fitted._training_losses))
+        tuned_file = flat_weights(read_keras_file(fitted.getModelFile())[1])
+        if set(tuned_file) != set(start) or all(np.array_equal(tuned_file[k], start[k])
+                                                for k in start):
+            raise AssertionError("the tuned file holds other weights or none moved")
+        scored = fitted.transform(df).collect()
+        probs = vectors(scored, "probs")
+        if probs.shape != (FT_FIT_IMAGES, FT_CLASSES) or not np.isfinite(probs).all() \
+                or not np.allclose(probs.sum(axis=1), 1.0, atol=1e-5):
+            raise AssertionError(f"bad scores of the fitted model: {probs.shape}")
+        images_per_s(lambda: fitted.transform(df).collect(), FT_FIT_IMAGES,
+                     "fitted KerasImageFileTransformer", "ResNet50 head float32, .npy files",
+                     card)
+
+        # 5. the sweep: fitMultiple over two learning rates, 32 images
+        grid = ParamGridBuilder().addGrid(est.kerasFitParams, [
+            {"epochs": 1, "batch_size": 16, "learning_rate": lr} for lr in (1e-2, 1e-3)
+        ]).build()
+        small = session.createDataFrame(rows[:FT_SWEEP_IMAGES], numPartitions=2)
+        labels = np.array([r["label"] for r in rows[:FT_SWEEP_IMAGES]])
+        t0 = time.perf_counter()
+        models = [None] * len(grid)
+        for index, model in est.fitMultiple(small, grid):
+            models[index] = model
+        sweep_s = time.perf_counter() - t0
+        accuracy = [float((vectors(m.transform(small).collect(), "probs").argmax(axis=1)
+                           == labels).mean()) for m in models]
+        log(f"finetune: sweep, fitMultiple over kerasFitParams learning_rate (1e-2, 1e-3), "
+            f"{FT_SWEEP_IMAGES} images, epochs 1, batch 16 ({card}): {sweep_s:.2f} s, "
+            f"{sweep_s / len(grid):.2f} s a fit; training accuracy by argmax {accuracy}")
+        if len({m.getModelFile() for m in models}) != 2:
+            raise AssertionError("the sweep's models share a file")
+
+        launches = counted[1]()
+        if any(launches.values()):
+            raise AssertionError(f"the fine-tune path launched attention kernels: {launches}")
+        log(f"  attention launches over the phase's path: {launches} (none)")
+    torch.cuda.empty_cache()
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -2391,6 +2789,10 @@ def main() -> int:
     # phase 10: the Keras half of the graph layer: a .keras InceptionV3
     # through TorchFunction.from_keras, KerasImageFileTransformer, the UDFs
     keras_half(card, counted=(reset_counts, counts))
+
+    # phase 11: KerasImageFileEstimator fine-tuning the ResNet50 head
+    # (BASELINE.json configs[3]) and its sweep
+    keras_fine_tune(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -21,6 +21,7 @@ _EXPORTS = {
     "GraphFunction": "sparkdl_tpu_torch.graph.function",
     "InceptionV3": "sparkdl_tpu_torch.models.inception_v3",
     "IsolatedSession": "sparkdl_tpu_torch.graph.builder",
+    "KerasImageFileEstimator": "sparkdl_tpu_torch.estimators.keras_image_file_estimator",
     "KerasImageFileTransformer": "sparkdl_tpu_torch.transformers.keras_image",
     "KerasTransformer": "sparkdl_tpu_torch.transformers.keras_tensor",
     "LogisticRegression": "sparkdl_tpu_torch.ml.classification",

@@ -2,8 +2,8 @@
 
 A trimmed copy of ``sparkdl_tpu.estimators.losses``: the per-sample losses
 (Keras ``from_logits=False`` conventions: they consume the model's
-*outputs*), their lookup, and the optimizers whose update ``torch.optim``
-reproduces from optax's defaults. ``get_optimizer`` returns a factory
+*outputs*), their mean forms, their lookup, and the optimizers whose update
+``torch.optim`` reproduces from optax's defaults. ``get_optimizer`` returns a factory
 ``params -> torch.optim.Optimizer``, the counterpart of an optax
 transformation: the caller builds it over the parameters it trains.
 """
@@ -58,6 +58,36 @@ def per_sample_mean_absolute_error(y_true, y_pred):
     return _reduce_sample_dims((y_pred - y_true).abs())
 
 
+def categorical_crossentropy(y_true, y_pred):
+    return per_sample_categorical_crossentropy(y_true, y_pred).mean()
+
+
+def sparse_categorical_crossentropy(y_true, y_pred):
+    return per_sample_sparse_categorical_crossentropy(y_true, y_pred).mean()
+
+
+def binary_crossentropy(y_true, y_pred):
+    return per_sample_binary_crossentropy(y_true, y_pred).mean()
+
+
+def mean_squared_error(y_true, y_pred):
+    return ((y_pred - y_true) ** 2).mean()
+
+
+def mean_absolute_error(y_true, y_pred):
+    return (y_pred - y_true).abs().mean()
+
+
+_LOSSES = {
+    "categorical_crossentropy": categorical_crossentropy,
+    "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
+    "binary_crossentropy": binary_crossentropy,
+    "mean_squared_error": mean_squared_error,
+    "mse": mean_squared_error,
+    "mean_absolute_error": mean_absolute_error,
+    "mae": mean_absolute_error,
+}
+
 _PER_SAMPLE_LOSSES = {
     "categorical_crossentropy": per_sample_categorical_crossentropy,
     "sparse_categorical_crossentropy": per_sample_sparse_categorical_crossentropy,
@@ -96,8 +126,18 @@ _OPTIMIZERS = {
 # optax optimizers whose update torch.optim does not reproduce: rmsprop and
 # adagrad put eps inside the square root (and adagrad's accumulator starts
 # at 0.1), nadam follows another momentum schedule, lamb and lion have no
-# torch counterpart.
+# torch counterpart. ROADMAP.md item 7b ports them.
 _NOT_PORTED = ("adagrad", "lamb", "lion", "nadam", "rmsprop")
+
+
+def get_loss_fn(loss: Union[str, Callable]) -> Callable:
+    """``loss(y_true, y_pred) -> scalar`` from a Keras loss name or callable."""
+    if callable(loss):
+        return loss
+    name = loss.lower()
+    if name not in _LOSSES:
+        raise ValueError(f"Unknown loss {loss!r}; supported: {sorted(_LOSSES)}")
+    return _LOSSES[name]
 
 
 def get_per_sample_loss_fn(loss: Union[str, Callable]) -> Optional[Callable]:
@@ -119,11 +159,11 @@ def get_optimizer(
         return optimizer
     name = str(optimizer).lower()
     if name in _NOT_PORTED:
-        raise ValueError(
-            f"optimizer {optimizer!r} is not ported yet: torch.optim does not "
-            f"reproduce optax's update for {list(_NOT_PORTED)}; use one of "
-            f"{sorted(_OPTIMIZERS)} or pass a callable params -> "
-            "torch.optim.Optimizer"
+        raise NotImplementedError(
+            f"optimizer {optimizer!r} is not ported yet (ROADMAP.md item 7b): "
+            f"torch.optim does not reproduce optax's update for "
+            f"{list(_NOT_PORTED)}; use one of {sorted(_OPTIMIZERS)} or pass a "
+            "callable params -> torch.optim.Optimizer"
         )
     if name not in _OPTIMIZERS:
         raise ValueError(

@@ -210,7 +210,7 @@ class TorchImageFileEstimator(
     _NOT_PORTED = {
         "shardingRules": "queue 1 item 12 (parallelism: the DP x TP step)",
         "meshShape": "queue 1 item 12 (parallelism: the DP x TP step)",
-        "checkpointDir": "queue 1 item 7 (estimators/checkpointing.py)",
+        "checkpointDir": "queue 1 item 7b (estimators/checkpointing.py)",
     }
 
     @keyword_only

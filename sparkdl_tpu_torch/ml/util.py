@@ -18,7 +18,7 @@ rebuilds the stage. Each param value is encoded as:
   longer needs the original.
 
 The JAX package's Keras-model encoding (an in-memory model as a param) is
-not ported yet (ROADMAP item 7): such a value raises. A directory saved by
+not ported yet (ROADMAP item 7b): such a value raises. A directory saved by
 the JAX package does not load here: its metadata names the JAX package's
 classes.
 """
@@ -84,7 +84,7 @@ def _not_ported(value) -> Optional[str]:
     """The ROADMAP item a value's encoding waits for, if it is one."""
     mod = type(value).__module__ or ""
     if mod.startswith("keras") and hasattr(value, "save"):
-        return "a Keras model (ROADMAP item 7)"
+        return "a Keras model (ROADMAP item 7b)"
     return None
 
 

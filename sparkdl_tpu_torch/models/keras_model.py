@@ -9,16 +9,30 @@ The torch counterpart of what ``keras.models.load_model`` and
   :mod:`sparkdl_tpu_torch.utils.hdf5`: a ``.keras`` zip (``config.json`` and
   ``model.weights.h5``, whose variables sit at ``layers/<class>/vars/<i>``)
   or a legacy ``.h5`` (the ``model_config`` attribute, the weights under
-  ``model_weights`` in the order of each layer's ``weight_names``);
+  ``model_weights`` in the order of each layer's ``weight_names``; an
+  attribute Keras split in chunks, ``layer_names0``, ``layer_names1``, ...,
+  is joined again);
 - :func:`read_keras_model` reads a built model duck-typed, as
   :mod:`~sparkdl_tpu_torch.models.keras_port` does: ``model.get_config()``
   and each layer's ``get_weights()``;
 - :class:`KerasModel` runs the config's graph in topological order:
   Sequential and Functional models in the node format Keras 3 writes
-  (``inbound_nodes`` of ``__keras_tensor__`` args with ``keras_history``);
+  (``inbound_nodes`` of ``__keras_tensor__`` args with ``keras_history``).
+  A model may hold one level of nested models (``Sequential([ResNet50(...),
+  Dense(5)])``, the usual fine-tune idiom): a nested model's weights are a
+  mapping of its own layers' names to their arrays;
 - :func:`write_keras_file` writes a ``.keras`` file of a config and its
   weights (with :func:`sparkdl_tpu_torch.utils.hdf5.write`), so a machine
-  without Keras can make one.
+  without Keras can make one; :meth:`KerasModel.keras_weights` gives a
+  module's current weights in that form.
+
+Training follows Keras's ``stateless_call(..., training=True)``: under
+``module.train()`` a ``BatchNormalization`` layer normalises by the batch's
+float32 mean and biased variance and moves its moving statistics by its
+``momentum``, and ``Dropout`` draws its mask from the caller's
+``torch.Generator``. A layer's weights take gradients only where its
+``trainable`` flag, and every enclosing model's, is true; a frozen batch
+norm stays on its moving statistics in training, as in Keras.
 
 Layout: Keras is NHWC; every 4-D tensor here is held NCHW in channels_last
 memory, as the port's CNNs run, permuted once at the input and back at a
@@ -35,8 +49,8 @@ Rescaling, Dropout (identity at inference), ZeroPadding2D, MaxPooling2D,
 AveragePooling2D and GlobalAveragePooling2D; activations ``linear``,
 ``relu``, ``relu6``, ``sigmoid``, ``softmax``, ``tanh``, ``swish`` /
 ``silu``, ``gelu``, ``elu``, ``softplus`` and ``hard_sigmoid``. Another
-class, a nested model, ``channels_first`` data or Keras 2's node format
-raises ``NotImplementedError``.
+class, a model nested two deep, ``channels_first`` data or Keras 2's node
+format raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +60,7 @@ import os
 import re
 import time
 import zipfile
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,13 +78,19 @@ from sparkdl_tpu_torch.models.layers import (
 )
 from sparkdl_tpu_torch.utils import hdf5
 
-Weights = Dict[str, List[np.ndarray]]
+# layer name -> its arrays in Keras's variable order; a nested model's name
+# -> the same mapping of its own layers
+Weights = Dict[str, Union[List[np.ndarray], "Weights"]]
 
 _MODEL_CLASSES = ("Functional", "Sequential")
 # the Keras whose file format write_keras_file follows, as metadata.json records it
 _KERAS_VERSION = "3.13.1"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
+# each layer's variables in Keras's order, by their names in a legacy .h5
+# (a nested model's weight_names list them trainable first, not layer by layer)
+_VARIABLE_ORDER = ("kernel", "depthwise_kernel", "pointwise_kernel", "bias",
+                   "gamma", "beta", "moving_mean", "moving_variance")
 
 
 # ----------------------------------------------------------------------
@@ -79,29 +99,75 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def read_keras_file(path) -> Tuple[Dict[str, Any], Weights]:
     """A Keras file's config (``{"class_name": ..., "config": ...}``) and
-    its weights, layer name -> arrays in the layer's variable order."""
+    its weights, layer name -> arrays in the layer's variable order (a
+    nested model's name -> its layers' weights)."""
     path = os.fspath(path)
     if zipfile.is_zipfile(path):
         with zipfile.ZipFile(path) as archive:
             config = json.loads(archive.read("config.json"))
             weights_file = hdf5.File(archive.read("model.weights.h5"))
-        weights: Weights = {}
-        for name, path in _variable_paths(config).items():
-            if path in weights_file:
-                group = weights_file[path]
-                weights[name] = [group[k].read() for k in sorted(group.keys(), key=int)]
-        return config, weights
+        return config, _read_variables(weights_file, _variable_paths(config))
     weights_file = hdf5.File(path)
     if "model_config" not in weights_file.attrs:
         raise ValueError(f"{path}: neither a .keras zip nor an HDF5 file with a "
                          "model_config attribute")
     config = json.loads(weights_file.attrs["model_config"])
     root = weights_file["model_weights"] if "model_weights" in weights_file else weights_file
-    weights = {}
-    for name in root.attrs["layer_names"]:
-        group = root[str(name)]
-        weights[str(name)] = [group[str(w)].read() for w in group.attrs["weight_names"]]
+    models = {layer["config"]["name"] for layer in config["config"].get("layers", ())
+              if layer["class_name"] in _MODEL_CLASSES}
+    weights: Weights = {}
+    for name in _chunked_attribute(root, "layer_names"):
+        group = root[name]
+        names = _chunked_attribute(group, "weight_names")
+        if name in models:
+            weights[name] = _nested_h5_weights(group, names)
+        else:
+            weights[name] = [group[w].read() for w in names]
     return config, weights
+
+
+def _chunked_attribute(group, name: str) -> List[str]:
+    """A list attribute of a legacy ``.h5``, as Keras's
+    ``load_attributes_from_hdf5_group`` reads it: ``name`` itself, or else
+    the chunks ``name0``, ``name1``, ... joined in order (Keras splits an
+    attribute larger than HDF5's 64 KB object header)."""
+    attrs = group.attrs
+    if name in attrs:
+        chunks = [attrs[name]]
+    else:
+        chunks = []
+        while f"{name}{len(chunks)}" in attrs:
+            chunks.append(attrs[f"{name}{len(chunks)}"])
+        if not chunks:
+            raise KeyError(f"no attribute {name!r} (nor {name}0, {name}1, ...) on "
+                           f"{group.name!r}")
+    return [n.decode("utf8") if isinstance(n, bytes) else str(n)
+            for chunk in chunks for n in np.atleast_1d(chunk)]
+
+
+def _nested_h5_weights(group, names: Sequence[str]) -> Weights:
+    """A nested model's weights in a legacy ``.h5``: its ``weight_names``
+    are ``[<model>/]<inner layer>/<variable>``, trainable ones first, so
+    they are mapped by name, each layer's variables in Keras's order."""
+    by_layer: Dict[str, Dict[str, np.ndarray]] = {}
+    for w in names:
+        parts = w.split("/")
+        if len(parts) < 2 or parts[-1] not in _VARIABLE_ORDER:
+            raise NotImplementedError(f"nested weight {w!r} in {group.name!r}")
+        by_layer.setdefault(parts[-2], {})[parts[-1]] = group[w].read()
+    return {layer: [variables[v] for v in _VARIABLE_ORDER if v in variables]
+            for layer, variables in by_layer.items()}
+
+
+def _read_variables(store, paths: Mapping[str, Any]) -> Weights:
+    weights: Weights = {}
+    for name, path in paths.items():
+        if isinstance(path, Mapping):
+            weights[name] = _read_variables(store, path)
+        elif path in store:
+            group = store[path]
+            weights[name] = [group[k].read() for k in sorted(group.keys(), key=int)]
+    return weights
 
 
 def _snake_case(name: str) -> str:
@@ -111,34 +177,45 @@ def _snake_case(name: str) -> str:
     return re.sub("([a-z])([A-Z])", r"\1_\2", name).lower()
 
 
-def _variable_paths(config: Mapping[str, Any]) -> Dict[str, str]:
+def _variable_paths(config: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     """Layer name -> the group of its variables in a ``.keras`` weights
-    file. Keras names a model's layers there by class, not by name (so
-    that two builds of one model match): ``layers/<snake_case class>``, then
-    ``_1``, ``_2``, ... for the next of a class, in the order of
-    ``model.layers`` (which leaves out a Sequential model's InputLayer)."""
+    file (a nested model's name -> the same mapping of its layers). Keras
+    names a model's layers there by class, not by name (so that two builds
+    of one model match): ``layers/<snake_case class>``, then ``_1``, ``_2``,
+    ... for the next of a class, in the order of ``model.layers`` (which
+    leaves out a Sequential model's InputLayer); a nested model's layers sit
+    under its own group (``layers/functional/layers/...``)."""
     layers = list(config["config"].get("layers", ()))
     if config.get("class_name") == "Sequential" and layers \
             and layers[0]["class_name"] == "InputLayer":
         layers = layers[1:]
     used: Dict[str, int] = {}
-    paths = {}
+    paths: Dict[str, Any] = {}
     for layer in layers:
         base = _snake_case(layer["class_name"])
         count = used[base] = used.get(base, -1) + 1
-        paths[layer["config"]["name"]] = f"layers/{base}" + (f"_{count}" if count else "") + "/vars"
+        group = f"{prefix}layers/{base}" + (f"_{count}" if count else "")
+        if layer["class_name"] in _MODEL_CLASSES:
+            paths[layer["config"]["name"]] = _variable_paths(layer, group + "/")
+        else:
+            paths[layer["config"]["name"]] = group + "/vars"
     return paths
 
 
 def read_keras_model(model) -> Tuple[Dict[str, Any], Weights]:
     """A built Keras model's config and weights, read duck-typed
     (``get_config()``, ``layers``, each layer's ``name`` and
-    ``get_weights()``); Keras is never imported."""
+    ``get_weights()``, a nested model's layers in turn); Keras is never
+    imported."""
     if not hasattr(model, "get_config") or not hasattr(model, "layers"):
         raise TypeError(f"expected a built Keras model, got {type(model).__name__}")
     config = {"class_name": type(model).__name__, "config": model.get_config()}
-    weights = {layer.name: [np.asarray(w) for w in layer.get_weights()]
-               for layer in model.layers}
+    weights: Weights = {}
+    for layer in model.layers:
+        if type(layer).__name__ in _MODEL_CLASSES:
+            weights[layer.name] = read_keras_model(layer)[1]
+        else:
+            weights[layer.name] = [np.asarray(w) for w in layer.get_weights()]
     return config, weights
 
 
@@ -243,9 +320,13 @@ def policy_dtype(spec) -> torch.dtype:
 
 class _Layer(nn.Module):
     """One Keras layer: ``call(*args)`` over its node's inputs (a tensor,
-    or a list of them for the merge layers) in its compute type."""
+    or a list of them for the merge layers) in its compute type;
+    ``keras_weights()`` its current weights as Keras holds them.
+    ``trainable`` is the layer's effective flag (its own and every
+    enclosing model's), set by the model that builds it."""
 
     n_weights: Tuple[int, ...] = (0,)
+    trainable = True
 
     def __init__(self, cfg: Mapping[str, Any], weights: List[np.ndarray], dtype: torch.dtype):
         super().__init__()
@@ -269,6 +350,25 @@ class _Layer(nn.Module):
 
     def call(self, x):
         raise NotImplementedError
+
+    def keras_weights(self) -> List[np.ndarray]:
+        return []
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a contiguous array on the host."""
+    return np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def _keras_kernel(oihw: torch.Tensor) -> np.ndarray:
+    """An OIHW kernel in Keras's ``(kh, kw, cin, cout)``."""
+    return _array(oihw.permute(2, 3, 1, 0))
+
+
+def _keras_depthwise(kernel: torch.Tensor, mult: int) -> np.ndarray:
+    """The inverse of :func:`_depthwise_oihw`."""
+    cout, _, kh, kw = kernel.shape
+    return _array(kernel.reshape(cout // mult, mult, kh, kw).permute(2, 3, 0, 1))
 
 
 def _tensor(array: np.ndarray) -> torch.Tensor:
@@ -327,6 +427,10 @@ class _Conv2D(_Layer):
     def call(self, x):
         return self.activation(self.conv(self.cast(x)))
 
+    def keras_weights(self):
+        bias = [] if self.conv.bias is None else [_array(self.conv.bias)]
+        return [_keras_kernel(self.conv.weight)] + bias
+
 
 class _DepthwiseConv2D(_Layer):
     n_weights = (1, 2)
@@ -342,10 +446,15 @@ class _DepthwiseConv2D(_Layer):
         self.conv.weight = _kernel(_depthwise_oihw(kernel))
         if len(weights) == 2:
             self.conv.bias = _param(weights[1])
+        self.multiplier = kernel.shape[3]
         self.activation = _activation(cfg.get("activation"), self.layer_name)
 
     def call(self, x):
         return self.activation(self.conv(self.cast(x)))
+
+    def keras_weights(self):
+        bias = [] if self.conv.bias is None else [_array(self.conv.bias)]
+        return [_keras_depthwise(self.conv.weight, self.multiplier)] + bias
 
 
 class _SeparableConv2D(_Layer):
@@ -359,6 +468,7 @@ class _SeparableConv2D(_Layer):
         self.depthwise_kernel = _kernel(_depthwise_oihw(weights[0]))
         self.pointwise_kernel = _kernel(weights[1].transpose(3, 2, 0, 1))
         self.bias = _param(weights[2]) if len(weights) == 3 else None
+        self.multiplier = weights[0].shape[3]
         self.strides = _pair(cfg.get("strides", 1))
         self.padding = cfg.get("padding", "valid").upper()
         self.dilation = _pair(cfg.get("dilation_rate", 1))
@@ -371,10 +481,17 @@ class _SeparableConv2D(_Layer):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self.activation(F.conv2d(x, self.pointwise_kernel.to(x.dtype), bias))
 
+    def keras_weights(self):
+        bias = [] if self.bias is None else [_array(self.bias)]
+        return [_keras_depthwise(self.depthwise_kernel, self.multiplier),
+                _keras_kernel(self.pointwise_kernel)] + bias
+
 
 class _BatchNormalization(_Layer):
-    """Keras's inference batch norm on one axis (its config's ``axis``),
-    in float32 and rounded once to the input's type."""
+    """Keras's batch norm on one axis (its config's ``axis``), in float32
+    and rounded once to the input's type. At inference (or frozen) it
+    normalises by the moving statistics; under ``train()`` it takes Keras's
+    training branch (:meth:`_train`)."""
 
     n_weights = (2, 3, 4)
 
@@ -385,26 +502,63 @@ class _BatchNormalization(_Layer):
         if len(axes) != 1:
             raise NotImplementedError(f"layer {self.layer_name!r}: batch norm over {axes}")
         self.axis = int(axes[0])
-        scale, center = bool(cfg.get("scale", True)), bool(cfg.get("center", True))
-        if len(weights) != 2 + scale + center:
+        self.momentum = float(cfg.get("momentum", 0.99))
+        self.scale, self.center = bool(cfg.get("scale", True)), bool(cfg.get("center", True))
+        if len(weights) != 2 + self.scale + self.center:
             raise ValueError(f"layer {self.layer_name!r}: {len(weights)} weights for "
-                             f"scale={scale}, center={center}")
+                             f"scale={self.scale}, center={self.center}")
         features = weights[-1].shape[0]
-        self.bn = BatchNorm(features, float(cfg.get("epsilon", 1e-3)), use_scale=scale)
+        self.bn = BatchNorm(features, float(cfg.get("epsilon", 1e-3)), use_scale=self.scale)
         i = 0
-        if scale:
+        if self.scale:
             self.bn.scale, i = _param(weights[0]), 1
-        if center:
+        if self.center:
             self.bn.bias = _param(weights[i])
+        else:
+            # no beta in Keras: a zero offset that never trains
+            del self.bn.bias
+            self.bn.register_buffer("bias", torch.zeros(features))
         self.bn.mean = _tensor(weights[-2])
         self.bn.var = _tensor(weights[-1])
 
     def call(self, x):
         x = self.cast(x)
         dim = _dim(x, self.axis)
+        if self.training and self.trainable:
+            return self._train(x, dim)
         if dim == 1:
             return self.bn(x)
         return self.bn(x.movedim(dim, 1)).movedim(1, dim)
+
+    def _train(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Keras's ``BatchNormalization.call(training=True)``: the batch's
+        mean and biased variance, in float32 or wider, over every axis but
+        ``dim``; the moving statistics move to ``moving * momentum + batch *
+        (1 - momentum)`` (no gradient); the output is ``x * inv + (beta -
+        mean * inv)`` with ``inv = rsqrt(var + eps) * gamma``, as
+        ``ops.batch_normalization`` computes it, rounded once to ``x``'s
+        type."""
+        bn = self.bn
+        # float32 at least, as Keras's result_type(x.dtype, "float32")
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [d for d in range(x.dim()) if d != dim]
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        mean = xf.mean(dim=dims)
+        var = (xf - mean.view(shape)).square().mean(dim=dims)
+        with torch.no_grad():
+            bn.mean.copy_(bn.mean * self.momentum + mean * (1.0 - self.momentum))
+            bn.var.copy_(bn.var * self.momentum + var * (1.0 - self.momentum))
+        inv = torch.rsqrt(var + bn.epsilon)
+        if bn.scale is not None:
+            inv = inv * bn.scale
+        offset = -mean * inv + bn.bias
+        return (xf * inv.view(shape) + offset.view(shape)).to(x.dtype)
+
+    def keras_weights(self):
+        bn = self.bn
+        return ([_array(bn.scale)] if self.scale else []) \
+            + ([_array(bn.bias)] if self.center else []) + [_array(bn.mean), _array(bn.var)]
 
 
 class _Dense(_Layer):
@@ -424,6 +578,10 @@ class _Dense(_Layer):
     def call(self, x):
         y = _from_nhwc(self.dense(_nhwc(self.cast(x))))
         return self.activation(y)
+
+    def keras_weights(self):
+        bias = [] if self.dense.bias is None else [_array(self.dense.bias)]
+        return [_array(self.dense.weight.T)] + bias
 
 
 class _Activation(_Layer):
@@ -507,8 +665,24 @@ class _Rescaling(_Layer):
 
 
 class _Dropout(_Layer):
-    def call(self, x):
-        return self.cast(x)
+    """The identity at inference. Under ``train()``, Keras's dropout: each
+    value kept with probability ``1 - rate`` and scaled by its inverse, the
+    mask drawn from ``generator`` (the default generator when None)."""
+
+    def __init__(self, cfg, weights, dtype):
+        super().__init__(cfg, weights, dtype)
+        self.rate = float(cfg.get("rate", 0.0))
+        self.noise_shape = cfg.get("noise_shape")
+
+    def call(self, x, generator: Optional[torch.Generator] = None):
+        x = self.cast(x)
+        if not (self.training and self.rate > 0):
+            return x
+        if self.noise_shape is not None:
+            raise NotImplementedError(f"layer {self.layer_name!r}: training with a noise_shape")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class _ZeroPadding2D(_Layer):
@@ -608,20 +782,33 @@ class KerasModel(nn.Module):
 
     ``KerasModel(config, weights, compute_dtype=None)``: ``config`` is
     ``{"class_name": ..., "config": ...}`` as a file holds it; ``weights``
-    maps each layer's name to its arrays in the layer's variable order;
+    maps each layer's name to its arrays in the layer's variable order (a
+    nested model's name to the same mapping of its layers);
     ``compute_dtype`` (``"bfloat16"`` or ``"float16"``) overrides every
     layer's policy to ``mixed_<dtype>``, else each layer's serialized policy
     holds. ``forward`` takes NHWC inputs as Keras does and returns the
-    model's output (a tuple where it has several)."""
+    model's output (a tuple where it has several); ``generator`` feeds the
+    Dropout masks under ``train()``.
 
-    def __init__(self, config: Mapping[str, Any], weights: Mapping[str, Sequence[np.ndarray]],
-                 compute_dtype: Optional[str] = None):
+    A layer's weights are parameters that take gradients where the layer is
+    trainable (its config's ``trainable``, ANDed with every enclosing
+    model's; ``trainable=False`` freezes the whole model); batch norm's
+    moving statistics are buffers. It is built in eval mode. A nested model (``nested=True``) is a
+    child ``KerasModel`` that reads and returns the outer model's NCHW
+    layout; it may not nest a model in turn."""
+
+    def __init__(self, config: Mapping[str, Any], weights: Mapping[str, Any],
+                 compute_dtype: Optional[str] = None, *, trainable: bool = True,
+                 nested: bool = False):
         super().__init__()
         cls = config.get("class_name")
         if cls not in _MODEL_CLASSES:
             raise NotImplementedError(f"Keras model class {cls!r} is not supported")
         cfg = config["config"]
         self.name = cfg.get("name", "model")
+        self.trainable = trainable and bool(cfg.get("trainable", True))
+        self.nested = nested
+        self.compute_dtype = compute_dtype
         override = None if compute_dtype is None else policy_dtype(f"mixed_{compute_dtype}")
         self.layers = nn.ModuleDict()
         self._keys: Dict[str, str] = {}
@@ -631,23 +818,37 @@ class KerasModel(nn.Module):
             self._sequential(cfg)
         else:
             self._functional(cfg)
+        # built for inference, as Keras calls a model; train() for a fit
+        self.eval()
 
     def _add_layer(self, layer: Mapping[str, Any], weights, override) -> None:
         cls, lcfg = layer["class_name"], layer["config"]
         name = lcfg["name"]
-        if cls in _MODEL_CLASSES + ("Model",):
-            raise NotImplementedError(f"layer {name!r} is a nested model ({cls})")
-        if cls not in _LAYERS:
-            raise NotImplementedError(f"Keras layer class {cls!r} (layer {name!r}) is not supported")
-        dtype = policy_dtype(lcfg.get("dtype")) if override is None else override
         key = name.replace(".", "_")
         if key in self.layers:
             raise ValueError(f"two layers named {name!r}")
+        trainable = self.trainable and bool(lcfg.get("trainable", True))
+        if cls in _MODEL_CLASSES + ("Model",):
+            if self.nested:
+                raise NotImplementedError(
+                    f"layer {name!r} of {self.name!r} is a model nested two deep ({cls})")
+            inner = weights.get(name, {})
+            if not isinstance(inner, Mapping):
+                raise ValueError(f"nested model {name!r}: its weights must map its layers' "
+                                 "names to their arrays")
+            module: nn.Module = KerasModel(layer, inner, self.compute_dtype,
+                                           trainable=self.trainable, nested=True)
+        elif cls not in _LAYERS:
+            raise NotImplementedError(f"Keras layer class {cls!r} (layer {name!r}) is not supported")
+        else:
+            dtype = policy_dtype(lcfg.get("dtype")) if override is None else override
+            module = _LAYERS[cls](lcfg, [np.asarray(w) for w in weights.get(name, [])], dtype)
+            module.trainable = trainable
+            module.requires_grad_(trainable)
         self._keys[name] = key
-        self.layers[key] = _LAYERS[cls](lcfg, [np.asarray(w) for w in weights.get(name, [])],
-                                        dtype)
+        self.layers[key] = module
 
-    def _layer(self, name: str) -> _Layer:
+    def _layer(self, name: str):
         return self.layers[self._keys[name]]
 
     def _sequential(self, cfg) -> None:
@@ -705,41 +906,68 @@ class KerasModel(nn.Module):
                                  "read tensors no layer makes")
             pending = left
 
-    def forward(self, *inputs: torch.Tensor):
+    def forward(self, *inputs: torch.Tensor, generator: Optional[torch.Generator] = None):
+        # NHWC in: a 4-D input goes NCHW into channels_last memory once
+        inputs = tuple(_from_nhwc(x).contiguous(memory_format=torch.channels_last)
+                       if x.dim() == 4 else x for x in inputs)
+        outputs = tuple(_nhwc(y) for y in self._run(inputs, generator))
+        return outputs[0] if len(outputs) == 1 else outputs
+
+    def call(self, *inputs: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """The model as a layer of an enclosing one: NCHW in and out."""
+        outputs = self._run(inputs, generator)
+        return outputs[0] if len(outputs) == 1 else outputs
+
+    def _run(self, inputs, generator) -> Tuple[torch.Tensor, ...]:
         if len(inputs) != len(self._inputs):
             raise ValueError(f"{self.name} takes {len(self._inputs)} inputs, got {len(inputs)}")
         values: Dict[Tuple[str, int, int], torch.Tensor] = {}
         for (name, node, index), x in zip(self._inputs, inputs):
-            # NHWC in: a 4-D input goes NCHW into channels_last memory once
-            if x.dim() == 4:
-                x = _from_nhwc(x).contiguous(memory_format=torch.channels_last)
             if name:
                 x = self._layer(name).call(x)
             values[(name, node, index)] = x
         for name, node_index, args in self._nodes:
-            values[(name, node_index, 0)] = self._layer(name).call(*_substitute(args, values))
-        outputs = tuple(_nhwc(values[spec]) for spec in self._outputs)
-        return outputs[0] if len(outputs) == 1 else outputs
+            layer = self._layer(name)
+            args = _substitute(args, values)
+            if isinstance(layer, (KerasModel, _Dropout)):
+                values[(name, node_index, 0)] = layer.call(*args, generator=generator)
+            else:
+                values[(name, node_index, 0)] = layer.call(*args)
+        return tuple(values[spec] for spec in self._outputs)
+
+    def keras_weights(self) -> Weights:
+        """The current weights as :func:`read_keras_file` gives them: layer
+        name -> arrays in Keras's variable order and layout, a nested
+        model's name -> its own mapping; host copies."""
+        return {name: self.layers[key].keras_weights() for name, key in self._keys.items()}
 
 
 # ----------------------------------------------------------------------
 # writing
 # ----------------------------------------------------------------------
 
-def write_keras_file(path, config: Mapping[str, Any],
-                     weights: Mapping[str, Sequence[np.ndarray]]) -> None:
+def write_keras_file(path, config: Mapping[str, Any], weights: Mapping[str, Any]) -> None:
     """Write a ``.keras`` file: the zip Keras 3 writes (``metadata.json``,
     ``config.json`` and ``model.weights.h5``, stored), each layer's weights
-    at ``<its group>/<i>`` of the HDF5 file (:func:`_variable_paths`), written by
+    at ``<its group>/<i>`` of the HDF5 file (:func:`_variable_paths`; a
+    nested model's layers under its group), written by
     :func:`sparkdl_tpu_torch.utils.hdf5.write`."""
     tree: Dict[str, Any] = {"layers": {}, "vars": {}}
     attrs = {"vars": {"name": config["config"].get("name", "model")}}
-    for name, group in _variable_paths(config).items():
-        arrays = weights.get(name, ())
-        if len(arrays):
-            tree["layers"][group.split("/")[1]] = {
-                "vars": {str(i): np.asarray(a) for i, a in enumerate(arrays)}}
-            attrs[group] = {"name": name}
+
+    def put(paths: Mapping[str, Any], weights: Mapping[str, Any]) -> None:
+        for name, group in paths.items():
+            arrays = weights.get(name, ())
+            if isinstance(group, Mapping):
+                put(group, arrays or {})
+            elif len(arrays):
+                node = tree
+                for part in group.split("/")[:-1]:
+                    node = node.setdefault(part, {})
+                node["vars"] = {str(i): np.asarray(a) for i, a in enumerate(arrays)}
+                attrs[group] = {"name": name}
+
+    put(_variable_paths(config), weights)
     blob = hdf5.write(None, tree, attrs)
     metadata = {"keras_version": _KERAS_VERSION,
                 "date_saved": time.strftime("%Y-%m-%d@%H:%M:%S")}

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Callable
 
 from sparkdl_tpu_torch.param.base import Param, Params, TypeConverters
+from sparkdl_tpu_torch.param.converters import SparkDLTypeConverters
 
 
 class HasInputCol(Params):
@@ -83,6 +84,36 @@ class HasKerasModel(Params):
 
     def getKerasFitParams(self):
         return self.getOrDefault(self.kerasFitParams)
+
+
+class HasKerasOptimizer(Params):
+    kerasOptimizer = Param(
+        "undefined",
+        "kerasOptimizer",
+        "Name of the optimizer for training a Keras model",
+        SparkDLTypeConverters.toKerasOptimizer,
+    )
+
+    def setKerasOptimizer(self, value):
+        return self._set(kerasOptimizer=value)
+
+    def getKerasOptimizer(self):
+        return self.getOrDefault(self.kerasOptimizer)
+
+
+class HasKerasLoss(Params):
+    kerasLoss = Param(
+        "undefined",
+        "kerasLoss",
+        "Name of the loss for training a Keras model",
+        SparkDLTypeConverters.toKerasLoss,
+    )
+
+    def setKerasLoss(self, value):
+        return self._set(kerasLoss=value)
+
+    def getKerasLoss(self):
+        return self.getOrDefault(self.kerasLoss)
 
 
 class HasOutputMode(Params):

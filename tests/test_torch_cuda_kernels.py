@@ -357,3 +357,75 @@ def test_keras_file_function_on_the_card(cuda, tmp_path):
         assert got.device.type == "cuda" and got.shape == (6, 5)
         torch.testing.assert_close(got.float().cpu(), fn(x, device="cpu").float(), **tol)
     assert FLASH_FWD.launches == launches
+
+
+def test_keras_fine_tune_step_on_the_card(cuda, tmp_path):
+    """One fine-tune step of a small nested Keras file (a Functional conv/BN
+    base in a Sequential with a softmax head), written by the port's writer,
+    on the card against the CPU with TF32 off: the loss, every weight and
+    moving statistic after an sgd step within float32 rounding
+    (``atol=1e-5, rtol=1e-4``); no attention kernel runs."""
+    from sparkdl_tpu_torch.estimators.losses import get_optimizer, get_per_sample_loss_fn
+    from sparkdl_tpu_torch.models.keras_model import KerasModel, read_keras_file, write_keras_file
+    from sparkdl_tpu_torch.parallel.keras_train import (
+        init_keras_train_state,
+        make_keras_train_step,
+    )
+
+    base = {"module": "keras", "class_name": "Functional", "config": {
+        "name": "base", "trainable": True, "layers": [
+            {**_layer("InputLayer", "input_layer", batch_shape=[None, 16, 16, 3]),
+             "inbound_nodes": []},
+            *[{**_layer(cls, name, **cfg), "inbound_nodes": [{"args": [{
+                "class_name": "__keras_tensor__", "config": {"keras_history": [src, 0, 0]}}],
+                "kwargs": {}}]} for cls, name, src, cfg in (
+                ("Conv2D", "c1", "input_layer", dict(filters=8, kernel_size=[3, 3],
+                                                     strides=[2, 2], padding="same",
+                                                     use_bias=True, activation="linear")),
+                ("BatchNormalization", "bn1", "c1", dict(axis=-1, momentum=0.9)),
+                ("Activation", "relu", "bn1", dict(activation="relu")),
+                ("GlobalAveragePooling2D", "gap", "relu", {}))],
+        ],
+        "input_layers": [["input_layer", 0, 0]], "output_layers": [["gap", 0, 0]]}}
+    config = {"module": "keras", "class_name": "Sequential", "config": {
+        "name": "card_fine_tune", "layers": [
+            _layer("InputLayer", "input_layer_1", batch_shape=[None, 16, 16, 3]), base,
+            _layer("Dense", "head", units=5, activation="softmax", use_bias=True)]}}
+    rng = np.random.default_rng(0)
+    weights = {"base": {"c1": [rng.standard_normal((3, 3, 3, 8)) * 0.3, np.zeros(8)],
+                        "bn1": [np.ones(8), np.zeros(8), rng.standard_normal(8) * 0.1,
+                                rng.uniform(0.5, 1.5, 8)]},
+               "head": [rng.standard_normal((8, 5)) * 0.3, np.zeros(5)]}
+    weights = {k: ({n: [a.astype(np.float32) for a in v] for n, v in w.items()}
+                   if isinstance(w, dict) else [a.astype(np.float32) for a in w])
+               for k, w in weights.items()}
+    path = str(tmp_path / "fine_tune.keras")
+    write_keras_file(path, config, weights)
+    batch = {"x": rng.uniform(-1, 1, (8, 16, 16, 3)).astype(np.float32),
+             "y": rng.integers(0, 5, 8).astype(np.int32),
+             "w": (np.arange(8) < 6).astype(np.float32)}
+    launches = [k.launches for k in (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = {}
+        for device in ("cpu", "cuda"):
+            module = KerasModel(*read_keras_file(path)).to(device)
+            state = init_keras_train_state(module, get_optimizer("sgd", 0.1))
+            step = make_keras_train_step(
+                get_per_sample_loss_fn("sparse_categorical_crossentropy"), weighted=True)
+            state, loss = step(state, {k: torch.from_numpy(v).to(device)
+                                       for k, v in batch.items()})
+            results[device] = float(loss), module.keras_weights()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
+    got, want = results["cuda"][1], results["cpu"][1]
+    for name in ("c1", "bn1"):
+        for g, w in zip(got["base"][name], want["base"][name]):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-4)
+    for g, w in zip(got["head"], want["head"]):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=1e-4)
+    assert not np.array_equal(got["base"]["bn1"][3], weights["base"]["bn1"][3])
+    assert [k.launches for k in (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)] \
+        == launches

@@ -16,12 +16,21 @@ the ``ReLU`` options. InceptionV3 (``weights=None``) at 75x75 runs from both
 file formats; ``mixed_bfloat16`` within 3% of the largest output; a file
 made by the port's writer loads in Keras with the same outputs; and the
 committed InceptionV3 config is what this Keras builds.
+
+Nested models (a Functional base in a Sequential, a Sequential block in a
+Functional), with a frozen inner conv, run from all three sources at the
+same tolerance; the legacy ``.h5`` lists such a model's weights trainable
+first, so they are mapped by name. A legacy ``.h5`` whose ``layer_names`` and
+``weight_names`` Keras split in chunks reads as Keras reads it, and a nested
+model's weights written back by the port load in Keras bit for bit.
 """
 
 import gzip
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
+import h5py
 import keras
 import numpy as np
 import pytest
@@ -346,10 +355,13 @@ def test_keras2_node_format_raises():
 
 
 def test_nested_model_raises():
+    """One level of nesting builds (the nested-model tests below); a model
+    nested two deep raises."""
     inner = keras.Sequential([keras.Input((4,)), L.Dense(2)], name="inner")
+    middle = keras.Sequential([keras.Input((4,)), inner, L.Dense(3)], name="middle")
     inp = keras.Input((4,))
-    outer = keras.Model(inp, L.Dense(3)(inner(inp)))
-    with pytest.raises(NotImplementedError, match="nested model"):
+    outer = keras.Model(inp, L.Dense(3)(middle(inp)))
+    with pytest.raises(NotImplementedError, match="nested two deep"):
         TorchFunction.from_keras(outer)
 
 
@@ -417,3 +429,139 @@ def test_committed_inception_v3_config_is_what_keras_builds():
         assert _without_object_ids(a["config"]) == _without_object_ids(b["config"])
     assert committed["config"]["input_layers"] == built["input_layers"]
     assert committed["config"]["output_layers"] == built["output_layers"]
+
+
+# -- nested models, chunked attributes, weights written back ------------------------
+
+def _nested_model(kind: str, seed: int = 0):
+    """``functional_in_sequential``: a Functional conv/BN/pool base in a
+    Sequential with a Dense head (the fine-tune idiom);
+    ``sequential_in_functional``: a Sequential conv/BN block called inside
+    a Functional model. Each with its inner conv frozen."""
+    keras.utils.set_random_seed(seed)
+    if kind == "functional_in_sequential":
+        inp = keras.Input((10, 10, 3))
+        h = L.Conv2D(4, 3, padding="same", name="c1")(inp)
+        h = L.BatchNormalization(name="bn1")(h)
+        h = L.Activation("relu", name="act")(h)
+        h = L.Conv2D(5, 3, strides=2, name="c2")(h)
+        base = keras.Model(inp, L.GlobalAveragePooling2D(name="gap")(h), name="base")
+        base.get_layer("c1").trainable = False
+        model = keras.Sequential([base, L.Dense(3, activation="softmax", name="head")])
+        model.build((None, 10, 10, 3))
+    else:
+        block = keras.Sequential([L.Input((10, 10, 3)), L.Conv2D(4, 3, name="c1"),
+                                  L.BatchNormalization(name="bn1")], name="block")
+        block.get_layer("c1").trainable = False
+        inp = keras.Input((10, 10, 3))
+        h = L.Conv2D(2, 1, name="side")(inp)
+        h = L.Concatenate()([L.Flatten()(block(inp)), L.Flatten()(h)])
+        model = keras.Model(inp, L.Dense(3, name="head")(h))
+    return _randomize_nested(model, seed)
+
+
+def _randomize_nested(model, seed: int):
+    """``_randomize`` of every layer, a nested model's layers in turn."""
+    for i, layer in enumerate(model.layers):
+        if hasattr(layer, "layers"):
+            _randomize_nested(layer, seed + 1 + i)
+    _randomize(SimpleNamespace(layers=[la for la in model.layers
+                                       if not hasattr(la, "layers")]), seed)
+    return model
+
+
+@pytest.mark.parametrize("source", ["keras", "h5", "memory"])
+@pytest.mark.parametrize("kind", ["functional_in_sequential", "sequential_in_functional"])
+def test_nested_model_matches_keras(kind, source, tmp_path):
+    model = _nested_model(kind)
+    x = np.random.default_rng(1).uniform(-1, 1, (3, 10, 10, 3)).astype(np.float32)
+    if source == "memory":
+        got = _port(model, x)
+    else:
+        path = str(tmp_path / f"nested.{source}")
+        model.save(path)
+        got = _port(path, x)
+        if source == "h5":
+            # the frozen conv's weights come after the BN's trainable ones
+            names = [str(n, "utf8") if isinstance(n, bytes) else str(n) for n in
+                     h5py.File(path)["model_weights"][model.layers[0 if kind.startswith("f")
+                                                               else 1].name].attrs["weight_names"]]
+            assert names.index(next(n for n in names if n.endswith("c1/kernel"))) > \
+                names.index(next(n for n in names if n.endswith("bn1/gamma")))
+    np.testing.assert_allclose(got, _keras(model, x), **TOL)
+
+
+def test_nested_weights_are_read_in_all_sources_alike(tmp_path):
+    model = _nested_model("functional_in_sequential")
+    model.save(str(tmp_path / "n.keras"))
+    model.save(str(tmp_path / "n.h5"))
+    trees = [read_keras_file(str(tmp_path / "n.keras"))[1],
+             read_keras_file(str(tmp_path / "n.h5"))[1], read_keras_model(model)[1]]
+    base = model.layers[0]
+    for tree in trees:
+        assert set(tree) == {"base", "head"}
+        for layer in base.layers:
+            want = layer.get_weights()
+            got = tree["base"].get(layer.name, [])
+            assert len(got) == len(want), layer.name
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_nested_model_trainable_flags_and_written_weights(tmp_path):
+    """The frozen conv's parameters take no gradient, the others do; the
+    module's ``keras_weights()`` written by ``write_keras_file`` load in
+    Keras with the port's weights bit for bit, nested model included."""
+    model = _nested_model("functional_in_sequential")
+    path = str(tmp_path / "n.keras")
+    model.save(path)
+    config, weights = read_keras_file(path)
+    module = KerasModel(config, weights)
+    frozen = {n for n, p in module.named_parameters() if not p.requires_grad}
+    assert frozen == {"layers.base.layers.c1.conv.weight", "layers.base.layers.c1.conv.bias"}
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.25)
+        module.layers["base"].layers["bn1"].bn.var.mul_(1.5)
+    written = str(tmp_path / "written.keras")
+    write_keras_file(written, config, module.keras_weights())
+    reloaded = keras.models.load_model(written, compile=False)
+    got = module.keras_weights()
+    for layer in reloaded.layers[0].layers:
+        for g, w in zip(got["base"].get(layer.name, []), layer.get_weights()):
+            np.testing.assert_array_equal(g, w)
+    for g, w in zip(got["head"], reloaded.layers[1].get_weights()):
+        np.testing.assert_array_equal(g, w)
+    x = np.random.default_rng(2).uniform(-1, 1, (2, 10, 10, 3)).astype(np.float32)
+    np.testing.assert_allclose(_port(written, x), _keras(reloaded, x), **TOL)
+
+
+def _long_name(kind: str, i: int) -> str:
+    return f"{kind}_{i:03d}_" + "x" * 1000
+
+
+def test_chunked_h5_attributes_are_joined(tmp_path):
+    """Keras splits an attribute larger than 64512 bytes into ``name0``,
+    ``name1``, ...: 64 outer layers and 33 layers of a nested model, each
+    with a 1008-character name, split the root's ``layer_names`` and the
+    nested model's ``weight_names``. The port joins them as Keras does."""
+    keras.utils.set_random_seed(0)
+    base = keras.Sequential([L.Input((3,))] + [L.Dense(3, name=_long_name("inner", i))
+                                                for i in range(33)], name="base")
+    model = keras.Sequential([L.Input((3,)), base]
+                             + [L.Dense(3, name=_long_name("outer", i)) for i in range(64)])
+    path = str(tmp_path / "chunked.h5")
+    model.save(path)
+    root = h5py.File(path)["model_weights"]
+    assert {"layer_names0", "layer_names1"} <= set(root.attrs) and "layer_names" not in root.attrs
+    assert {"weight_names0", "weight_names1"} <= set(root["base"].attrs)
+    _, weights = read_keras_file(path)
+    assert list(weights) == ["base"] + [_long_name("outer", i) for i in range(64)]
+    for layer in model.layers[1:]:
+        for g, w in zip(weights[layer.name], layer.get_weights()):
+            np.testing.assert_array_equal(g, w)
+    for layer in base.layers:
+        for g, w in zip(weights["base"][layer.name], layer.get_weights()):
+            np.testing.assert_array_equal(g, w)
+    x = np.random.default_rng(0).uniform(-1, 1, (4, 3)).astype(np.float32)
+    np.testing.assert_allclose(_port(path, x), _keras(model, x), **TOL)

@@ -240,6 +240,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.sql.functions",
         "sparkdl_tpu_torch.graph.tensorframes_udf",
         "sparkdl_tpu_torch.udf.keras_image_model",
+        "sparkdl_tpu_torch.parallel.keras_train",
+        "sparkdl_tpu_torch.estimators.keras_image_file_estimator",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -252,7 +254,8 @@ def test_port_sources_import_no_jax():
                    "transformers/tf_tensor.py", "utils/hdf5.py", "models/keras_model.py",
                    "transformers/keras_image.py", "transformers/keras_tensor.py",
                    "sql/functions.py", "graph/tensorframes_udf.py",
-                   "udf/keras_image_model.py"):
+                   "udf/keras_image_model.py", "parallel/keras_train.py",
+                   "estimators/keras_image_file_estimator.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:
