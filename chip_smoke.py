@@ -170,6 +170,33 @@ prints no result):
    the fitted transformer's images/s; the sweep's seconds a fit and each
    model's training accuracy by argmax.
 
+12. the estimators' remainder. (a) ViT-B/16 at full width (phase 5's
+   setup: 64 generated 224x224 images, 10 classes, adam, batch 32, 2 steps
+   an epoch): two uninterrupted ``fit(epochs=2)`` compared bit for bit
+   first (if they differ, deterministic algorithms go on and the two must
+   then agree, and every later comparison of (a) runs under them);
+   ``fit(epochs=1)`` with a ``checkpointDir``, then a fresh estimator's
+   ``fit(epochs=2)`` on the directory, which must log its resume from epoch
+   1, equal the uninterrupted fit bit for bit (weights and last loss) and
+   launch the forward with lse, dQ and dK/dV 24 times each (12 blocks x 2
+   steps); its fitted transformer's transform launches the lse-free forward
+   24 times; ``fit(epochs=1)`` again returns epoch 1's weights bit for bit
+   with no launch; a fit under ``FaultPlan().add("estimator.step",
+   preempt=True, at=3)`` raises ``Preempted`` with epoch 1 alone committed,
+   and the re-fit equals the uninterrupted fit. (b) The ResNet50 head of
+   phase 11 over 128 ``.npy`` files at batch 64, sgd: the same determinism
+   check; a ``streaming=True`` fit equal to the in-memory fit bit for bit;
+   fit(1) with a checkpoint then fit(2) equal to the uninterrupted fit; for
+   each of rmsprop, adagrad, nadam, lamb and lion, three updates of the
+   head's 23.5 M trainable weights with seeded gradients on the card and on
+   the CPU within ``OPT_CHANGE_RTOL`` of the largest change, then a fit with
+   it (finite losses, moved weights); no attention kernel launched over (b).
+   Timed: each save's dispatch and background commit, the bytes an epoch,
+   the restore, the step time of a checkpointed fit beside the
+   uncheckpointed one's, the in-memory and streaming fits' images/s with
+   ``sparkdl.load``, ``sparkdl.load_wait`` and ``estimator.step``. The
+   checkpoints go to a temporary directory, removed afterwards.
+
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
 products and convolutions run in full float32 (TF32 off) throughout, but
@@ -1626,24 +1653,11 @@ def keras_head_config(units: int):
 
 def keras_file_view(path):
     """A Keras file as ``models/keras_port.py::port_keras_weights`` reads a
-    built model, duck-typed: ``layers``, each with its Keras class's name,
-    ``name``, ``get_weights()`` and the ``use_bias`` / ``scale`` /
-    ``center`` flags of its config."""
-    from types import SimpleNamespace
-
+    built model, duck-typed (``keras_port.keras_layers_view``)."""
     from sparkdl_tpu_torch.models.keras_model import read_keras_file
+    from sparkdl_tpu_torch.models.keras_port import keras_layers_view
 
-    config, weights = read_keras_file(path)
-    layers = []
-    for layer in config["config"]["layers"]:
-        cfg = layer["config"]
-        view = type(layer["class_name"], (), {})()
-        view.name = cfg["name"]
-        view.use_bias = cfg.get("use_bias", False)
-        view.scale, view.center = cfg.get("scale", True), cfg.get("center", True)
-        view.get_weights = (lambda arrays: lambda: list(arrays))(weights.get(cfg["name"], []))
-        layers.append(view)
-    return SimpleNamespace(layers=layers)
+    return keras_layers_view(*read_keras_file(path))
 
 
 def host_ops(label: str, fn) -> None:
@@ -2278,6 +2292,361 @@ def keras_fine_tune(card: str, counted):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 12: the estimators' remainder: checkpoint and resume, preemption,
+# streaming, the optax optimizers
+# ----------------------------------------------------------------------
+
+# the five optimizers, card against CPU over three updates of the same
+# weights and gradients (float32 both): the largest difference within 1e-4
+# of the largest change. rsqrt, sqrt and lamb's norms round differently on
+# the two devices, a few ulps of each update; a sign that parts in lion, or
+# a state that is not carried, moves a weight by a whole update
+OPT_CHANGE_RTOL = 1e-4
+OPTAX_NAMES = ("rmsprop", "adagrad", "nadam", "lamb", "lion")
+
+
+def differing(a, b) -> list:
+    """Names of the entries of two ``{name: tensor or array}`` that are not
+    equal bit for bit (or missing from one)."""
+    import torch
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x.cpu(), y.cpu())
+        return np.array_equal(x, y)
+
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b and not same(a[k], b[k])]
+
+
+def deterministic_pair(label: str, fit, weights_of):
+    """Two uninterrupted fits, compared bit for bit. Equal: returns the
+    first fit and "default". Not equal: deterministic algorithms on
+    (cuBLAS's workspace setting, ``torch.use_deterministic_algorithms``,
+    ``cudnn.deterministic``), two fits again, which must then be equal."""
+    import os
+
+    import torch
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    def step_ms():
+        return 1e3 * metrics.timer("estimator.step").seconds / metrics.counter(
+            "estimator.steps").value
+
+    def two():
+        # the step time of the second fit, warm
+        first = fit()
+        metrics.reset()
+        second = fit()
+        return first, differing(weights_of(first), weights_of(second)), step_ms()
+
+    first, bad, default_ms = two()
+    if not bad:
+        log(f"{label}: two uninterrupted fits bit for bit equal under the default "
+            f"algorithms ({default_ms:.3f} ms a step in the second)")
+        return first, "default"
+    log(f"{label}: two uninterrupted fits differ in {len(bad)} tensors ({bad[:4]}): "
+        f"deterministic algorithms on")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    first, bad, det_ms = two()
+    if bad:
+        raise AssertionError(f"{label}: two fits differ under deterministic algorithms: {bad[:4]}")
+    log(f"{label}: bit for bit equal under deterministic algorithms; a step of the "
+        f"second fit {det_ms:.3f} ms against {default_ms:.3f} ms under the default ones")
+    return first, "deterministic"
+
+
+def checkpoint_times(label: str, card: str) -> None:
+    """The ``estimator.checkpoint*`` metrics since the last reset: each
+    save's dispatch and background commit, the bytes, the restore."""
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    dispatch = metrics.histogram("estimator.checkpoint_ms").values()
+    commit = metrics.histogram("estimator.checkpoint_commit_ms").values()
+    nbytes = metrics.counter("estimator.checkpoint_bytes").value
+    log(f"  {label} checkpoints ({card}): save dispatch "
+        + ", ".join(f"{v:.1f}" for v in dispatch) + " ms; background commit "
+        + ", ".join(f"{v:.1f}" for v in commit) + f" ms; "
+        f"{nbytes / max(len(commit), 1) / 1e9:.4f} GB an epoch; restore "
+        f"{1e3 * metrics.timer('estimator.restore').seconds:.1f} ms")
+
+
+def vit_checkpoint_resume(card: str, counted, train_params) -> dict:
+    """Phase 12 (a): ViT-B/16 checkpoint, resume and preemption at full
+    width through kernels #1-#4. Returns the launches of the resumed fit
+    and of its fitted transform."""
+    import logging
+
+    import torch
+
+    from sparkdl_tpu_torch.estimators import checkpointing
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.resilience import FaultPlan, Preempted, active_plan
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    reset, read = counted
+    # an epoch of 64 images at batch 32, and a transform at the default
+    # batch 32: 12 blocks x 2 batches
+    expected = 12 * (N_IMAGES // BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(1)
+        for i in range(N_IMAGES):
+            np.save(tmp / f"img_{i:03d}.npy", rng.random((224, 224, 3), dtype=np.float32))
+        uris = sorted(str(p) for p in tmp.glob("*.npy"))
+        df = training_df(uris)
+
+        def estimator(epochs, ckpt=None):
+            return train_estimator(
+                ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash"),
+                train_params, checkpointDir=ckpt,
+                fitParams={"epochs": epochs, "batch_size": BATCH,
+                           "learning_rate": TRAIN_LR, "seed": 0})
+
+        def weights(fitted):
+            return {n: t.detach().cpu() for n, t in fitted.module.state_dict().items()}
+
+        straight, mode = deterministic_pair(
+            "checkpoint (ViT-B/16, 2 epochs of 2 steps, adam)",
+            lambda: estimator(2).fit(df), weights)
+        want = weights(straight)
+
+        # fit(1) with a checkpoint, then a fresh estimator's fit(2) resumes
+        ckpt = str(tmp / "ckpt")
+        metrics.reset()
+        one = estimator(1, ckpt).fit(df)
+        one_weights = weights(one)
+        records = []
+
+        class Catch(logging.Handler):
+            def emit(self, record):
+                records.append(record.getMessage())
+
+        catch = Catch()
+        est_logger = logging.getLogger("sparkdl_tpu_torch.estimators.torch_image_file_estimator")
+        est_logger.addHandler(catch)
+        est_logger.setLevel(logging.INFO)
+        try:
+            reset()
+            resumed = estimator(2, ckpt).fit(df)
+            torch.cuda.synchronize()
+            fit_counts = read()
+        finally:
+            est_logger.removeHandler(catch)
+        if not any("resuming from checkpoint epoch 1" in r for r in records):
+            raise AssertionError(f"the resumed fit did not log its resume: {records}")
+        bad = differing(weights(resumed), want)
+        log(f"checkpoint: fit(1) then a fresh fit(2) resumed from epoch 1 ({mode} algorithms): "
+            f"launches {fit_counts} (expected {expected} with lse, dQ and dK/dV: 12 "
+            f"blocks x 2 steps); {len(want) - len(bad)} of {len(want)} tensors bit for bit "
+            f"the uninterrupted fit's; last loss {resumed._training_loss!r} vs "
+            f"{straight._training_loss!r}")
+        if list(fit_counts.values()) != [0, expected, expected, expected]:
+            raise AssertionError(f"resumed fit launches {fit_counts}")
+        if bad or resumed._training_loss != straight._training_loss:
+            raise AssertionError(f"the resumed fit differs from the uninterrupted one: {bad[:4]}")
+        epoch_dir = checkpointing.epoch_path(ckpt, estimator(2, ckpt)._ckpt_namespace(), 1)
+        on_disk = sum(f.stat().st_size for f in Path(epoch_dir).iterdir())
+        checkpoint_times("ViT-B/16", card)
+        log(f"  epoch_1 on disk: {on_disk / 1e9:.4f} GB")
+
+        # the fitted transformer of the resumed fit, through the lse-free kernel
+        reset()
+        tuned = vectors(resumed.transform(df).collect(), "features")
+        tuned_counts = read()
+        log(f"  the resumed fit's transform: {len(tuned)} rows, launches {tuned_counts}")
+        if list(tuned_counts.values()) != [expected, 0, 0, 0] or not np.isfinite(tuned).all():
+            raise AssertionError(f"the resumed fit's transform: launches {tuned_counts}")
+
+        # fit(1) again: epoch 1 from disk, no training
+        reset()
+        again = estimator(1, ckpt).fit(df)
+        again_counts = read()
+        bad = differing(weights(again), one_weights)
+        log(f"  fit(1) again on the directory: {len(one_weights) - len(bad)} of "
+            f"{len(one_weights)} tensors bit for bit epoch 1's, launches {again_counts}")
+        if bad or any(again_counts.values()):
+            raise AssertionError(f"fit(1) again: {bad[:4]}, launches {again_counts}")
+        del one, again
+
+        # preempted at global step 3 (epoch 2's first), raised at the next
+        # step boundary; epoch 1 committed; the re-fit equals fit(2)
+        pre = str(tmp / "preempt")
+        est = estimator(2, pre)
+        try:
+            with active_plan(FaultPlan().add("estimator.step", preempt=True, at=3)):
+                est.fit(df)
+        except Preempted as exc:
+            log(f"  preempted: {exc}")
+        else:
+            raise AssertionError("the planned preemption did not stop the fit")
+        committed = checkpointing.committed_epochs(pre, est._ckpt_namespace())
+        refit = estimator(2, pre).fit(df)
+        bad = differing(weights(refit), want)
+        log(f"  after the preemption: committed epochs {committed}; the re-fit "
+            f"{len(want) - len(bad)} of {len(want)} tensors bit for bit the uninterrupted fit's")
+        if committed != [1] or bad:
+            raise AssertionError(f"preemption: committed {committed}, differing {bad[:4]}")
+        del refit, resumed
+
+        # a checkpointed 2-epoch fit from scratch: the second save waits for
+        # the first commit where the commit outlasts the epoch's steps
+        metrics.reset()
+        t0 = time.perf_counter()
+        timed = estimator(2, str(tmp / "timed")).fit(df)
+        fit_s = time.perf_counter() - t0
+        steps = metrics.counter("estimator.steps").value
+        log(f"  checkpointed fit(2) from scratch ({card}): {fit_s:.3f} s, "
+            f"{1e3 * metrics.timer('estimator.step').seconds / steps:.3f} ms a step "
+            f"({int(steps)} steps)")
+        checkpoint_times("ViT-B/16 fit(2)", card)
+        if differing(weights(timed), want):
+            raise AssertionError("the checkpointed fit differs from the uninterrupted one")
+        del timed, straight
+    if mode == "deterministic":
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return {"fit": fit_counts, "transform": tuned_counts}
+
+
+def optax_updates(module, name: str, device: str, grads) -> dict:
+    """Three updates of ``module``'s trainable weights by the optimizer
+    ``name`` on ``device`` with the gradients ``grads``; the weights after."""
+    import copy
+
+    import torch
+
+    from sparkdl_tpu_torch.estimators.losses import get_optimizer
+
+    module = copy.deepcopy(module).to(device)
+    params = [p for p in module.parameters() if p.requires_grad]
+    opt = get_optimizer(name)(params)
+    for step in grads:
+        for p, g in zip(params, step):
+            p.grad = g.to(device)
+        opt.step()
+    return {i: p.detach().cpu() for i, p in enumerate(params)}
+
+
+def keras_remainder(card: str, counted) -> None:
+    """Phase 12 (b): the ResNet50-head fine-tune with checkpoints,
+    streaming and the five optax optimizers; no attention kernel."""
+    import gzip
+
+    import torch
+
+    from sparkdl_tpu_torch import KerasImageFileEstimator
+    from sparkdl_tpu_torch.models.keras_model import KerasModel, read_keras_file, write_keras_file
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    counted[0]()
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-keras-ckpt-") as tmp:
+        tmp = Path(tmp)
+        config = json.loads(gzip.decompress(RESNET_HEAD_CONFIG.read_bytes()))
+        start_tree = resnet_head_weights(config, seed=21)
+        start = flat_weights(start_tree)
+        path = str(tmp / "resnet50_head.keras")
+        write_keras_file(path, config, start_tree)
+        pixels = np.random.RandomState(23).uniform(0, 1, (FT_FIT_IMAGES, FT_IMAGE, FT_IMAGE, 3))
+        rows = []
+        for i, img in enumerate(pixels.astype(np.float32)):
+            label = i % FT_CLASSES
+            img[..., label % 3] += 0.5 * (label / FT_CLASSES)
+            rows.append({"uri": str(tmp / f"img_{i:03d}.npy"), "label": label})
+            np.save(rows[-1]["uri"], img)
+        df = session.createDataFrame(rows, numPartitions=4)
+
+        def estimator(epochs, ckpt=None, optimizer="sgd", **extra):
+            params = {"epochs": epochs, "batch_size": FT_BATCH, "seed": 0, **extra}
+            if optimizer == "sgd":
+                params["learning_rate"] = FT_LR
+            return KerasImageFileEstimator(
+                inputCol="uri", outputCol="probs", labelCol="label", imageLoader=load_npy,
+                modelFile=path, kerasOptimizer=optimizer,
+                kerasLoss="sparse_categorical_crossentropy", kerasFitParams=params,
+                checkpointDir=ckpt)
+
+        def weights(fitted):
+            return flat_weights(read_keras_file(fitted.getModelFile())[1])
+
+        def rate(label, fit):
+            metrics.reset()
+            t0 = time.perf_counter()
+            fitted = fit()
+            wall = time.perf_counter() - t0
+            snap = metrics.snapshot()
+            log(f"  {label} fit, {FT_FIT_IMAGES} images x 2 epochs, batch {FT_BATCH} ({card}): "
+                f"{wall:.3f} s, {2 * FT_FIT_IMAGES / wall:.1f} images/s; sparkdl.load "
+                f"{snap.get('sparkdl.load.seconds', 0.0):.3f} s, sparkdl.load_wait "
+                f"{snap.get('sparkdl.load_wait.seconds', 0.0):.3f} s, estimator.step "
+                f"{snap.get('estimator.step.seconds', 0.0):.3f} s over "
+                f"{snap.get('estimator.steps', 0.0):.0f} steps")
+            return fitted
+
+        straight, mode = deterministic_pair(
+            f"keras: ResNet50 head, 2 epochs of {FT_FIT_IMAGES // FT_BATCH} steps, sgd",
+            lambda: estimator(2).fit(df), weights)
+        want = weights(straight)
+        rate("in-memory", lambda: estimator(2).fit(df))
+        streamed = rate("streaming", lambda: estimator(2, streaming=True).fit(df))
+        bad = differing(weights(streamed), want)
+        log(f"  streaming fit: {len(want) - len(bad)} of {len(want)} arrays bit for bit the "
+            f"in-memory fit's")
+        if bad:
+            raise AssertionError(f"the streaming fit differs: {bad[:4]}")
+
+        ckpt = str(tmp / "ckpt")
+        metrics.reset()
+        estimator(1, ckpt).fit(df)
+        resumed = estimator(2, ckpt).fit(df)
+        bad = differing(weights(resumed), want)
+        log(f"keras: fit(1) then fit(2) resumed from epoch 1 ({mode} algorithms): "
+            f"{len(want) - len(bad)} of {len(want)} arrays bit for bit the uninterrupted fit's")
+        if bad or resumed._training_loss != straight._training_loss:
+            raise AssertionError(f"the resumed Keras fit differs: {bad[:4]}")
+        checkpoint_times("ResNet50 head", card)
+
+        # the five optimizers: three updates of the head's trainable
+        # weights on the card and on the CPU, the same seeded gradients
+        module = KerasModel(config, start_tree)
+        gen = torch.Generator().manual_seed(24)
+        shapes = [p.shape for p in module.parameters() if p.requires_grad]
+        grads = [[torch.randn(s, generator=gen) * 1e-2 for s in shapes] for _ in range(3)]
+        before = {i: p.detach().clone() for i, p in
+                  enumerate(p for p in module.parameters() if p.requires_grad)}
+        for name in OPTAX_NAMES:
+            on_card = optax_updates(module, name, "cuda", grads)
+            on_cpu = optax_updates(module, name, "cpu", grads)
+            diff = max((on_card[i] - on_cpu[i]).abs().max().item() for i in on_cpu)
+            change = max((on_cpu[i] - before[i]).abs().max().item() for i in on_cpu)
+            log(f"keras: {name}, 3 updates of {sum(p.numel() for p in before.values())} "
+                f"weights in {len(before)} tensors, card vs CPU: largest difference "
+                f"{diff:.3e}, largest change {change:.3e}")
+            if not (change > 0 and diff <= OPT_CHANGE_RTOL * change):
+                raise AssertionError(f"{name}: card and CPU part by {diff:.3e} of {change:.3e}")
+            fitted = estimator(1, optimizer=name).fit(df)
+            tuned = weights(fitted)
+            if not np.isfinite(fitted._training_losses).all() or \
+                    all(np.array_equal(tuned[k], start[k]) for k in start):
+                raise AssertionError(f"{name}: losses {fitted._training_losses}, or no weight moved")
+            log(f"  a fit with {name}: losses "
+                + ", ".join(f"{v:.4f}" for v in fitted._training_losses))
+        del module, grads
+        launches = counted[1]()
+        if any(launches.values()):
+            raise AssertionError(f"the Keras remainder launched attention kernels: {launches}")
+        log(f"  attention launches over phase 12 (b): {launches} (none)")
+    if mode == "deterministic":
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -2793,6 +3162,16 @@ def main() -> int:
     # phase 11: KerasImageFileEstimator fine-tuning the ResNet50 head
     # (BASELINE.json configs[3]) and its sweep
     keras_fine_tune(card, counted=(reset_counts, counts))
+
+    # phase 12: checkpoint, resume and preemption of the ViT fit through
+    # the four kernels; the Keras fine-tune's checkpoints, streaming and
+    # optax optimizers
+    resumed = vit_checkpoint_resume(card, (reset_counts, counts), train_params)
+    records[0]["launches"] += resumed["transform"]["flash_attention_fwd"]
+    for record, key in zip(records[1:], ("flash_attention_fwd+lse", "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv")):
+        record["launches"] += resumed["fit"][key]
+    keras_remainder(card, counted=(reset_counts, counts))
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

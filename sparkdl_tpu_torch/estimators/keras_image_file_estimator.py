@@ -13,14 +13,23 @@ on the tuned ``.keras`` file. Without Keras: the file is read and built by
 the tuned weights written back with ``write_keras_file``.
 
 One card: ``batch_size`` is used as given (the JAX package rounds it to its
-device mesh). ``checkpointDir`` and ``kerasFitParams["streaming"]`` are not
-ported yet (ROADMAP.md item 7b) and raise before any row is read.
-``fitMultiple`` (``ml/base.py``) gives one model per param map, for
+device mesh). ``kerasFitParams["streaming"]`` keeps only the URIs in memory
+and loads each batch as the epoch reaches it
+(:class:`~sparkdl_tpu_torch.estimators.data.StreamingShardLoader`), with
+the in-memory fit's batches. ``checkpointDir`` saves every epoch (the
+trainable parameters, the moving statistics, the optimizer's state, the
+step count and the Dropout generator's state) under a ``torch_fit_``
+namespace whose hash is the JAX estimator's, resumes from the latest
+committed epoch up to ``epochs`` and replays the permutation draws, so a
+resumed or preempted-then-resumed fit equals an uninterrupted one bit for
+bit. ``fitMultiple`` (``ml/base.py``) gives one model per param map, for
 ``CrossValidator`` grids.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import os
 import tempfile
@@ -29,7 +38,14 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from sparkdl_tpu_torch.estimators.data import epoch_batches, labels_to_array, load_host_shard
+from sparkdl_tpu_torch.estimators import checkpointing
+from sparkdl_tpu_torch.estimators.data import (
+    StreamingShardLoader,
+    collect_host_shard_rows,
+    epoch_batches,
+    labels_to_array,
+    load_host_shard,
+)
 from sparkdl_tpu_torch.estimators.losses import (
     get_loss_fn,
     get_optimizer,
@@ -49,16 +65,17 @@ from sparkdl_tpu_torch.param.shared import (
     HasOutputCol,
 )
 from sparkdl_tpu_torch.parallel.keras_train import (
+    KerasTrainState,
     init_keras_train_state,
     make_keras_train_step,
 )
+from sparkdl_tpu_torch.resilience import inject
+from sparkdl_tpu_torch.resilience.preempt import preemption_scope
 from sparkdl_tpu_torch.transformers.keras_image import KerasImageFileTransformer
 from sparkdl_tpu_torch.utils.device import resolve_device
-from sparkdl_tpu_torch.utils.metrics import fit_step
+from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics
 
 logger = logging.getLogger(__name__)
-
-_ITEM_7B = "ROADMAP.md item 7b"
 
 
 class KerasImageFileEstimator(
@@ -75,8 +92,8 @@ class KerasImageFileEstimator(
     checkpointDir = Param(
         "undefined",
         "checkpointDir",
-        "checkpoint directory for mid-training save/resume; not ported yet, "
-        "must be None",
+        "checkpoint directory for mid-training save/resume "
+        "(None disables checkpointing)",
     )
 
     @keyword_only
@@ -130,18 +147,18 @@ class KerasImageFileEstimator(
     def _fit(self, dataset):
         self._validateParams()
         fit_params = dict(self.getKerasFitParams() or {})
-        if self.getOrDefault(self.checkpointDir) is not None:
-            raise NotImplementedError(
-                f"checkpointDir is not ported to sparkdl_tpu_torch yet ({_ITEM_7B}: "
-                "estimators/checkpointing.py); leave it None")
-        if fit_params.get("streaming", False):
-            raise NotImplementedError(
-                f"kerasFitParams['streaming'] is not ported to sparkdl_tpu_torch yet "
-                f"({_ITEM_7B}: StreamingShardLoader); leave it False")
         device = resolve_device(self.getDevice())
-
-        x, labels = load_host_shard(
-            dataset, self.getInputCol(), self.getLabelCol(), self.getImageLoader())
+        # streaming=True: only the URIs in memory, each batch loaded as the
+        # epoch reaches it; the batches are the in-memory path's
+        streaming = bool(fit_params.get("streaming", False))
+        if streaming:
+            uris, labels = collect_host_shard_rows(
+                dataset, self.getInputCol(), self.getLabelCol())
+            x, n = None, len(uris)
+        else:
+            x, labels = load_host_shard(
+                dataset, self.getInputCol(), self.getLabelCol(), self.getImageLoader())
+            n = x.shape[0]
         y = labels_to_array(labels)
         epochs = int(fit_params.get("epochs", 1))
         # one card: no mesh to round the batch to
@@ -155,10 +172,25 @@ class KerasImageFileEstimator(
         weighted = per_sample_loss is not None
         loss_fn = per_sample_loss if weighted else get_loss_fn(loss_spec)
         tx = get_optimizer(self.getKerasOptimizer(), fit_params.get("learning_rate"))
-        state = init_keras_train_state(module, tx)
+        state = init_keras_train_state(module, tx, seed=seed)
         step_fn = make_keras_train_step(loss_fn, weighted=weighted)
 
-        n = x.shape[0]
+        ckpt_dir = self.getOrDefault(self.checkpointDir)
+        namespace = self._ckpt_namespace() if ckpt_dir else None
+        # the latest committed epoch up to the requested stopping point:
+        # fit(epochs=2) after a fit(epochs=4) returns the epoch-2 weights
+        start_epoch = 0
+        if ckpt_dir:
+            with metrics.timer("estimator.restore").time():
+                start_epoch = self._maybe_restore(ckpt_dir, namespace, state, epochs)
+        if start_epoch >= epochs:
+            logger.info(
+                "checkpoint already at epoch %d == requested epochs=%d; "
+                "returning the checkpointed weights without training",
+                start_epoch, epochs,
+            )
+
+        steps_per_epoch = -(-n // batch_size)
         if not weighted and n % batch_size:
             logger.warning(
                 "custom loss without a per-sample form: ragged batches "
@@ -168,8 +200,13 @@ class KerasImageFileEstimator(
                 n,
                 batch_size,
             )
-        # the JAX package's draw for process 0 of one
+        stream = StreamingShardLoader(uris, y, self.getImageLoader(), batch_size, weighted) \
+            if streaming else None
+        # the JAX package's draw for process 0 of one; the restored epochs'
+        # draws replayed, so epoch e always trains on the e-th permutation
         rng = np.random.RandomState((seed * 7919 + 0) % 2**32)
+        for _ in range(start_epoch):
+            rng.permutation(n)
         sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
 
         def place(batch):
@@ -177,17 +214,42 @@ class KerasImageFileEstimator(
 
         step_losses = []
         last_loss = None
-        for epoch in range(epochs):
-            order = rng.permutation(n)
-            losses = []
-            for batch in epoch_batches(order, x, y, batch_size, weighted):
-                with fit_step(sync):
-                    state, loss = step_fn(state, place(batch))
-                losses.append(loss)
-            # one read of the losses per epoch, as the JAX loop's float(loss)
-            step_losses += torch.stack(losses).tolist()
-            last_loss = step_losses[-1]
-            logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
+        ckptr = checkpointing.AsyncCheckpointer() if ckpt_dir else None
+        # SIGTERM flags the token, the loop raises Preempted at the next
+        # step boundary, the finally below commits the last completed
+        # epoch, and a re-fit resumes from it
+        try:
+            with preemption_scope() as ptoken:
+                for epoch in range(start_epoch, epochs):
+                    order = rng.permutation(n)
+                    batches = stream.epoch(order, steps_per_epoch) if streaming else \
+                        epoch_batches(order, x, y, batch_size, weighted)
+                    losses = []
+                    try:
+                        for batch in batches:
+                            ptoken.check()
+                            inject.fire("estimator.step")
+                            with fit_step(sync):
+                                state, loss = step_fn(state, place(batch))
+                            losses.append(loss)
+                    finally:
+                        # a raise mid-epoch stops the stream's producer
+                        batches.close()
+                    inject.fire("estimator.epoch")
+                    # one read of the losses per epoch, as the JAX loop's
+                    # float(loss)
+                    step_losses += torch.stack(losses).tolist()
+                    last_loss = step_losses[-1]
+                    logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
+                    if ckptr is not None:
+                        with fit_checkpoint():
+                            checkpointing.save_epoch(ckptr, ckpt_dir, namespace, epoch + 1,
+                                                     self._ckpt_payload(state))
+                        inject.fire("estimator.checkpoint_saved")
+        finally:
+            if ckptr is not None:
+                # the last epoch's write commits before fit returns or raises
+                ckptr.close()
 
         state.opt_state.zero_grad(set_to_none=True)
         module.eval()
@@ -203,3 +265,75 @@ class KerasImageFileEstimator(
         transformer._training_loss = last_loss
         transformer._training_losses = step_losses
         return transformer
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume: the JAX estimator's contract
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _ckpt_payload(state: KerasTrainState) -> Dict[str, Any]:
+        module = state.module
+        return {
+            "trainable": {n: p for n, p in module.named_parameters() if p.requires_grad},
+            "buffers": dict(module.named_buffers()),
+            "optimizer": state.opt_state.state_dict(),
+            "step": state.step,
+            "generator": state.generator.get_state(),
+        }
+
+    def _ckpt_namespace(self) -> str:
+        """A subdirectory per training configuration, so that fits of other
+        param maps (``fitMultiple``, ``CrossValidator`` grids) or unrelated
+        runs sharing one ``checkpointDir`` never restore each other's state,
+        while a re-run of the same configuration resumes. The hash is the
+        JAX estimator's, over the same description (the model file's
+        absolute path, the optimizer, the loss, the fitParams but
+        ``streaming``, which gives the same batches, and ``epochs``, a
+        stopping point, and the columns); the prefix is ``torch_fit_``, so
+        the two packages never read or overwrite each other's checkpoints in
+        one directory."""
+        fit_params = {k: v for k, v in (self.getKerasFitParams() or {}).items()
+                      if k not in ("streaming", "epochs")}
+        stable = checkpointing.stable_description
+        payload = json.dumps(
+            {
+                "modelFile": os.path.abspath(str(self.getModelFile())),
+                "optimizer": stable(self.getKerasOptimizer()),
+                "loss": stable(self.getKerasLoss()),
+                "fitParams": sorted((str(k), stable(v)) for k, v in fit_params.items()),
+                "labelCol": self.getLabelCol(),
+                "inputCol": self.getInputCol(),
+            },
+            sort_keys=True,
+        )
+        return "torch_fit_" + hashlib.sha256(payload.encode()).hexdigest()[:12]
+
+    @staticmethod
+    def _maybe_restore(ckpt_dir: str, namespace: str, state: KerasTrainState,
+                       max_epoch: int) -> int:
+        """Load the latest committed epoch up to ``max_epoch`` into
+        ``state`` in place; returns that epoch, or 0 when there is none."""
+        epochs = checkpointing.committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
+        if not epochs:
+            return 0
+        latest = epochs[-1]
+        payload = checkpointing.restore_epoch(ckpt_dir, namespace, latest)
+        module = state.module
+        try:
+            live = {**{n: p for n, p in module.named_parameters() if p.requires_grad},
+                    **dict(module.named_buffers())}
+            saved = {**payload["trainable"], **payload["buffers"]}
+            if set(saved) != set(live):
+                raise KeyError(f"tensors {sorted(set(saved) ^ set(live))[:5]}")
+            with torch.no_grad():
+                for name, tensor in live.items():
+                    tensor.copy_(saved[name])
+            state.opt_state.load_state_dict(payload["optimizer"])
+            state.step = int(payload["step"])
+            state.generator.set_state(payload["generator"])
+        except (KeyError, RuntimeError, ValueError) as exc:
+            raise RuntimeError(
+                f"the committed checkpoint "
+                f"{checkpointing.epoch_path(ckpt_dir, namespace, latest)} does not fit "
+                f"this fit's state: {exc}") from exc
+        logger.info("resuming from checkpoint epoch %d", latest)
+        return latest

@@ -2,8 +2,10 @@
 
 A trimmed copy of ``sparkdl_tpu.estimators.losses``: the per-sample losses
 (Keras ``from_logits=False`` conventions: they consume the model's
-*outputs*), their mean forms, their lookup, and the optimizers whose update
-``torch.optim`` reproduces from optax's defaults. ``get_optimizer`` returns a factory
+*outputs*), their mean forms, their lookup, and every optimizer name of the
+JAX package: ``torch.optim`` where its update is optax's at optax's
+defaults (sgd, adam, adamw), :mod:`sparkdl_tpu_torch.estimators.optimizers`
+for the rest. ``get_optimizer`` returns a factory
 ``params -> torch.optim.Optimizer``, the counterpart of an optax
 transformation: the caller builds it over the parameters it trains.
 """
@@ -14,6 +16,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from sparkdl_tpu_torch.estimators import optimizers
 from sparkdl_tpu_torch.parallel.trainer import OptimizerFactory
 
 _EPS = 1e-7
@@ -121,13 +124,13 @@ _OPTIMIZERS = {
     "adamw": lambda params, lr: torch.optim.AdamW(
         params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
     ),
+    # optax's updates that torch.optim does not reproduce
+    "rmsprop": optimizers.OptaxRMSprop,
+    "adagrad": optimizers.OptaxAdagrad,
+    "nadam": optimizers.OptaxNadam,
+    "lamb": optimizers.OptaxLamb,
+    "lion": optimizers.OptaxLion,
 }
-
-# optax optimizers whose update torch.optim does not reproduce: rmsprop and
-# adagrad put eps inside the square root (and adagrad's accumulator starts
-# at 0.1), nadam follows another momentum schedule, lamb and lion have no
-# torch counterpart. ROADMAP.md item 7b ports them.
-_NOT_PORTED = ("adagrad", "lamb", "lion", "nadam", "rmsprop")
 
 
 def get_loss_fn(loss: Union[str, Callable]) -> Callable:
@@ -158,17 +161,10 @@ def get_optimizer(
     if callable(optimizer):
         return optimizer
     name = str(optimizer).lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (ROADMAP.md item 7b): "
-            f"torch.optim does not reproduce optax's update for "
-            f"{list(_NOT_PORTED)}; use one of {sorted(_OPTIMIZERS)} or pass a "
-            "callable params -> torch.optim.Optimizer"
-        )
     if name not in _OPTIMIZERS:
         raise ValueError(
             f"Unknown optimizer {optimizer!r}; supported: {sorted(_OPTIMIZERS)}"
         )
     lr = learning_rate if learning_rate is not None else _DEFAULT_LR[name]
     build = _OPTIMIZERS[name]
-    return lambda params: build(params, lr)
+    return lambda params: build(params, lr=lr)

@@ -8,15 +8,25 @@ padded cyclically with zero-weight rows) and returns a
 :class:`TorchImageFileTransformer`: a URI column goes through the loader,
 then batched forward passes on the device, then one ``DenseVector`` per row.
 
-Not ported yet (ROADMAP.md): ``checkpointDir`` (orbax resume),
-``shardingRules`` / ``meshShape`` (the DP x TP step), several hosts or
-cards, and persistence. Setting one of those params raises, and so does
+With ``checkpointDir`` a fit saves every epoch (the module's
+``state_dict``, the optimizer's and the step count) under a namespace of
+its configuration, resumes from the latest committed epoch up to
+``epochs`` and replays the restored epochs' permutation draws, so a
+resumed or preempted-then-resumed fit equals an uninterrupted one bit for
+bit (:mod:`~sparkdl_tpu_torch.estimators.checkpointing`,
+:mod:`~sparkdl_tpu_torch.resilience`).
+
+Not ported yet (ROADMAP.md): ``shardingRules`` / ``meshShape`` (the DP x TP
+step, item 12), several hosts or cards, and persistence of the fitted
+transformer (item 8). Setting one of those params raises, and so does
 saving the fitted transformer.
 """
 
 from __future__ import annotations
 
 import copy
+import hashlib
+import json
 import logging
 from typing import Any, Dict, Mapping, Optional, Sequence
 
@@ -24,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sparkdl_tpu_torch.estimators import checkpointing
 from sparkdl_tpu_torch.estimators.data import epoch_batches, load_host_shard
 from sparkdl_tpu_torch.estimators.losses import (
     get_optimizer,
@@ -39,14 +50,20 @@ from sparkdl_tpu_torch.param.shared import (
     HasLabelCol,
     HasOutputCol,
 )
-from sparkdl_tpu_torch.parallel.trainer import init_train_state, make_train_step
+from sparkdl_tpu_torch.parallel.trainer import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+)
+from sparkdl_tpu_torch.resilience import inject
+from sparkdl_tpu_torch.resilience.preempt import preemption_scope
 from sparkdl_tpu_torch.transformers.utils import (
     DEFAULT_BATCH_SIZE,
     make_loader_decode_plan,
     run_batched_rows,
 )
 from sparkdl_tpu_torch.utils.device import resolve_device
-from sparkdl_tpu_torch.utils.metrics import fit_step
+from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics
 
 logger = logging.getLogger(__name__)
 
@@ -203,14 +220,13 @@ class TorchImageFileEstimator(
     )
     checkpointDir = Param(
         "undefined", "checkpointDir",
-        "checkpoint directory for save/resume; not ported yet, must be None",
+        "checkpoint directory for save/resume (None disables checkpointing)",
     )
 
     #: params that must stay None, and the ROADMAP.md item that ports them
     _NOT_PORTED = {
         "shardingRules": "queue 1 item 12 (parallelism: the DP x TP step)",
         "meshShape": "queue 1 item 12 (parallelism: the DP x TP step)",
-        "checkpointDir": "queue 1 item 7b (estimators/checkpointing.py)",
     }
 
     @keyword_only
@@ -338,8 +354,27 @@ class TorchImageFileEstimator(
         state = init_train_state(model, tx)
         step_fn = make_train_step(per_sample)
 
+        ckpt_dir = self.getOrDefault(self.checkpointDir)
+        start_epoch = 0
+        namespace = None
+        if ckpt_dir:
+            # once per fit: the digest sums every initialVariables leaf
+            namespace = self._ckpt_namespace()
+            with metrics.timer("estimator.restore").time():
+                start_epoch = self._maybe_restore(ckpt_dir, namespace, state, epochs)
+            if start_epoch >= epochs:
+                logger.info(
+                    "checkpoint already at epoch %d == requested epochs=%d; "
+                    "returning the checkpointed weights without training",
+                    start_epoch, epochs,
+                )
+
         n = x.shape[0]
         rng = np.random.RandomState(seed % 2**32)
+        # replay the restored epochs' draws: epoch e always trains on the
+        # e-th permutation, so a resumed fit equals an uninterrupted one
+        for _ in range(start_epoch):
+            rng.permutation(n)
         sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
 
         def place(batch):
@@ -347,19 +382,38 @@ class TorchImageFileEstimator(
 
         step_losses = []
         last_loss = None
-        for epoch in range(epochs):
-            order = rng.permutation(n)
-            losses = []
-            # pad rows carry zero weight, so each update is the exact mean
-            # over the real rows
-            for batch in epoch_batches(order, x, y, batch_size):
-                with fit_step(sync):
-                    state, loss = step_fn(state, place(batch))
-                losses.append(loss)
-            # one read of the losses per epoch, as the JAX loop's float(loss)
-            step_losses += torch.stack(losses).tolist()
-            last_loss = step_losses[-1]
-            logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
+        ckptr = checkpointing.AsyncCheckpointer() if ckpt_dir else None
+        # SIGTERM flags the token, the loop raises Preempted at the next
+        # step boundary, the finally below commits the last completed
+        # epoch, and a re-fit resumes from it
+        try:
+            with preemption_scope() as ptoken:
+                for epoch in range(start_epoch, epochs):
+                    order = rng.permutation(n)
+                    losses = []
+                    # pad rows carry zero weight, so each update is the
+                    # exact mean over the real rows
+                    for batch in epoch_batches(order, x, y, batch_size):
+                        ptoken.check()
+                        inject.fire("estimator.step")
+                        with fit_step(sync):
+                            state, loss = step_fn(state, place(batch))
+                        losses.append(loss)
+                    inject.fire("estimator.epoch")
+                    # one read of the losses per epoch, as the JAX loop's
+                    # float(loss)
+                    step_losses += torch.stack(losses).tolist()
+                    last_loss = step_losses[-1]
+                    logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
+                    if ckptr is not None:
+                        with fit_checkpoint():
+                            checkpointing.save_epoch(ckptr, ckpt_dir, namespace, epoch + 1,
+                                                     self._ckpt_payload(state))
+                        inject.fire("estimator.checkpoint_saved")
+        finally:
+            if ckptr is not None:
+                # the last epoch's write commits before fit returns or raises
+                ckptr.close()
 
         state.opt_state.zero_grad(set_to_none=True)
         model.eval()
@@ -374,3 +428,73 @@ class TorchImageFileEstimator(
         transformer._training_loss = last_loss
         transformer._training_losses = step_losses
         return transformer
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume: the JAX estimator's contract (a namespace per
+    # configuration without epochs, async commits, epoch-capped restore)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _ckpt_payload(state: TrainState) -> Dict[str, Any]:
+        return {
+            "model": state.module.state_dict(),
+            "optimizer": state.opt_state.state_dict(),
+            "step": state.step,
+        }
+
+    def _ckpt_namespace(self) -> str:
+        """A subdirectory per training configuration: the module (class,
+        plain attributes, shapes; see ``checkpointing.stable_description``),
+        the optimizer, the loss, the fitParams but ``epochs`` (a stopping
+        point, not a trajectory parameter), the columns, and a digest of
+        ``initialVariables`` (each ``state_dict`` entry's name, shape and
+        float64 sum), so that fits from other starting weights never
+        restore each other's state. Prefixed ``torch_fit_``: the JAX
+        package's ``fit_`` namespaces in a shared directory are never read
+        or overwritten."""
+        stable = checkpointing.stable_description
+        fit_params = {k: v for k, v in (self.getOrDefault(self.fitParams) or {}).items()
+                      if k != "epochs"}
+        variables = self.getOrDefault(self.initialVariables)
+        if variables is None:
+            vars_digest = "init"
+        else:
+            vars_digest = hashlib.sha256(json.dumps(
+                [(name, list(t.shape), float(t.detach().to(torch.float64).sum()))
+                 for name, t in sorted(_as_state_dict(variables).items())],
+                sort_keys=True,
+            ).encode()).hexdigest()[:16]
+        payload = json.dumps(
+            {
+                "module": stable(self.getOrDefault(self.module)),
+                "optimizer": stable(self.getOrDefault(self.optimizer)),
+                "loss": stable(self.getOrDefault(self.loss)),
+                "fitParams": sorted((str(k), stable(v)) for k, v in fit_params.items()),
+                "initialVariables": vars_digest,
+                "labelCol": self.getLabelCol(),
+                "inputCol": self.getInputCol(),
+            },
+            sort_keys=True,
+        )
+        return "torch_fit_" + hashlib.sha256(payload.encode()).hexdigest()[:12]
+
+    @staticmethod
+    def _maybe_restore(ckpt_dir: str, namespace: str, state: TrainState,
+                       max_epoch: int) -> int:
+        """Load the latest committed epoch up to ``max_epoch`` into
+        ``state`` in place; returns that epoch, or 0 when there is none."""
+        epochs = checkpointing.committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
+        if not epochs:
+            return 0
+        latest = epochs[-1]
+        payload = checkpointing.restore_epoch(ckpt_dir, namespace, latest)
+        try:
+            state.module.load_state_dict(payload["model"], strict=True)
+            state.opt_state.load_state_dict(payload["optimizer"])
+            state.step = int(payload["step"])
+        except (KeyError, RuntimeError, ValueError) as exc:
+            raise RuntimeError(
+                f"the committed checkpoint "
+                f"{checkpointing.epoch_path(ckpt_dir, namespace, latest)} does not fit "
+                f"this fit's state: {exc}") from exc
+        logger.info("resuming from checkpoint epoch %d", latest)
+        return latest

@@ -15,12 +15,17 @@ rebuilds the stage. Each param value is encoded as:
 - anything else (callables such as ``imageLoader``): pickle;
 - a param a stage names in ``_file_params`` (``HasKerasModel.modelFile``):
   the file it names, copied into the directory, so the saved stage no
-  longer needs the original.
+  longer needs the original;
+- a Keras model: a ``.keras`` file, written by ``write_keras_file`` for the
+  port's :class:`~sparkdl_tpu_torch.models.keras_model.KerasModel`, or by
+  the model's own ``save`` for a Keras object (duck-typed: its type's
+  module starts with ``keras`` and it has ``save``), as the JAX package
+  writes it. It loads back as a ``KerasModel`` through ``read_keras_file``,
+  whichever wrote it: the port runs without Keras (a difference by design:
+  the JAX package loads a Keras model).
 
-The JAX package's Keras-model encoding (an in-memory model as a param) is
-not ported yet (ROADMAP item 7b): such a value raises. A directory saved by
-the JAX package does not load here: its metadata names the JAX package's
-classes.
+A directory saved by the JAX package does not load here: its metadata names
+the JAX package's classes.
 """
 
 from __future__ import annotations
@@ -80,12 +85,9 @@ def _unflatten_arrays(flat: Dict[str, np.ndarray]):
     return root
 
 
-def _not_ported(value) -> Optional[str]:
-    """The ROADMAP item a value's encoding waits for, if it is one."""
+def _is_keras_model(value) -> bool:
     mod = type(value).__module__ or ""
-    if mod.startswith("keras") and hasattr(value, "save"):
-        return "a Keras model (ROADMAP item 7b)"
-    return None
+    return mod.startswith("keras") and hasattr(value, "save")
 
 
 def _encode_param(instance, name: str, value, path: str) -> Dict[str, Any]:
@@ -101,12 +103,15 @@ def _encode_param(instance, name: str, value, path: str) -> Dict[str, Any]:
         ref = f"param_{name}_torchfn"
         value.save(os.path.join(path, ref))
         return {"t": "torch_function", "ref": ref}
-    what = _not_ported(value)
-    if what is not None:
-        raise NotImplementedError(
-            f"param {name!r} of {type(instance).__name__} holds {what}, whose "
-            "persistence is not ported yet"
-        )
+    from sparkdl_tpu_torch.models.keras_model import KerasModel, write_keras_file
+
+    if isinstance(value, KerasModel) or _is_keras_model(value):
+        ref = f"param_{name}.keras"
+        if isinstance(value, KerasModel):
+            write_keras_file(os.path.join(path, ref), value.config, value.keras_weights())
+        else:
+            value.save(os.path.join(path, ref))
+        return {"t": "keras_model", "ref": ref}
     flat = _flatten_arrays(value)
     if flat is not None:
         ref = f"param_{name}.npz"
@@ -138,6 +143,10 @@ def _decode_param(desc: Dict[str, Any], path: str):
         from sparkdl_tpu_torch.graph.function import TorchFunction
 
         return TorchFunction.load(ref)
+    if kind == "keras_model":
+        from sparkdl_tpu_torch.models.keras_model import KerasModel, read_keras_file
+
+        return KerasModel(*read_keras_file(ref))
     if kind in ("pytree", "ndarray"):
         with np.load(ref) as data:
             flat = {k: data[k] for k in data.files}

@@ -55,6 +55,7 @@ format raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -805,6 +806,9 @@ class KerasModel(nn.Module):
         if cls not in _MODEL_CLASSES:
             raise NotImplementedError(f"Keras model class {cls!r} is not supported")
         cfg = config["config"]
+        #: the configuration the model was built from, for writing it back
+        #: (``write_keras_file(path, model.config, model.keras_weights())``)
+        self.config = copy.deepcopy(dict(config))
         self.name = cfg.get("name", "model")
         self.trainable = trainable and bool(cfg.get("trainable", True))
         self.nested = nested

@@ -19,6 +19,7 @@ layers (``conv1_conv``, ``block1_sepconv1``, ...) pass through.
 from __future__ import annotations
 
 import re
+from types import SimpleNamespace
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -80,6 +81,25 @@ def _with_bias(layer, entry: Dict[str, np.ndarray], weights, index: int):
     if getattr(layer, "use_bias", False):
         entry["bias"] = np.asarray(weights[index])
     return entry
+
+
+def keras_layers_view(config: Mapping[str, Any], weights: Mapping[str, Any]) -> SimpleNamespace:
+    """A Keras config and its weights (``read_keras_file``'s pair, or a
+    ``KerasModel``'s ``config`` and ``keras_weights()``) as
+    :func:`port_keras_weights` reads a built Keras model: ``layers`` in the
+    configuration's order, each with its Keras class's name, ``name``,
+    ``get_weights()`` and the ``use_bias`` / ``scale`` / ``center`` flags
+    of its config."""
+    layers = []
+    for layer in config["config"]["layers"]:
+        cfg = layer["config"]
+        view = type(layer["class_name"], (), {})()
+        view.name = cfg["name"]
+        view.use_bias = cfg.get("use_bias", False)
+        view.scale, view.center = cfg.get("scale", True), cfg.get("center", True)
+        view.get_weights = (lambda arrays: lambda: list(arrays))(weights.get(cfg["name"], []))
+        layers.append(view)
+    return SimpleNamespace(layers=layers)
 
 
 def port_keras_weights(model) -> Dict[str, Any]:

@@ -8,13 +8,17 @@ holds its weights as parameters and its moving statistics as buffers, so the
 step runs the module in ``train()`` and updates both in place. The optimizer
 covers the trainable parameters only: a frozen layer's weights take no
 gradient and no update, as they are ``non_trainable_variables`` in Keras.
-The data-parallel step over several cards is ROADMAP.md item 12.
+Dropout draws its masks from the state's own ``torch.Generator``, seeded by
+the fit, the counterpart of the Keras ``SeedGenerator`` state that the JAX
+step carries among the non-trainable variables: its state is checkpointed
+with the weights, so a resumed fit draws the masks an uninterrupted one
+draws. The data-parallel step over several cards is ROADMAP.md item 12.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -27,18 +31,25 @@ Batch = Dict[str, torch.Tensor]
 class KerasTrainState:
     """Everything a step mutates: the module (its trainable parameters and
     its moving statistics), the optimizer over the trainable parameters
-    (``opt_state``) and the step count."""
+    (``opt_state``), the step count and the generator of the Dropout
+    masks."""
 
     module: torch.nn.Module
     opt_state: torch.optim.Optimizer
     step: int = 0
+    generator: Optional[torch.Generator] = None
 
 
-def init_keras_train_state(module: torch.nn.Module, tx: OptimizerFactory) -> KerasTrainState:
+def init_keras_train_state(module: torch.nn.Module, tx: OptimizerFactory,
+                           seed: int = 0) -> KerasTrainState:
     """``tx`` is a factory ``params -> Optimizer`` (``get_optimizer``'s),
-    given the parameters that require a gradient."""
+    given the parameters that require a gradient. The Dropout generator
+    lies on the module's device, seeded with ``seed``."""
     trainable = [p for p in module.parameters() if p.requires_grad]
-    return KerasTrainState(module=module, opt_state=tx(trainable), step=0)
+    first = next(iter([*module.parameters(), *module.buffers()]), None)
+    device = first.device if first is not None else torch.device("cpu")
+    generator = torch.Generator(device=device).manual_seed(int(seed) % 2**63)
+    return KerasTrainState(module=module, opt_state=tx(trainable), step=0, generator=generator)
 
 
 def make_keras_train_step(
@@ -54,7 +65,7 @@ def make_keras_train_step(
     add nothing to the loss or the gradient, though they pass through the
     forward, so the batch-norm statistics see them, as in the JAX step.
     Otherwise ``loss_fn`` returns the mean loss. Dropout masks come from
-    torch's default generator (JAX's draws cannot be matched). The loss
+    ``state.generator`` (JAX's draws cannot be matched). The loss
     comes back as a device tensor: reading it synchronises, so callers read
     it rarely.
     """
@@ -63,7 +74,7 @@ def make_keras_train_step(
         module = state.module
         module.train()
         state.opt_state.zero_grad(set_to_none=True)
-        outputs = module(batch["x"])
+        outputs = module(batch["x"], generator=state.generator)
         if weighted:
             w = batch["w"]
             loss = (loss_fn(batch["y"], outputs) * w).sum() / w.sum()

@@ -17,7 +17,9 @@ preprocessing the flip is folded into the stem conv's weights instead
   ``state_dict`` of the port's module;
 - a caller's built Keras model, ported in numpy
   (:func:`~sparkdl_tpu_torch.models.keras_port.port_keras_weights`; Keras is
-  never imported here);
+  never imported here), or the port's
+  :class:`~sparkdl_tpu_torch.models.keras_model.KerasModel` of one, as a
+  saved stage loads it back;
 - ``"random"``, drawn from a ``torch.Generator`` (seed 0) with the
   distributions of Flax's initialisers: not the JAX package's numbers;
 - ``"imagenet"`` (the default), which without a Keras cache raises as the
@@ -42,7 +44,8 @@ import torch
 
 from sparkdl_tpu_torch.ml.base import Transformer
 from sparkdl_tpu_torch.ml.linalg import DenseVector
-from sparkdl_tpu_torch.models.keras_port import port_keras_weights
+from sparkdl_tpu_torch.models.keras_model import KerasModel
+from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
 from sparkdl_tpu_torch.models.layers import CONV_TYPES
 from sparkdl_tpu_torch.models.registry import (
     SUPPORTED_MODELS,
@@ -165,6 +168,9 @@ def _resolve_weights(model_name: str, spec) -> Dict[str, torch.Tensor]:
         if "params" not in spec:  # a state_dict of the port's module
             return spec
         return _ported(model_name, spec, entry.state_dict_from_flax)
+    if isinstance(spec, KerasModel):  # the port's, as a loaded stage holds it
+        return _ported(model_name, spec, lambda m: entry.state_dict_from_flax(
+            port_keras_weights(keras_layers_view(m.config, m.keras_weights()))))
     if hasattr(spec, "layers"):  # a built Keras model
         return _ported(model_name, spec,
                        lambda m: entry.state_dict_from_flax(port_keras_weights(m)))

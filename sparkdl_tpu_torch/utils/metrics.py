@@ -6,8 +6,15 @@ hot loop advances (``sparkdl.load``, ``sparkdl.forward``, ``sparkdl.serve``,
 ``sparkdl.batches_run``), so ``metrics.images_per_sec()`` reports the
 sustained rate of the current process; and the always-on part of
 ``sparkdl_tpu.obs.hooks``' fit profiler, :func:`fit_step` (the
-``estimator.step`` timer and the ``estimator.steps`` counter). Trace spans
-are not ported yet. Thread-safe.
+``estimator.step`` timer and the ``estimator.steps`` counter) and
+:func:`fit_checkpoint` (the ``estimator.checkpoint`` timer and the
+``estimator.checkpoint_ms`` histogram of each save's dispatch), with
+:func:`record_commit` for the background write behind it
+(``estimator.checkpoint_commit``, ``estimator.checkpoint_commit_ms``,
+``estimator.checkpoint_bytes``); the estimators time a resume into
+``estimator.restore``, and the streaming loader its loads into
+``sparkdl.load`` and the fit loop's waits for them into
+``sparkdl.load_wait``. Trace spans are not ported yet. Thread-safe.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
+from collections import deque
 from typing import Callable, Dict, Optional
 
 
@@ -62,13 +70,47 @@ class Timer:
             return self._seconds
 
 
+class Histogram:
+    """Observations: lifetime count and sum, and the last ``window`` values
+    for quantiles."""
+
+    def __init__(self, name: str, window: int = 4096):
+        self.name = name
+        self._lock = threading.Lock()
+        self._window: "deque[float]" = deque(maxlen=int(window))
+        self._count = 0
+        self._sum = 0.0
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._window.append(float(value))
+            self._count += 1
+            self._sum += value
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def total(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def values(self) -> list:
+        """The windowed observations, oldest first."""
+        with self._lock:
+            return list(self._window)
+
+
 class MetricsRegistry:
-    """Process-wide named counters and timers."""
+    """Process-wide named counters, timers and histograms."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._timers: Dict[str, Timer] = {}
+        self._histograms: Dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -82,17 +124,28 @@ class MetricsRegistry:
                 self._timers[name] = Timer(name)
             return self._timers[name]
 
+    def histogram(self, name: str) -> Histogram:
+        with self._lock:
+            if name not in self._histograms:
+                self._histograms[name] = Histogram(name)
+            return self._histograms[name]
+
     def snapshot(self, prefix: Optional[str] = None) -> Dict[str, float]:
-        """Flat dict of every counter value and timer total (``.seconds``),
-        keeping only names that start with ``prefix`` when one is given."""
+        """Flat dict of every counter value, timer total (``.seconds``) and
+        histogram count and sum (``.count``, ``.sum``), keeping only names
+        that start with ``prefix`` when one is given."""
         with self._lock:
             counters = dict(self._counters)
             timers = dict(self._timers)
+            histograms = dict(self._histograms)
         out: Dict[str, float] = {}
         for name, c in counters.items():
             out[name] = c.value
         for name, t in timers.items():
             out[name + ".seconds"] = t.seconds
+        for name, h in histograms.items():
+            out[name + ".count"] = h.count
+            out[name + ".sum"] = h.total
         if prefix is not None:
             out = {k: v for k, v in out.items() if k.startswith(prefix)}
         return out
@@ -111,6 +164,7 @@ class MetricsRegistry:
         with self._lock:
             self._counters.clear()
             self._timers.clear()
+            self._histograms.clear()
 
 
 #: the process-wide registry
@@ -129,3 +183,28 @@ def fit_step(sync: Optional[Callable[[], None]] = None):
         sync()
     metrics.timer("estimator.step").add_seconds(time.perf_counter() - start)
     metrics.counter("estimator.steps").add(1)
+
+
+@contextmanager
+def fit_checkpoint():
+    """Time one checkpoint save's dispatch (the host snapshot of the
+    payload) into the ``estimator.checkpoint`` timer and the
+    ``estimator.checkpoint_ms`` histogram; the write behind it is
+    :func:`record_commit`'s."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        elapsed = time.perf_counter() - start
+        metrics.timer("estimator.checkpoint").add_seconds(elapsed)
+        metrics.histogram("estimator.checkpoint_ms").observe(elapsed * 1e3)
+
+
+def record_commit(seconds: float, nbytes: int) -> None:
+    """One checkpoint's background commit: its seconds, from the writer's
+    start to the rename, into ``estimator.checkpoint_commit`` and
+    ``estimator.checkpoint_commit_ms``; its bytes on disk into
+    ``estimator.checkpoint_bytes``."""
+    metrics.timer("estimator.checkpoint_commit").add_seconds(seconds)
+    metrics.histogram("estimator.checkpoint_commit_ms").observe(seconds * 1e3)
+    metrics.counter("estimator.checkpoint_bytes").add(nbytes)

@@ -429,3 +429,43 @@ def test_keras_fine_tune_step_on_the_card(cuda, tmp_path):
     assert not np.array_equal(got["base"]["bn1"][3], weights["base"]["bn1"][3])
     assert [k.launches for k in (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)] \
         == launches
+
+
+def test_checkpointed_vit_fit_resumes_on_the_card_bit_for_bit(cuda, tmp_path):
+    """A small ViT (ViT-Ti/16 cut to 2 blocks, head_dim 64, flash attention)
+    fitted on the card for 2 epochs of 2 steps: fit(1) with a checkpoint,
+    then a fresh fit(2) on the directory, equals the uninterrupted fit(2) bit
+    for bit, and its epoch launched the backward kernels once a block a
+    step (the flash kernels take no atomics, so a step repeats exactly)."""
+    from sparkdl_tpu_torch import TorchImageFileEstimator, ViT
+    from sparkdl_tpu_torch.sql.session import TorchSession
+
+    rng = np.random.RandomState(0)
+    rows = []
+    for i in range(8):
+        path = str(tmp_path / f"img_{i}.npy")
+        np.save(path, rng.rand(32, 32, 3).astype(np.float32))
+        rows.append({"uri": path, "label": i % 4})
+    df = TorchSession.builder.getOrCreate().createDataFrame(rows, numPartitions=2)
+    module = ViT("ViT-Ti/16", num_classes=4, image_size=32, attn_impl="flash")
+    module.blocks = torch.nn.ModuleList(list(module.blocks)[:2])
+
+    def fit(epochs, ckpt=None):
+        return TorchImageFileEstimator(
+            inputCol="uri", outputCol="out", labelCol="label", imageLoader=np.load,
+            module=module, checkpointDir=ckpt, device="cuda",
+            fitParams={"epochs": epochs, "batch_size": 4, "learning_rate": 1e-3, "seed": 0},
+        ).fit(df)
+
+    straight = fit(2)
+    ckpt = str(tmp_path / "ckpt")
+    fit(1, ckpt)
+    before = [k.launches for k in (FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)]
+    resumed = fit(2, ckpt)
+    after = [k.launches for k in (FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)]
+    assert [a - b for a, b in zip(after, before)] == [2 * 2] * 3  # 2 blocks x 2 steps
+    assert resumed._training_losses == straight._training_losses[2:]
+    want = straight.module.state_dict()
+    for name, tensor in resumed.module.state_dict().items():
+        assert tensor.device.type == "cuda"
+        assert torch.equal(tensor, want[name]), name

@@ -24,9 +24,21 @@ middle third of each ``qkv`` bias), the change from the start differs from
 the oracle's change by at most 1% of its norm, so a leaf left unmoved or
 moved wrongly fails; and the trained models' logits agree to
 tests/test_ops.py's ViT tolerance ``atol=5e-4, rtol=5e-3``.
+
+Checkpoint and resume: the JAX estimators' cases
+(``tests/test_estimators.py``, ``tests/test_flax_estimator.py``,
+``tests/test_fault_injection.py``) through the port, each held to an
+uninterrupted fit of the port bit for bit (``torch.equal``): a resumed fit,
+a preempted one resumed, fit(2) then fit(4), fit(4) then fit(2).
 """
 
 import copy
+import logging
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,6 +56,7 @@ from sparkdl_tpu.estimators.losses import get_optimizer as jax_get_optimizer
 from sparkdl_tpu.models.vit import ViT as JaxViT
 from sparkdl_tpu.ops import flash_attention as jax_flash_attention
 from sparkdl_tpu_torch import TorchImageFileEstimator, TorchImageFileTransformer
+from sparkdl_tpu_torch.estimators import checkpointing
 from sparkdl_tpu_torch.estimators.data import epoch_batches
 from sparkdl_tpu_torch.estimators.losses import (
     _PER_SAMPLE_LOSSES,
@@ -56,6 +69,7 @@ from sparkdl_tpu_torch.models.convert import (
 )
 from sparkdl_tpu_torch.models.vit import ViT
 from sparkdl_tpu_torch.parallel.trainer import init_train_state, make_train_step
+from sparkdl_tpu_torch.resilience import FaultPlan, Preempted, active_plan
 from sparkdl_tpu_torch.sql.session import TorchSession
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -67,6 +81,7 @@ ADAM_LEAF_RTOL = 1e-2
 VIT_TOL = dict(atol=5e-4, rtol=5e-3)
 LR = 1e-3
 N_IMAGES = 6
+ESTIMATOR_LOGGER = "sparkdl_tpu_torch.estimators.torch_image_file_estimator"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -277,12 +292,6 @@ def test_optimizer_updates_match_optax(name):
     np.testing.assert_allclose(param.detach().numpy(), np.asarray(jw), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["adagrad", "lamb", "lion", "nadam", "rmsprop"])
-def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet.*item 7b"):
-        get_optimizer(name)
-
-
 def test_optimizer_defaults_and_factories():
     param = torch.nn.Parameter(torch.zeros(2))
     adam = get_optimizer("adam")([param])
@@ -447,7 +456,7 @@ def test_fit_takes_a_torch_state_dict_and_param_maps(flax_params, train_df):
 
 
 @pytest.mark.parametrize("param,value", [
-    ("shardingRules", [(".*", None)]), ("meshShape", (1, 1)), ("checkpointDir", "/nonexistent"),
+    ("shardingRules", [(".*", None)]), ("meshShape", (1, 1)),
 ])
 def test_unported_options_raise(flax_params, train_df, param, value):
     with pytest.raises(NotImplementedError, match=f"{param} is not ported.*ROADMAP"):
@@ -495,3 +504,239 @@ def test_converter_inverse_round_trips(flax_params):
     state["surplus"] = torch.zeros(2)
     with pytest.raises(KeyError, match="unused keys"):
         vit_flax_from_state_dict(state)
+
+
+# -- checkpoint and resume ------------------------------------------------------
+
+def _ckpt_estimator(flax_params, epochs, ckpt=None, **kw):
+    kw.setdefault("fitParams", {"epochs": epochs, "batch_size": 4, "learning_rate": LR,
+                                "seed": 0})
+    return _estimator(flax_params, checkpointDir=ckpt, **kw)
+
+
+def _assert_same_weights(a, b):
+    sa, sb = a.module.state_dict(), b.module.state_dict()
+    assert list(sa) == list(sb)
+    for name in sa:
+        assert torch.equal(sa[name], sb[name]), name
+
+
+@pytest.fixture(scope="module")
+def straight_fits(flax_params, train_df):
+    """Uninterrupted fits of 1, 2 and 4 epochs, without checkpoints."""
+    return {e: _ckpt_estimator(flax_params, e).fit(train_df) for e in (1, 2, 4)}
+
+
+def _namespaces(ckpt):
+    return sorted(os.listdir(ckpt))
+
+
+def test_checkpointed_fit_resumes(flax_params, train_df, straight_fits, tmp_path, caplog):
+    ckpt = str(tmp_path / "ck")
+    _ckpt_estimator(flax_params, 1, ckpt).fit(train_df)
+    (ns,) = _namespaces(ckpt)
+    assert ns.startswith("torch_fit_")
+    assert sorted(os.listdir(os.path.join(ckpt, ns))) == ["epoch_1"]
+    steps = metrics.counter("estimator.steps").value
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+    assert "resuming from checkpoint epoch 1" in caplog.text
+    assert metrics.counter("estimator.steps").value - steps == 2
+    _assert_same_weights(resumed, straight_fits[2])
+    assert resumed._training_losses == straight_fits[2]._training_losses[2:]
+    assert resumed._training_loss == straight_fits[2]._training_loss
+
+
+def test_refit_with_more_epochs_resumes_exactly(flax_params, train_df, straight_fits,
+                                                tmp_path):
+    ckpt = str(tmp_path / "ck")
+    _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+    (ns,) = _namespaces(ckpt)
+    resumed = _ckpt_estimator(flax_params, 4, ckpt).fit(train_df)
+    assert _namespaces(ckpt) == [ns]  # extended in place, not a fresh namespace
+    assert sorted(os.listdir(os.path.join(ckpt, ns))) == [f"epoch_{e}" for e in (1, 2, 3, 4)]
+    _assert_same_weights(resumed, straight_fits[4])
+
+
+def test_refit_with_fewer_epochs_restores_exact_epoch(flax_params, train_df, straight_fits,
+                                                      tmp_path, caplog):
+    ckpt = str(tmp_path / "ck")
+    _ckpt_estimator(flax_params, 4, ckpt).fit(train_df)
+    steps = metrics.counter("estimator.steps").value
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        two = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+    assert "already at epoch 2" in caplog.text
+    assert metrics.counter("estimator.steps").value == steps  # nothing trained
+    _assert_same_weights(two, straight_fits[2])
+    four = straight_fits[4].module.state_dict()
+    assert any(not torch.equal(t, four[n]) for n, t in two.module.state_dict().items())
+
+
+def test_checkpoints_namespaced_by_fit_config(flax_params, train_df, tmp_path):
+    ckpt = str(tmp_path / "shared")
+    _ckpt_estimator(flax_params, 1, ckpt).fit(train_df)
+    other = _estimator(flax_params, checkpointDir=ckpt, fitParams={
+        "epochs": 1, "batch_size": 3, "learning_rate": LR, "seed": 0}).fit(train_df)
+    assert len(_namespaces(ckpt)) == 2
+    assert len(other._training_losses) == 2  # trained, not resumed
+
+
+def test_namespace_stable_across_equal_objects_and_apart_for_others(flax_params):
+    def namespace(**kw):
+        return _ckpt_estimator(flax_params, 2, **kw)._ckpt_namespace()
+
+    base = namespace()
+    assert namespace() == base  # a new ViT and a new estimator
+    assert namespace(fitParams={"epochs": 9, "batch_size": 4, "learning_rate": LR,
+                                "seed": 0}) == base
+    assert namespace(module=ViT(**GEOMETRY, attn_impl="full")) != base
+    assert namespace(module=ViT(**GEOMETRY, attn_impl="flash", dtype=torch.bfloat16)) != base
+    assert namespace(optimizer="sgd") != base
+    assert namespace(loss="categorical_crossentropy") != base
+    assert namespace(labelCol="other") != base
+
+
+class _SGDFactory:
+    def __init__(self, lr):
+        self.lr = lr
+
+    def __call__(self, params):
+        return torch.optim.SGD(params, lr=self.lr)
+
+
+def test_namespace_sees_callable_state_and_bodies(flax_params):
+    def namespace(optimizer):
+        return _ckpt_estimator(flax_params, 2, optimizer=optimizer)._ckpt_namespace()
+
+    assert namespace(_SGDFactory(0.1)) == namespace(_SGDFactory(0.1))
+    assert namespace(_SGDFactory(0.1)) != namespace(_SGDFactory(0.2))
+    assert namespace(_SGDFactory(0.1).__call__) != namespace(_SGDFactory(0.2).__call__)
+    f1 = lambda params: torch.optim.SGD(params, lr=0.1)  # noqa: E731
+    f2 = lambda params: torch.optim.Adam(params, lr=0.1)  # noqa: E731
+    assert namespace(f1) != namespace(f2)
+
+    def k1(params, *, lr=0.1):
+        return torch.optim.SGD(params, lr=lr)
+
+    def k2(params, *, lr=0.2):
+        return torch.optim.SGD(params, lr=lr)
+
+    k2.__qualname__ = k1.__qualname__
+    assert namespace(k1) != namespace(k2)
+
+
+def test_namespace_survives_hash_randomisation():
+    prog = (
+        "import numpy as np, torch\n"
+        "from sparkdl_tpu_torch import TorchImageFileEstimator, ViT\n"
+        "def opt(params, kind='sgd'):\n"
+        "    if kind in {'sgd', 'adam', 'adamw', 'lion'}:\n"
+        "        return torch.optim.SGD(params, lr=0.1)\n"
+        "est = TorchImageFileEstimator(inputCol='uri', outputCol='out', labelCol='label',\n"
+        "    imageLoader=np.load, optimizer=opt, device='cpu',\n"
+        "    module=ViT('ViT-Ti/16', num_classes=4, image_size=32, attn_impl='flash'),\n"
+        "    fitParams={'epochs': 2, 'batch_size': 4, 'tags': {'x', 'y', 'z'}})\n"
+        "print(est._ckpt_namespace())\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1])
+    outs = {
+        subprocess.run([sys.executable, "-c", prog], env={**env, "PYTHONHASHSEED": seed},
+                       capture_output=True, text=True, check=True, timeout=120).stdout
+        for seed in ("1", "2")
+    }
+    assert len(outs) == 1 and next(iter(outs)).startswith("torch_fit_")
+
+
+def test_different_initial_variables_namespace_apart(flax_params, train_df, tmp_path):
+    ckpt = str(tmp_path / "ck")
+    other = copy.deepcopy(flax_params)
+    other["params"]["head"]["bias"] = other["params"]["head"]["bias"] + 1.0
+    _ckpt_estimator(flax_params, 1, ckpt).fit(train_df)
+    _ckpt_estimator(other, 1, ckpt).fit(train_df)
+    assert len(_namespaces(ckpt)) == 2
+    # the digest is of the weights, whatever form they come in
+    assert _ckpt_estimator(vit_state_dict_from_flax(flax_params), 1)._ckpt_namespace() == \
+        _ckpt_estimator(flax_params, 1)._ckpt_namespace()
+    assert _ckpt_estimator(None, 1)._ckpt_namespace() != \
+        _ckpt_estimator(flax_params, 1)._ckpt_namespace()
+
+
+@pytest.mark.parametrize("site,at", [("estimator.step", 3), ("estimator.epoch", 1)],
+                         ids=["mid_epoch", "epoch_boundary"])
+def test_preemption_resumes_bit_identical(flax_params, train_df, straight_fits, tmp_path,
+                                          caplog, site, at):
+    """Mid-epoch: the flag set at global step 3 (epoch 2's first) is raised
+    at the next step boundary, so epoch 2 never completes. At the epoch
+    boundary: flagged after epoch 1's steps, before its save, and raised at
+    epoch 2's first step. Either way exactly epoch 1 is committed, and a
+    re-fit resumes to the uninterrupted fit."""
+    ckpt = str(tmp_path / "ck")
+    est = _ckpt_estimator(flax_params, 2, ckpt)
+    with active_plan(FaultPlan().add(site, preempt=True, at=at)):
+        with pytest.raises(Preempted, match=f"injected preemption at '{site}'"):
+            est.fit(train_df)
+    assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+    assert "resuming from checkpoint epoch 1" in caplog.text
+    _assert_same_weights(resumed, straight_fits[2])
+    assert resumed._training_loss == straight_fits[2]._training_loss
+
+
+def test_an_error_after_a_save_still_commits_it(flax_params, train_df, tmp_path):
+    ckpt = str(tmp_path / "ck")
+    est = _ckpt_estimator(flax_params, 2, ckpt)
+    with active_plan(FaultPlan().add("estimator.checkpoint_saved", raise_=OSError, at=1)):
+        with pytest.raises(OSError, match="injected fault"):
+            est.fit(train_df)
+    assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
+
+
+def test_a_torn_epoch_is_not_resumed(flax_params, train_df, straight_fits, tmp_path, caplog):
+    ckpt = str(tmp_path / "ck")
+    est = _ckpt_estimator(flax_params, 1, ckpt)
+    est.fit(train_df)
+    torn = Path(checkpointing.epoch_path(ckpt, est._ckpt_namespace(), 2))
+    torn.mkdir()
+    (torn / checkpointing.PAYLOAD).write_bytes(b"torn")
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+    assert "resuming from checkpoint epoch 1" in caplog.text
+    _assert_same_weights(resumed, straight_fits[2])
+    assert (torn / checkpointing.MARKER).is_file()  # epoch 2 saved over the torn one
+
+
+def test_a_committed_epoch_that_does_not_load_raises(flax_params, train_df, tmp_path):
+    ckpt = str(tmp_path / "ck")
+    est = _ckpt_estimator(flax_params, 1, ckpt)
+    est.fit(train_df)
+    path = checkpointing.epoch_path(ckpt, est._ckpt_namespace(), 1)
+    Path(path, checkpointing.PAYLOAD).write_bytes(b"garbage")
+    with pytest.raises(RuntimeError, match=path):
+        _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
+
+
+def test_the_snapshot_holds_the_epoch_boundary_weights(flax_params, train_df, straight_fits,
+                                                       tmp_path, monkeypatch):
+    """The async-read trap on the CPU: the writer of epoch 1 is held back
+    until epoch 2's steps have updated the weights and adam's moments in
+    place; epoch 1's checkpoint still holds the weights of epoch 1's end."""
+    real_save = checkpointing.torch.save
+    target = metrics.counter("estimator.steps").value + 4
+
+    def late_save(obj, fh):
+        deadline = time.monotonic() + 60
+        while metrics.counter("estimator.steps").value < target and time.monotonic() < deadline:
+            time.sleep(0.01)
+        real_save(obj, fh)
+
+    monkeypatch.setattr(checkpointing.torch, "save", late_save)
+    ckpt = str(tmp_path / "ck")
+    est = _ckpt_estimator(flax_params, 2, ckpt)
+    est.fit(train_df)
+    assert metrics.counter("estimator.steps").value >= target
+    saved = checkpointing.restore_epoch(ckpt, est._ckpt_namespace(), 1)["model"]
+    want = straight_fits[1].module.state_dict()
+    for name, tensor in want.items():
+        assert torch.equal(saved[name], tensor), name

@@ -11,11 +11,19 @@ read the same ``.keras`` file; compared is the tuned file's every weight and
 moving statistic. Plain sgd keeps the comparison tight: after 9 steps the
 weights agree at ``rtol=1e-4, atol=1e-6`` (float32 sums in another order,
 carried through the steps).
+
+Checkpoint and resume: the JAX estimator's cases (``tests/test_estimators.py``,
+``tests/test_fault_injection.py``) through the port, each held to an
+uninterrupted fit of the port bit for bit, and the checkpoint namespace's
+hash held to the JAX estimator's.
 """
 
 import gzip
 import json
 import logging
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import keras
@@ -27,6 +35,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+from sparkdl_tpu.estimators import KerasImageFileEstimator as JaxKerasImageFileEstimator
 from sparkdl_tpu.estimators import losses as jax_losses
 from sparkdl_tpu.estimators.data import in_memory_epoch_dataset
 from sparkdl_tpu.parallel.keras_train import (
@@ -34,10 +43,18 @@ from sparkdl_tpu.parallel.keras_train import (
     make_keras_train_step as jax_make_step,
 )
 from sparkdl_tpu.parallel.trainer import shard_batch
-from sparkdl_tpu_torch import KerasImageFileEstimator, KerasImageFileTransformer
+from sparkdl_tpu_torch import (
+    DeepImageFeaturizer,
+    KerasImageFileEstimator,
+    KerasImageFileTransformer,
+)
+from sparkdl_tpu_torch.estimators import checkpointing
 from sparkdl_tpu_torch.estimators.data import epoch_batches, labels_to_array
 from sparkdl_tpu_torch.estimators.losses import get_loss_fn
+from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+from sparkdl_tpu_torch.ml.util import load_stage
 from sparkdl_tpu_torch.models.keras_model import KerasModel, read_keras_file
+from sparkdl_tpu_torch.resilience import FaultPlan, Preempted, active_plan
 from sparkdl_tpu_torch.sql.session import TorchSession
 from test_torch_keras_train import SIZE, _conv_bn, _flatten, _variables
 
@@ -45,6 +62,7 @@ L = keras.layers
 FIT_TOL = dict(rtol=1e-4, atol=1e-6)
 ONE_STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 RESNET_HEAD = Path(__file__).parent / "torch_fixtures" / "keras_resnet50_head.config.json.gz"
+ESTIMATOR_LOGGER = "sparkdl_tpu_torch.estimators.keras_image_file_estimator"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -278,35 +296,6 @@ def test_fit_dataset_smaller_than_batch(bright_rows, tmp_path):
 
 # -- refusals ----------------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs,what", [
-    ({"checkpointDir": "/nonexistent"}, "checkpointDir"),
-    ({"kerasFitParams": {"epochs": 1, "streaming": True}}, "streaming"),
-])
-def test_unported_options_raise_before_any_row_is_read(tmp_path, kwargs, what):
-    _, path = _tiny_model(tmp_path)
-
-    def never(uri):
-        raise AssertionError("a row was read")
-
-    rows = [{"uri": "/nonexistent.npy", "label": 0}]
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 7b"):
-        _estimator(path, imageLoader=never, **kwargs).fit(_frame(rows))
-
-
-@pytest.mark.parametrize("name", ["adagrad", "lamb", "lion", "nadam", "rmsprop"])
-def test_unported_optimizers_raise_naming_their_item(bright_rows, tmp_path, name):
-    _, path = _tiny_model(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet.*item 7b"):
-        _estimator(path, kerasOptimizer=name).fit(_frame(bright_rows))
-
-
-def test_a_keras_model_as_a_param_does_not_save(tmp_path):
-    model, path = _tiny_model(tmp_path)
-    est = _estimator(path, imageLoader=model)
-    with pytest.raises(NotImplementedError, match="Keras model.*item 7b"):
-        est.write().overwrite().save(str(tmp_path / "est"))
-
-
 def test_default_device_without_cuda_raises(bright_rows, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, path = _tiny_model(tmp_path)
@@ -373,3 +362,260 @@ def test_committed_resnet50_head_config_is_what_keras_builds():
     assert inner.nested and sum(
         1 for layer in inner.layers.values() if type(layer).__name__ == "_BatchNormalization"
         and layer.trainable) == 53
+
+
+# -- checkpoint and resume ------------------------------------------------------
+
+def _dropout_model(tmp_path, seed=0):
+    keras.utils.set_random_seed(seed)
+    model = keras.Sequential([L.Input((8, 8, 3)), L.Flatten(), L.Dense(16, activation="relu"),
+                              L.Dropout(0.5), L.Dense(2, activation="softmax")])
+    path = str(tmp_path / "dropout.keras")
+    model.save(path)
+    return path
+
+
+def _ckpt(path, epochs, ckpt=None, **params):
+    return _estimator(path, checkpointDir=ckpt, kerasFitParams={
+        "epochs": epochs, "batch_size": 5, "learning_rate": 0.05, "seed": 1, **params})
+
+
+def _tuned(fitted):
+    return _flatten(read_keras_file(fitted.getModelFile())[1])
+
+
+def _assert_same_tuned(a, b):
+    got, want = _tuned(a), _tuned(b)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=str(key))
+
+
+@pytest.fixture(scope="module")
+def dropout_path(tmp_path_factory):
+    return _dropout_model(tmp_path_factory.mktemp("dropout"))
+
+
+@pytest.fixture(scope="module")
+def straight(bright_rows, dropout_path):
+    """Uninterrupted fits of the Dropout model, 1, 2 and 4 epochs."""
+    df = _frame(bright_rows)
+    return {e: _ckpt(dropout_path, e).fit(df) for e in (1, 2, 4)}
+
+
+@pytest.mark.parametrize("optimizer,loss,params", [
+    ("adam", "sparse_categorical_crossentropy", {"epochs": 8, "batch_size": 8}),
+    ("sgd", "categorical_crossentropy", {"epochs": 2, "batch_size": 4, "learning_rate": 0.1,
+                                         "seed": 7}),
+    ("lion", "mse", {"epochs": 3, "batch_size": 16, "streaming": True}),
+    ("rmsprop", "sparse_categorical_crossentropy", {"batch_size": 2, "seed": 0}),
+])
+def test_namespace_hash_is_the_jax_estimators(tmp_path, optimizer, loss, params):
+    _, path = _tiny_model(tmp_path)
+    kw = dict(inputCol="uri", outputCol="pred", labelCol="label", modelFile=path,
+              kerasOptimizer=optimizer, kerasLoss=loss, kerasFitParams=params)
+    port = KerasImageFileEstimator(imageLoader=_loader, device="cpu", **kw)._ckpt_namespace()
+    jax_ns = JaxKerasImageFileEstimator(imageLoader=_loader, **kw)._ckpt_namespace()
+    assert port.startswith("torch_fit_") and jax_ns.startswith("fit_")
+    assert port[len("torch_fit_"):] == jax_ns[len("fit_"):]
+
+
+def test_namespace_survives_hash_randomisation(tmp_path):
+    _, path = _tiny_model(tmp_path)
+    prog = (
+        "import numpy as np\n"
+        "from sparkdl_tpu_torch import KerasImageFileEstimator\n"
+        "def loss(y, p, reduction='mean'):\n"
+        "    if reduction in {'mean', 'sum', 'none', 'batch'}:\n"
+        "        return p\n"
+        "est = KerasImageFileEstimator(inputCol='uri', outputCol='pred', labelCol='label',\n"
+        f"    imageLoader=np.load, modelFile={path!r}, kerasLoss=loss, device='cpu',\n"
+        "    kerasFitParams={'epochs': 2, 'batch_size': 4, 'tags': {'a', 'b', 'c'}})\n"
+        "print(est._ckpt_namespace())\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1])
+    outs = {
+        subprocess.run([sys.executable, "-c", prog], env={**env, "PYTHONHASHSEED": seed},
+                       capture_output=True, text=True, check=True, timeout=120).stdout
+        for seed in ("1", "2")
+    }
+    assert len(outs) == 1
+
+
+def test_checkpoint_and_resume(bright_rows, tmp_path):
+    _, path = _tiny_model(tmp_path)
+    ckpt = str(tmp_path / "ckpts")
+    df = _frame(bright_rows)
+    _estimator(path, checkpointDir=ckpt).fit(df)
+    (ns,) = os.listdir(ckpt)
+    assert ns.startswith("torch_fit_")
+    assert sorted(os.listdir(os.path.join(ckpt, ns))) == sorted(f"epoch_{e}" for e in range(1, 9))
+    # a fresh estimator on the directory starts past epoch 8 and trains
+    # nothing, but still gives a fitted transformer
+    fitted = _estimator(path, checkpointDir=ckpt).fit(df)
+    assert isinstance(fitted, KerasImageFileTransformer)
+    assert fitted._training_losses == [] and fitted._training_loss is None
+
+
+def test_checkpoints_namespaced_by_fit_config(bright_rows, tmp_path):
+    _, path = _tiny_model(tmp_path)
+    ckpt = str(tmp_path / "shared")
+    df = _frame(bright_rows)
+    _estimator(path, checkpointDir=ckpt, kerasFitParams={"epochs": 2, "batch_size": 8}).fit(df)
+    fitted = _estimator(path, checkpointDir=ckpt,
+                        kerasFitParams={"epochs": 3, "batch_size": 4}).fit(df)
+    assert len(os.listdir(ckpt)) == 2
+    assert len(fitted._training_losses) == 9  # its own 3 epochs, not a resume
+
+
+def test_refit_with_more_epochs_resumes_with_dropout(bright_rows, dropout_path, straight,
+                                                     tmp_path, caplog):
+    """fit(2) then fit(4) on the directory equals an uninterrupted fit(4):
+    the Dropout masks of epochs 3 and 4 come from the restored generator."""
+    ckpt = str(tmp_path / "ck")
+    df = _frame(bright_rows)
+    _ckpt(dropout_path, 2, ckpt).fit(df)
+    (ns,) = os.listdir(ckpt)
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        resumed = _ckpt(dropout_path, 4, ckpt).fit(df)
+    assert "resuming from checkpoint epoch 2" in caplog.text
+    assert os.listdir(ckpt) == [ns]
+    assert sorted(os.listdir(os.path.join(ckpt, ns))) == [f"epoch_{e}" for e in (1, 2, 3, 4)]
+    _assert_same_tuned(resumed, straight[4])
+    assert resumed._training_losses == straight[4]._training_losses[6:]
+
+
+def test_dropout_masks_follow_the_fit_seed(bright_rows, dropout_path, straight):
+    """The generator is the fit's own: the same seed draws the same masks,
+    whatever torch's default generator did in between; another seed other
+    masks."""
+    df = _frame(bright_rows)
+    torch.manual_seed(1234)
+    again = _ckpt(dropout_path, 2).fit(df)
+    _assert_same_tuned(again, straight[2])
+    other = _estimator(dropout_path, kerasFitParams={
+        "epochs": 2, "batch_size": 5, "learning_rate": 0.05, "seed": 1, "streaming": True})
+    _assert_same_tuned(other.fit(df), straight[2])
+    reseeded = _ckpt(dropout_path, 2, seed=2).fit(df)
+    got, want = _tuned(reseeded), _tuned(straight[2])
+    assert any(not np.array_equal(got[k], want[k]) for k in want)
+
+
+def test_refit_with_fewer_epochs_restores_exact_epoch(bright_rows, dropout_path, straight,
+                                                      tmp_path):
+    ckpt = str(tmp_path / "ck")
+    df = _frame(bright_rows)
+    _ckpt(dropout_path, 4, ckpt).fit(df)
+    two = _ckpt(dropout_path, 2, ckpt).fit(df)
+    assert two._training_losses == []
+    _assert_same_tuned(two, straight[2])
+    got, four = _tuned(two), _tuned(straight[4])
+    assert any(not np.array_equal(got[k], four[k]) for k in four)
+
+
+def test_a_streaming_fit_resumes_an_in_memory_one(bright_rows, dropout_path, straight, tmp_path):
+    """``streaming`` gives the same batches, so it shares the namespace."""
+    ckpt = str(tmp_path / "ck")
+    df = _frame(bright_rows)
+    _ckpt(dropout_path, 1, ckpt, streaming=True).fit(df)
+    resumed = _ckpt(dropout_path, 2, ckpt).fit(df)
+    assert len(os.listdir(ckpt)) == 1 and len(resumed._training_losses) == 3
+    _assert_same_tuned(resumed, straight[2])
+
+
+@pytest.mark.parametrize("site,at", [("estimator.step", 4), ("estimator.epoch", 1)],
+                         ids=["mid_epoch", "epoch_boundary"])
+@pytest.mark.parametrize("streaming", [False, True], ids=["in_memory", "streaming"])
+def test_preemption_resumes_bit_identical(bright_rows, dropout_path, straight, tmp_path,
+                                          caplog, site, at, streaming):
+    """Mid-epoch: flagged at global step 4 (epoch 2's first of 3), raised at
+    the next step boundary. At the epoch boundary: flagged after epoch 1's
+    steps, before its save. Exactly epoch 1 is committed; the re-fit equals
+    the uninterrupted fit, loss for loss."""
+    ckpt = str(tmp_path / "ck")
+    df = _frame(bright_rows)
+    est = _ckpt(dropout_path, 2, ckpt, streaming=streaming)
+    with active_plan(FaultPlan().add(site, preempt=True, at=at)):
+        with pytest.raises(Preempted, match=f"injected preemption at '{site}'"):
+            est.fit(df)
+    assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
+    assert [t for t in __import__("threading").enumerate() if t.name == "sparkdl-stream"] == []
+    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+        resumed = _ckpt(dropout_path, 2, ckpt).fit(df)
+    assert "resuming from checkpoint epoch 1" in caplog.text
+    _assert_same_tuned(resumed, straight[2])
+    assert resumed._training_loss == straight[2]._training_loss
+
+
+def test_a_checkpoint_of_another_model_raises_naming_it(bright_rows, tmp_path):
+    """A committed epoch that does not fit the model (the file changed in
+    place under the same path) raises, naming the epoch: never a quiet
+    restart from epoch 0."""
+    _, path = _tiny_model(tmp_path)
+    ckpt = str(tmp_path / "ck")
+    df = _frame(bright_rows)
+    _ckpt(path, 1, ckpt).fit(df)
+    _dropout_model(tmp_path)
+    os.replace(str(tmp_path / "dropout.keras"), path)
+    est = _ckpt(path, 2, ckpt)
+    with pytest.raises(RuntimeError, match=r"epoch_1 does not fit this fit's state"):
+        est.fit(df)
+
+
+# -- a Keras model as a param -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mobilenet():
+    keras.utils.set_random_seed(3)
+    return keras.applications.MobileNetV2(weights=None, include_top=False,
+                                          input_shape=(64, 64, 3))
+
+
+@pytest.mark.parametrize("kind", ["keras", "port"])
+def test_a_keras_model_as_a_param_saves_and_loads(mobilenet, tmp_path, kind):
+    """``DeepImageFeaturizer(modelWeights=<model>)`` with a Keras-on-JAX
+    model built here, or the port's ``KerasModel`` of it, saved and loaded:
+    the param comes back as a ``KerasModel`` (the port runs without Keras)
+    and the loaded stage gives the same features bit for bit."""
+    if kind == "keras":
+        weights = mobilenet
+    else:
+        mobilenet.save(str(tmp_path / "m.keras"))
+        weights = KerasModel(*read_keras_file(str(tmp_path / "m.keras")))
+    rng = np.random.default_rng(4)
+    rows = [{"image": imageArrayToStruct(rng.integers(0, 255, (40, 48, 3), dtype=np.uint8))}
+            for _ in range(3)]
+    df = TorchSession.builder.getOrCreate().createDataFrame(rows)
+    stage = DeepImageFeaturizer(inputCol="image", outputCol="f", modelName="MobileNetV2",
+                                modelWeights=weights, device="cpu")
+    stage.write().overwrite().save(str(tmp_path / "stage"))
+    assert os.path.isfile(tmp_path / "stage" / "param_modelWeights.keras")
+    loaded = load_stage(str(tmp_path / "stage"))
+    held = loaded.getOrDefault(loaded.modelWeights)
+    assert isinstance(held, KerasModel)
+    want = dict(zip((layer.name for layer in mobilenet.layers),
+                    (layer.get_weights() for layer in mobilenet.layers)))
+    for name, arrays in held.keras_weights().items():
+        for a, b in zip(arrays, want[name]):
+            np.testing.assert_array_equal(a, b)
+    a = np.stack([r["f"].toArray() for r in stage.transform(df).collect()])
+    b = np.stack([r["f"].toArray() for r in loaded.transform(df).collect()])
+    assert a.shape == (3, 1280)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_a_param_of_an_unported_stage_is_refused_before_the_disk(bright_rows, tmp_path):
+    """``_check_savable`` still refuses what waits for item 8 before it
+    touches the directory, Keras-model params or not."""
+    from sparkdl_tpu_torch import TorchImageFileTransformer, ViT
+
+    stage = TorchImageFileTransformer(inputCol="uri", outputCol="out", imageLoader=_loader,
+                                      module=ViT("ViT-Ti/16", num_classes=2, image_size=16),
+                                      device="cpu")
+    target = tmp_path / "existing"
+    target.mkdir()
+    (target / "keep").write_text("x")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        stage.write().overwrite().save(str(target))
+    assert (target / "keep").read_text() == "x"

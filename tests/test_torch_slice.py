@@ -172,7 +172,7 @@ def _imports_jax_package(name: str) -> bool:
     return any(
         name == root or name.startswith(root + ".")
         for root in ("jax", "jaxlib", "flax", "keras", "tensorflow", "orbax",
-                     "h5py", "sparkdl_tpu")
+                     "optax", "h5py", "sparkdl_tpu")
     )
 
 
@@ -184,6 +184,7 @@ def test_import_name_rule():
     assert _imports_jax_package("keras.applications")
     assert _imports_jax_package("tensorflow")
     assert _imports_jax_package("orbax.checkpoint")
+    assert _imports_jax_package("optax")
     assert _imports_jax_package("h5py")
 
 
@@ -242,6 +243,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.udf.keras_image_model",
         "sparkdl_tpu_torch.parallel.keras_train",
         "sparkdl_tpu_torch.estimators.keras_image_file_estimator",
+        "sparkdl_tpu_torch.estimators.checkpointing",
+        "sparkdl_tpu_torch.estimators.optimizers",
+        "sparkdl_tpu_torch.resilience.errors",
+        "sparkdl_tpu_torch.resilience.inject",
+        "sparkdl_tpu_torch.resilience.preempt",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -255,7 +261,9 @@ def test_port_sources_import_no_jax():
                    "transformers/keras_image.py", "transformers/keras_tensor.py",
                    "sql/functions.py", "graph/tensorframes_udf.py",
                    "udf/keras_image_model.py", "parallel/keras_train.py",
-                   "estimators/keras_image_file_estimator.py"):
+                   "estimators/keras_image_file_estimator.py", "estimators/checkpointing.py",
+                   "estimators/optimizers.py", "resilience/__init__.py", "resilience/errors.py",
+                   "resilience/inject.py", "resilience/preempt.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:
