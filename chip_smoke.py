@@ -2425,7 +2425,7 @@ def vit_checkpoint_resume(card: str, counted, train_params) -> dict:
                 records.append(record.getMessage())
 
         catch = Catch()
-        est_logger = logging.getLogger("sparkdl_tpu_torch.estimators.torch_image_file_estimator")
+        est_logger = logging.getLogger("sparkdl_tpu_torch.estimators.checkpointing")
         est_logger.addHandler(catch)
         est_logger.setLevel(logging.INFO)
         try:
@@ -2592,13 +2592,23 @@ def keras_remainder(card: str, counted) -> None:
             f"keras: ResNet50 head, 2 epochs of {FT_FIT_IMAGES // FT_BATCH} steps, sgd",
             lambda: estimator(2).fit(df), weights)
         want = weights(straight)
-        rate("in-memory", lambda: estimator(2).fit(df))
-        streamed = rate("streaming", lambda: estimator(2, streaming=True).fit(df))
+        rate(f"in-memory ({mode} algorithms)", lambda: estimator(2).fit(df))
+        streamed = rate(f"streaming ({mode} algorithms)",
+                        lambda: estimator(2, streaming=True).fit(df))
         bad = differing(weights(streamed), want)
         log(f"  streaming fit: {len(want) - len(bad)} of {len(want)} arrays bit for bit the "
             f"in-memory fit's")
         if bad:
             raise AssertionError(f"the streaming fit differs: {bad[:4]}")
+        if mode == "deterministic":
+            # the same two rates under the default algorithms, for what
+            # determinism costs a fit
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = False
+            rate("in-memory (default algorithms)", lambda: estimator(2).fit(df))
+            rate("streaming (default algorithms)", lambda: estimator(2, streaming=True).fit(df))
+            torch.use_deterministic_algorithms(True)
+            torch.backends.cudnn.deterministic = True
 
         ckpt = str(tmp / "ckpt")
         metrics.reset()

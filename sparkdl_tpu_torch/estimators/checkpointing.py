@@ -19,23 +19,34 @@ writes ``payload.pt`` into ``epoch_N.tmp-<pid>-<n>``, fsyncs it, writes the
 :func:`is_committed` requires the marker, so a torn save, a stray
 ``epoch_N`` or a directory written by the JAX package (orbax's layout) is
 never resumed from.
+
+**The fit loop.** :func:`restore_latest` and :func:`fit_epochs` are the
+resume contract and the epoch loop both estimators run; each estimator
+supplies only its payload, its restore into a live state and its namespace.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
 import re
 import shutil
 import threading
 import time
+from contextlib import closing
 from itertools import count
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from sparkdl_tpu_torch.utils.metrics import record_commit
+from sparkdl_tpu_torch.resilience import inject
+from sparkdl_tpu_torch.resilience.preempt import preemption_scope
+from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics, record_commit
+
+logger = logging.getLogger(__name__)
 
 #: the file a committed epoch holds its payload in, and the marker written
 #: after it
@@ -384,3 +395,107 @@ def restore_epoch(ckpt_dir: str, namespace: str, epoch: int):
                           weights_only=True)
     except Exception as exc:
         raise RuntimeError(f"the committed checkpoint {path} does not load: {exc}") from exc
+
+
+def restore_latest(ckpt_dir: str, namespace: str, max_epoch: int,
+                   load: Callable[[Any], None]) -> int:
+    """Load the latest committed epoch up to ``max_epoch`` through
+    ``load(payload)``, which copies it into the live state; returns that
+    epoch, or 0 when there is none. Timed into ``estimator.restore``. A
+    payload that does not fit the state raises, naming its directory."""
+    with metrics.timer("estimator.restore").time():
+        epochs = committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
+        if not epochs:
+            return 0
+        latest = epochs[-1]
+        payload = restore_epoch(ckpt_dir, namespace, latest)
+        try:
+            load(payload)
+        except (KeyError, RuntimeError, ValueError) as exc:
+            raise RuntimeError(
+                f"the committed checkpoint {epoch_path(ckpt_dir, namespace, latest)} "
+                f"does not fit this fit's state: {exc}") from exc
+    logger.info("resuming from checkpoint epoch %d", latest)
+    if latest >= max_epoch:
+        logger.info(
+            "checkpoint already at epoch %d == requested epochs=%d; "
+            "returning the checkpointed weights without training",
+            latest, max_epoch,
+        )
+    return latest
+
+
+def _close_behind(ckptr: AsyncCheckpointer, exc: BaseException) -> None:
+    """Commit the last save while ``exc`` propagates. A commit that fails
+    then is logged and noted on ``exc``, which stays the error the caller
+    sees: a ``Preempted`` a scheduler wrapper requeues stays a
+    ``Preempted``."""
+    try:
+        ckptr.close()
+    except Exception as err:
+        logger.error("the last checkpoint commit failed while %r propagated: %s", exc, err)
+        exc.add_note(f"the last checkpoint commit failed as well: {err!r}")
+
+
+def fit_epochs(
+    state,
+    step_fn: Callable,
+    batches: Callable[[np.ndarray], Iterator[Dict[str, np.ndarray]]],
+    n: int,
+    rng: np.random.RandomState,
+    start_epoch: int,
+    epochs: int,
+    device: torch.device,
+    ckpt_dir: Optional[str] = None,
+    namespace: Optional[str] = None,
+    payload: Optional[Callable[[Any], Dict[str, Any]]] = None,
+) -> Tuple[Any, List[float]]:
+    """The estimators' epoch loop, from ``start_epoch`` to ``epochs``.
+
+    Each epoch draws ``rng.permutation(n)`` (the restored epochs' draws are
+    replayed first, so epoch e always trains on the e-th permutation and a
+    resumed fit equals an uninterrupted one) and runs one
+    ``state, loss = step_fn(state, batch)`` per batch of
+    ``batches(order)``, a generator that is closed when the epoch ends or
+    raises (which stops a streaming producer). With ``ckpt_dir``, each epoch
+    ends with an async save of ``payload(state)`` as ``epoch_N`` of
+    ``namespace``. The loop runs inside :func:`preemption_scope`: SIGTERM
+    flags the token, the next step boundary raises ``Preempted``, and the
+    last completed epoch is committed before it propagates. Fires the fault
+    sites ``estimator.step``, ``estimator.epoch`` and
+    ``estimator.checkpoint_saved``. Returns the state and every step's
+    loss."""
+    for _ in range(start_epoch):
+        rng.permutation(n)
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
+    step_losses: List[float] = []
+    ckptr = AsyncCheckpointer() if ckpt_dir else None
+    try:
+        with preemption_scope() as ptoken:
+            for epoch in range(start_epoch, epochs):
+                losses = []
+                with closing(batches(rng.permutation(n))) as epoch_batches:
+                    for batch in epoch_batches:
+                        ptoken.check()
+                        inject.fire("estimator.step")
+                        with fit_step(sync):
+                            state, loss = step_fn(state, {
+                                k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+                        losses.append(loss)
+                inject.fire("estimator.epoch")
+                # one read of the losses per epoch, as the JAX loop's
+                # float(loss)
+                step_losses += torch.stack(losses).tolist()
+                logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, step_losses[-1])
+                if ckptr is not None:
+                    with fit_checkpoint():
+                        save_epoch(ckptr, ckpt_dir, namespace, epoch + 1, payload(state))
+                    inject.fire("estimator.checkpoint_saved")
+    except BaseException as exc:
+        if ckptr is not None:
+            _close_behind(ckptr, exc)
+        raise
+    if ckptr is not None:
+        # the last epoch's write commits before fit returns
+        ckptr.close()
+    return state, step_losses

@@ -132,9 +132,6 @@ class StreamingShardLoader:
         self.batch_size = int(batch_size)
         self.weighted = bool(weighted)
 
-    def _index_batches(self, order: np.ndarray):
-        return epoch_index_batches(order, self.batch_size)
-
     def _load_batch(self, pool, rows, weights) -> Dict[str, np.ndarray]:
         with metrics.timer("sparkdl.load").time():
             images = list(pool.map(
@@ -144,12 +141,13 @@ class StreamingShardLoader:
             batch["w"] = weights
         return batch
 
-    def epoch(self, order: np.ndarray, steps: int) -> Iterator[Dict[str, np.ndarray]]:
-        """Yield the epoch's ``steps`` batches following ``order``. A
-        loader's error is raised here, at the batch it failed on; a producer
-        that ends short of ``steps`` batches raises too. Closing the
-        generator early (an abandoned epoch, a preemption) cancels the
-        producer and joins its thread."""
+    def epoch(self, order: np.ndarray) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield the epoch's ``ceil(len(order) / batch_size)`` batches
+        following ``order``. A loader's error is raised here, at the batch
+        it failed on; a producer that ends short of that count raises too.
+        Closing the generator early (an abandoned epoch, a preemption)
+        cancels the producer and joins its thread."""
+        steps = -(-len(order) // self.batch_size)
         slots: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         cancel = threading.Event()
         done = object()
@@ -166,7 +164,7 @@ class StreamingShardLoader:
         def produce():
             try:
                 with ThreadPoolExecutor(max_workers=LOAD_WORKERS) as pool:
-                    for rows, weights in self._index_batches(order):
+                    for rows, weights in epoch_index_batches(order, self.batch_size):
                         if cancel.is_set() or not put(("batch", self._load_batch(
                                 pool, rows, weights))):
                             return

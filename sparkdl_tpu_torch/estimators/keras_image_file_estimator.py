@@ -22,7 +22,11 @@ step count and the Dropout generator's state) under a ``torch_fit_``
 namespace whose hash is the JAX estimator's, resumes from the latest
 committed epoch up to ``epochs`` and replays the permutation draws, so a
 resumed or preempted-then-resumed fit equals an uninterrupted one bit for
-bit. ``fitMultiple`` (``ml/base.py``) gives one model per param map, for
+bit wherever two uninterrupted fits agree. On the CPU they do; on a card a
+model with convolutions does only under
+``torch.use_deterministic_algorithms(True)``, since cuDNN's default
+weight-gradient algorithms part two plain fits. The estimator leaves that
+mode to the caller. ``fitMultiple`` (``ml/base.py``) gives one model per param map, for
 ``CrossValidator`` grids.
 """
 
@@ -69,11 +73,8 @@ from sparkdl_tpu_torch.parallel.keras_train import (
     init_keras_train_state,
     make_keras_train_step,
 )
-from sparkdl_tpu_torch.resilience import inject
-from sparkdl_tpu_torch.resilience.preempt import preemption_scope
 from sparkdl_tpu_torch.transformers.keras_image import KerasImageFileTransformer
 from sparkdl_tpu_torch.utils.device import resolve_device
-from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics
 
 logger = logging.getLogger(__name__)
 
@@ -179,18 +180,10 @@ class KerasImageFileEstimator(
         namespace = self._ckpt_namespace() if ckpt_dir else None
         # the latest committed epoch up to the requested stopping point:
         # fit(epochs=2) after a fit(epochs=4) returns the epoch-2 weights
-        start_epoch = 0
-        if ckpt_dir:
-            with metrics.timer("estimator.restore").time():
-                start_epoch = self._maybe_restore(ckpt_dir, namespace, state, epochs)
-        if start_epoch >= epochs:
-            logger.info(
-                "checkpoint already at epoch %d == requested epochs=%d; "
-                "returning the checkpointed weights without training",
-                start_epoch, epochs,
-            )
+        start_epoch = checkpointing.restore_latest(
+            ckpt_dir, namespace, epochs,
+            lambda payload: self._ckpt_restore(state, payload)) if ckpt_dir else 0
 
-        steps_per_epoch = -(-n // batch_size)
         if not weighted and n % batch_size:
             logger.warning(
                 "custom loss without a per-sample form: ragged batches "
@@ -200,56 +193,18 @@ class KerasImageFileEstimator(
                 n,
                 batch_size,
             )
-        stream = StreamingShardLoader(uris, y, self.getImageLoader(), batch_size, weighted) \
-            if streaming else None
-        # the JAX package's draw for process 0 of one; the restored epochs'
-        # draws replayed, so epoch e always trains on the e-th permutation
+        if streaming:
+            batches = StreamingShardLoader(
+                uris, y, self.getImageLoader(), batch_size, weighted).epoch
+        else:
+            def batches(order):
+                return epoch_batches(order, x, y, batch_size, weighted)
+        # the JAX package's draw for process 0 of one
         rng = np.random.RandomState((seed * 7919 + 0) % 2**32)
-        for _ in range(start_epoch):
-            rng.permutation(n)
-        sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
-
-        def place(batch):
-            return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-        step_losses = []
-        last_loss = None
-        ckptr = checkpointing.AsyncCheckpointer() if ckpt_dir else None
-        # SIGTERM flags the token, the loop raises Preempted at the next
-        # step boundary, the finally below commits the last completed
-        # epoch, and a re-fit resumes from it
-        try:
-            with preemption_scope() as ptoken:
-                for epoch in range(start_epoch, epochs):
-                    order = rng.permutation(n)
-                    batches = stream.epoch(order, steps_per_epoch) if streaming else \
-                        epoch_batches(order, x, y, batch_size, weighted)
-                    losses = []
-                    try:
-                        for batch in batches:
-                            ptoken.check()
-                            inject.fire("estimator.step")
-                            with fit_step(sync):
-                                state, loss = step_fn(state, place(batch))
-                            losses.append(loss)
-                    finally:
-                        # a raise mid-epoch stops the stream's producer
-                        batches.close()
-                    inject.fire("estimator.epoch")
-                    # one read of the losses per epoch, as the JAX loop's
-                    # float(loss)
-                    step_losses += torch.stack(losses).tolist()
-                    last_loss = step_losses[-1]
-                    logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
-                    if ckptr is not None:
-                        with fit_checkpoint():
-                            checkpointing.save_epoch(ckptr, ckpt_dir, namespace, epoch + 1,
-                                                     self._ckpt_payload(state))
-                        inject.fire("estimator.checkpoint_saved")
-        finally:
-            if ckptr is not None:
-                # the last epoch's write commits before fit returns or raises
-                ckptr.close()
+        state, step_losses = checkpointing.fit_epochs(
+            state, step_fn, batches, n, rng, start_epoch, epochs, device,
+            ckpt_dir, namespace, self._ckpt_payload)
+        last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)
         module.eval()
@@ -308,32 +263,17 @@ class KerasImageFileEstimator(
         return "torch_fit_" + hashlib.sha256(payload.encode()).hexdigest()[:12]
 
     @staticmethod
-    def _maybe_restore(ckpt_dir: str, namespace: str, state: KerasTrainState,
-                       max_epoch: int) -> int:
-        """Load the latest committed epoch up to ``max_epoch`` into
-        ``state`` in place; returns that epoch, or 0 when there is none."""
-        epochs = checkpointing.committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
-        if not epochs:
-            return 0
-        latest = epochs[-1]
-        payload = checkpointing.restore_epoch(ckpt_dir, namespace, latest)
+    def _ckpt_restore(state: KerasTrainState, payload: Dict[str, Any]) -> None:
+        """Copy a payload of :meth:`_ckpt_payload` into ``state``."""
         module = state.module
-        try:
-            live = {**{n: p for n, p in module.named_parameters() if p.requires_grad},
-                    **dict(module.named_buffers())}
-            saved = {**payload["trainable"], **payload["buffers"]}
-            if set(saved) != set(live):
-                raise KeyError(f"tensors {sorted(set(saved) ^ set(live))[:5]}")
-            with torch.no_grad():
-                for name, tensor in live.items():
-                    tensor.copy_(saved[name])
-            state.opt_state.load_state_dict(payload["optimizer"])
-            state.step = int(payload["step"])
-            state.generator.set_state(payload["generator"])
-        except (KeyError, RuntimeError, ValueError) as exc:
-            raise RuntimeError(
-                f"the committed checkpoint "
-                f"{checkpointing.epoch_path(ckpt_dir, namespace, latest)} does not fit "
-                f"this fit's state: {exc}") from exc
-        logger.info("resuming from checkpoint epoch %d", latest)
-        return latest
+        live = {**{n: p for n, p in module.named_parameters() if p.requires_grad},
+                **dict(module.named_buffers())}
+        saved = {**payload["trainable"], **payload["buffers"]}
+        if set(saved) != set(live):
+            raise KeyError(f"tensors {sorted(set(saved) ^ set(live))[:5]}")
+        with torch.no_grad():
+            for name, tensor in live.items():
+                tensor.copy_(saved[name])
+        state.opt_state.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])
+        state.generator.set_state(payload["generator"])

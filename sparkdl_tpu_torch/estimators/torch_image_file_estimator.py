@@ -13,7 +13,9 @@ With ``checkpointDir`` a fit saves every epoch (the module's
 its configuration, resumes from the latest committed epoch up to
 ``epochs`` and replays the restored epochs' permutation draws, so a
 resumed or preempted-then-resumed fit equals an uninterrupted one bit for
-bit (:mod:`~sparkdl_tpu_torch.estimators.checkpointing`,
+bit wherever two uninterrupted fits agree: on the CPU, and on the card for
+the flash ViT under the default algorithms (the flash kernels use no
+atomics) (:mod:`~sparkdl_tpu_torch.estimators.checkpointing`,
 :mod:`~sparkdl_tpu_torch.resilience`).
 
 Not ported yet (ROADMAP.md): ``shardingRules`` / ``meshShape`` (the DP x TP
@@ -27,7 +29,6 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
-import logging
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -55,17 +56,12 @@ from sparkdl_tpu_torch.parallel.trainer import (
     init_train_state,
     make_train_step,
 )
-from sparkdl_tpu_torch.resilience import inject
-from sparkdl_tpu_torch.resilience.preempt import preemption_scope
 from sparkdl_tpu_torch.transformers.utils import (
     DEFAULT_BATCH_SIZE,
     make_loader_decode_plan,
     run_batched_rows,
 )
 from sparkdl_tpu_torch.utils.device import resolve_device
-from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics
-
-logger = logging.getLogger(__name__)
 
 
 class TorchImageFileTransformer(
@@ -355,65 +351,21 @@ class TorchImageFileEstimator(
         step_fn = make_train_step(per_sample)
 
         ckpt_dir = self.getOrDefault(self.checkpointDir)
-        start_epoch = 0
-        namespace = None
-        if ckpt_dir:
-            # once per fit: the digest sums every initialVariables leaf
-            namespace = self._ckpt_namespace()
-            with metrics.timer("estimator.restore").time():
-                start_epoch = self._maybe_restore(ckpt_dir, namespace, state, epochs)
-            if start_epoch >= epochs:
-                logger.info(
-                    "checkpoint already at epoch %d == requested epochs=%d; "
-                    "returning the checkpointed weights without training",
-                    start_epoch, epochs,
-                )
+        # once per fit: the digest sums every initialVariables leaf
+        namespace = self._ckpt_namespace() if ckpt_dir else None
+        start_epoch = checkpointing.restore_latest(
+            ckpt_dir, namespace, epochs,
+            lambda payload: self._ckpt_restore(state, payload)) if ckpt_dir else 0
 
-        n = x.shape[0]
-        rng = np.random.RandomState(seed % 2**32)
-        # replay the restored epochs' draws: epoch e always trains on the
-        # e-th permutation, so a resumed fit equals an uninterrupted one
-        for _ in range(start_epoch):
-            rng.permutation(n)
-        sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
+        def batches(order):
+            # pad rows carry zero weight, so each update is the exact mean
+            # over the real rows
+            return epoch_batches(order, x, y, batch_size)
 
-        def place(batch):
-            return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-        step_losses = []
-        last_loss = None
-        ckptr = checkpointing.AsyncCheckpointer() if ckpt_dir else None
-        # SIGTERM flags the token, the loop raises Preempted at the next
-        # step boundary, the finally below commits the last completed
-        # epoch, and a re-fit resumes from it
-        try:
-            with preemption_scope() as ptoken:
-                for epoch in range(start_epoch, epochs):
-                    order = rng.permutation(n)
-                    losses = []
-                    # pad rows carry zero weight, so each update is the
-                    # exact mean over the real rows
-                    for batch in epoch_batches(order, x, y, batch_size):
-                        ptoken.check()
-                        inject.fire("estimator.step")
-                        with fit_step(sync):
-                            state, loss = step_fn(state, place(batch))
-                        losses.append(loss)
-                    inject.fire("estimator.epoch")
-                    # one read of the losses per epoch, as the JAX loop's
-                    # float(loss)
-                    step_losses += torch.stack(losses).tolist()
-                    last_loss = step_losses[-1]
-                    logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, last_loss)
-                    if ckptr is not None:
-                        with fit_checkpoint():
-                            checkpointing.save_epoch(ckptr, ckpt_dir, namespace, epoch + 1,
-                                                     self._ckpt_payload(state))
-                        inject.fire("estimator.checkpoint_saved")
-        finally:
-            if ckptr is not None:
-                # the last epoch's write commits before fit returns or raises
-                ckptr.close()
+        state, step_losses = checkpointing.fit_epochs(
+            state, step_fn, batches, x.shape[0], np.random.RandomState(seed % 2**32),
+            start_epoch, epochs, device, ckpt_dir, namespace, self._ckpt_payload)
+        last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)
         model.eval()
@@ -478,23 +430,8 @@ class TorchImageFileEstimator(
         return "torch_fit_" + hashlib.sha256(payload.encode()).hexdigest()[:12]
 
     @staticmethod
-    def _maybe_restore(ckpt_dir: str, namespace: str, state: TrainState,
-                       max_epoch: int) -> int:
-        """Load the latest committed epoch up to ``max_epoch`` into
-        ``state`` in place; returns that epoch, or 0 when there is none."""
-        epochs = checkpointing.committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
-        if not epochs:
-            return 0
-        latest = epochs[-1]
-        payload = checkpointing.restore_epoch(ckpt_dir, namespace, latest)
-        try:
-            state.module.load_state_dict(payload["model"], strict=True)
-            state.opt_state.load_state_dict(payload["optimizer"])
-            state.step = int(payload["step"])
-        except (KeyError, RuntimeError, ValueError) as exc:
-            raise RuntimeError(
-                f"the committed checkpoint "
-                f"{checkpointing.epoch_path(ckpt_dir, namespace, latest)} does not fit "
-                f"this fit's state: {exc}") from exc
-        logger.info("resuming from checkpoint epoch %d", latest)
-        return latest
+    def _ckpt_restore(state: TrainState, payload: Dict[str, Any]) -> None:
+        """Copy a payload of :meth:`_ckpt_payload` into ``state``."""
+        state.module.load_state_dict(payload["model"], strict=True)
+        state.opt_state.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])

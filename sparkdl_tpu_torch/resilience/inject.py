@@ -2,8 +2,8 @@
 
 A trimmed copy of ``sparkdl_tpu.resilience.inject``: a :class:`FaultPlan`
 is a list of rules keyed by site, each with a deterministic trigger (``at``,
-the Nth call to that site, 1-based, for ``times`` consecutive calls) and one
-action: ``preempt=True`` (a simulated SIGTERM through
+the Nth call to that site, 1-based) and one action: ``preempt=True`` (a
+simulated SIGTERM through
 :func:`~sparkdl_tpu_torch.resilience.preempt.request_preemption`) or
 ``raise_=`` an exception instance or class. The fit loops fire three sites:
 ``estimator.step`` before each step, ``estimator.epoch`` after each epoch's
@@ -11,8 +11,8 @@ steps and ``estimator.checkpoint_saved`` after each save's dispatch. With
 no plan active, :func:`fire` is one global read.
 
 Not ported yet (ROADMAP.md item 14): the ``stall_s``, ``kill`` and ``act``
-actions, probabilistic triggers, plans from the ``SPARKDL_FAULT_PLAN``
-environment variable, and every other site.
+actions, repeated (``times``) and probabilistic triggers, plans from the
+``SPARKDL_FAULT_PLAN`` environment variable, and every other site.
 """
 
 from __future__ import annotations
@@ -34,7 +34,6 @@ class Rule:
         self,
         site: str,
         at: int,
-        times: int = 1,
         preempt: bool = False,
         raise_: Union[None, BaseException, type] = None,
     ):
@@ -44,12 +43,8 @@ class Rule:
             raise ValueError("a rule needs exactly one action (preempt=True or raise_=)")
         self.site = site
         self.at = int(at)
-        self.times = int(times)
         self.preempt = bool(preempt)
         self.raise_ = raise_
-
-    def triggered(self, count: int) -> bool:
-        return self.at <= count < self.at + self.times
 
     def make_error(self) -> BaseException:
         err = self.raise_
@@ -72,19 +67,11 @@ class FaultPlan:
         self._rules.append(Rule(site, **rule_kw))
         return self
 
-    def count(self, site: str) -> int:
-        with self._lock:
-            return self._counts.get(site, 0)
-
-    def reset(self) -> None:
-        with self._lock:
-            self._counts.clear()
-
     def _fire(self, site: str) -> None:
         with self._lock:
             count = self._counts.get(site, 0) + 1
             self._counts[site] = count
-            hits = [r for r in self._rules if r.site == site and r.triggered(count)]
+            hits = [r for r in self._rules if r.site == site and r.at == count]
         for rule in hits:
             metrics.counter("resilience.injected_faults").add(1)
             if rule.preempt:
@@ -113,7 +100,8 @@ def active_plan(plan: FaultPlan):
     reused plan fires again alike)."""
     global _ACTIVE
     previous = _ACTIVE
-    plan.reset()
+    with plan._lock:
+        plan._counts.clear()
     _ACTIVE = plan
     try:
         yield plan

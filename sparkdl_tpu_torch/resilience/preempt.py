@@ -12,7 +12,9 @@ A copy of ``sparkdl_tpu.resilience.preempt`` without the flight recorder
 3. the loop's cleanup waits for the checkpointer, so the last completed
    epoch is committed before the process yields;
 4. a re-fit restores that epoch and replays the permutation draws, and
-   equals an uninterrupted fit bit for bit.
+   equals an uninterrupted fit bit for bit wherever two uninterrupted fits
+   agree (on a card, a model whose weight gradients run cuDNN's default
+   algorithms needs ``torch.use_deterministic_algorithms(True)``).
 
 :func:`request_preemption` is what a fault plan's ``preempt=True`` rule
 calls: the same flag and the same safe-point delivery, without a signal.
@@ -73,7 +75,7 @@ def request_preemption(reason: str = "preemption requested") -> None:
 
 
 @contextmanager
-def preemption_scope(install_signal_handler: bool = True):
+def preemption_scope():
     """Yield a :class:`PreemptionToken` wired to SIGTERM for the block.
 
     The previous SIGTERM handler is chained, not replaced: after flagging
@@ -86,22 +88,22 @@ def preemption_scope(install_signal_handler: bool = True):
         _SCOPES.append(token)
     previous = None
     installed = False
-    if install_signal_handler:
-        def handler(signum, frame):
-            logger.warning(
-                "SIGTERM received: finishing the current step, flushing "
-                "the last completed epoch's checkpoint, then exiting"
-            )
-            token.request("SIGTERM")
-            if callable(previous):
-                previous(signum, frame)
 
-        try:
-            previous = signal.signal(signal.SIGTERM, handler)
-            installed = True
-        except ValueError:
-            # not the main thread: a polling-only scope
-            pass
+    def handler(signum, frame):
+        logger.warning(
+            "SIGTERM received: finishing the current step, flushing "
+            "the last completed epoch's checkpoint, then exiting"
+        )
+        token.request("SIGTERM")
+        if callable(previous):
+            previous(signum, frame)
+
+    try:
+        previous = signal.signal(signal.SIGTERM, handler)
+        installed = True
+    except ValueError:
+        # not the main thread: a polling-only scope
+        pass
     try:
         yield token
     finally:

@@ -22,8 +22,7 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 
 class Counter:
@@ -71,36 +70,20 @@ class Timer:
 
 
 class Histogram:
-    """Observations: lifetime count and sum, and the last ``window`` values
-    for quantiles."""
+    """Every observation, oldest first (a few a fit)."""
 
-    def __init__(self, name: str, window: int = 4096):
+    def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
-        self._window: "deque[float]" = deque(maxlen=int(window))
-        self._count = 0
-        self._sum = 0.0
+        self._values: List[float] = []
 
     def observe(self, value: float) -> None:
         with self._lock:
-            self._window.append(float(value))
-            self._count += 1
-            self._sum += value
+            self._values.append(float(value))
 
-    @property
-    def count(self) -> int:
+    def values(self) -> List[float]:
         with self._lock:
-            return self._count
-
-    @property
-    def total(self) -> float:
-        with self._lock:
-            return self._sum
-
-    def values(self) -> list:
-        """The windowed observations, oldest first."""
-        with self._lock:
-            return list(self._window)
+            return list(self._values)
 
 
 class MetricsRegistry:
@@ -144,8 +127,9 @@ class MetricsRegistry:
         for name, t in timers.items():
             out[name + ".seconds"] = t.seconds
         for name, h in histograms.items():
-            out[name + ".count"] = h.count
-            out[name + ".sum"] = h.total
+            values = h.values()
+            out[name + ".count"] = len(values)
+            out[name + ".sum"] = sum(values)
         if prefix is not None:
             out = {k: v for k, v in out.items() if k.startswith(prefix)}
         return out
@@ -201,10 +185,8 @@ def fit_checkpoint():
 
 
 def record_commit(seconds: float, nbytes: int) -> None:
-    """One checkpoint's background commit: its seconds, from the writer's
-    start to the rename, into ``estimator.checkpoint_commit`` and
-    ``estimator.checkpoint_commit_ms``; its bytes on disk into
-    ``estimator.checkpoint_bytes``."""
-    metrics.timer("estimator.checkpoint_commit").add_seconds(seconds)
+    """One checkpoint's background commit: its time, from the writer's
+    start to the rename, into the ``estimator.checkpoint_commit_ms``
+    histogram; its bytes on disk into ``estimator.checkpoint_bytes``."""
     metrics.histogram("estimator.checkpoint_commit_ms").observe(seconds * 1e3)
     metrics.counter("estimator.checkpoint_bytes").add(nbytes)

@@ -81,7 +81,7 @@ ADAM_LEAF_RTOL = 1e-2
 VIT_TOL = dict(atol=5e-4, rtol=5e-3)
 LR = 1e-3
 N_IMAGES = 6
-ESTIMATOR_LOGGER = "sparkdl_tpu_torch.estimators.torch_image_file_estimator"
+CKPT_LOGGER = "sparkdl_tpu_torch.estimators.checkpointing"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -538,7 +538,7 @@ def test_checkpointed_fit_resumes(flax_params, train_df, straight_fits, tmp_path
     assert ns.startswith("torch_fit_")
     assert sorted(os.listdir(os.path.join(ckpt, ns))) == ["epoch_1"]
     steps = metrics.counter("estimator.steps").value
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
     assert "resuming from checkpoint epoch 1" in caplog.text
     assert metrics.counter("estimator.steps").value - steps == 2
@@ -563,7 +563,7 @@ def test_refit_with_fewer_epochs_restores_exact_epoch(flax_params, train_df, str
     ckpt = str(tmp_path / "ck")
     _ckpt_estimator(flax_params, 4, ckpt).fit(train_df)
     steps = metrics.counter("estimator.steps").value
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         two = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
     assert "already at epoch 2" in caplog.text
     assert metrics.counter("estimator.steps").value == steps  # nothing trained
@@ -677,7 +677,7 @@ def test_preemption_resumes_bit_identical(flax_params, train_df, straight_fits, 
         with pytest.raises(Preempted, match=f"injected preemption at '{site}'"):
             est.fit(train_df)
     assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
     assert "resuming from checkpoint epoch 1" in caplog.text
     _assert_same_weights(resumed, straight_fits[2])
@@ -693,6 +693,22 @@ def test_an_error_after_a_save_still_commits_it(flax_params, train_df, tmp_path)
     assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
 
 
+def test_a_failed_commit_does_not_replace_a_preemption(flax_params, train_df, tmp_path,
+                                                       caplog):
+    """Epoch 1's commit fails behind the fit, and a preemption lands before
+    the next save: the fit still raises ``Preempted`` (what a scheduler
+    wrapper catches to requeue the job), with the commit's error logged and
+    noted on it."""
+    blocker = tmp_path / "file"
+    blocker.write_text("a file where the checkpoint directory would go")
+    est = _ckpt_estimator(flax_params, 2, str(blocker))
+    with active_plan(FaultPlan().add("estimator.checkpoint_saved", preempt=True, at=1)):
+        with pytest.raises(Preempted, match="injected preemption") as info:
+            est.fit(train_df)
+    assert any("checkpoint commit failed" in note for note in info.value.__notes__)
+    assert "the last checkpoint commit failed" in caplog.text
+
+
 def test_a_torn_epoch_is_not_resumed(flax_params, train_df, straight_fits, tmp_path, caplog):
     ckpt = str(tmp_path / "ck")
     est = _ckpt_estimator(flax_params, 1, ckpt)
@@ -700,7 +716,7 @@ def test_a_torn_epoch_is_not_resumed(flax_params, train_df, straight_fits, tmp_p
     torn = Path(checkpointing.epoch_path(ckpt, est._ckpt_namespace(), 2))
     torn.mkdir()
     (torn / checkpointing.PAYLOAD).write_bytes(b"torn")
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         resumed = _ckpt_estimator(flax_params, 2, ckpt).fit(train_df)
     assert "resuming from checkpoint epoch 1" in caplog.text
     _assert_same_weights(resumed, straight_fits[2])

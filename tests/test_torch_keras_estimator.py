@@ -62,7 +62,7 @@ L = keras.layers
 FIT_TOL = dict(rtol=1e-4, atol=1e-6)
 ONE_STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 RESNET_HEAD = Path(__file__).parent / "torch_fixtures" / "keras_resnet50_head.config.json.gz"
-ESTIMATOR_LOGGER = "sparkdl_tpu_torch.estimators.keras_image_file_estimator"
+CKPT_LOGGER = "sparkdl_tpu_torch.estimators.checkpointing"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -477,7 +477,7 @@ def test_refit_with_more_epochs_resumes_with_dropout(bright_rows, dropout_path, 
     df = _frame(bright_rows)
     _ckpt(dropout_path, 2, ckpt).fit(df)
     (ns,) = os.listdir(ckpt)
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         resumed = _ckpt(dropout_path, 4, ckpt).fit(df)
     assert "resuming from checkpoint epoch 2" in caplog.text
     assert os.listdir(ckpt) == [ns]
@@ -541,7 +541,7 @@ def test_preemption_resumes_bit_identical(bright_rows, dropout_path, straight, t
             est.fit(df)
     assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]
     assert [t for t in __import__("threading").enumerate() if t.name == "sparkdl-stream"] == []
-    with caplog.at_level(logging.INFO, logger=ESTIMATOR_LOGGER):
+    with caplog.at_level(logging.INFO, logger=CKPT_LOGGER):
         resumed = _ckpt(dropout_path, 2, ckpt).fit(df)
     assert "resuming from checkpoint epoch 1" in caplog.text
     _assert_same_tuned(resumed, straight[2])

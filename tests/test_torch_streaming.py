@@ -22,6 +22,7 @@ from sparkdl_tpu.estimators.data import (
 )
 from sparkdl_tpu.estimators.data import in_memory_epoch_dataset
 from sparkdl_tpu_torch import KerasImageFileEstimator
+from sparkdl_tpu_torch.estimators import data
 from sparkdl_tpu_torch.estimators.data import (
     PREFETCH,
     StreamingShardLoader,
@@ -75,7 +76,7 @@ def test_epochs_match_the_in_memory_batches(files, n, bs, weighted):
     steps = -(-n // bs)
     for _ in range(2):
         order = rng.permutation(n)
-        got = list(loader.epoch(order, steps))
+        got = list(loader.epoch(order))
         want = list(epoch_batches(order, x, y, bs, weighted))
         jax_want = list(in_memory_epoch_dataset(order, x, y, bs, steps, weighted))
         assert len(got) == len(want) == len(jax_want) == steps
@@ -91,7 +92,7 @@ def test_epochs_match_the_in_memory_batches(files, n, bs, weighted):
 def test_epochs_match_the_jax_streaming_loader(files):
     y = np.arange(30, dtype=np.int32)
     order = np.random.RandomState(1).permutation(30)
-    got = list(StreamingShardLoader(files, y, np.load, 8, True).epoch(order, 4))
+    got = list(StreamingShardLoader(files, y, np.load, 8, True).epoch(order))
     want = list(JaxStreamingShardLoader(files, y, np.load, 8, True).epoch(order, 4))
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
@@ -115,7 +116,7 @@ def test_many_epochs_under_a_short_switch_interval(files):
         for epoch in range(20):
             order = rng.permutation(30)
             want = list(epoch_batches(order, x, y, 4))
-            stream = loader.epoch(order, 8)
+            stream = loader.epoch(order)
             got = [b for _, b in zip(range(3 if epoch % 3 == 0 else 8), stream)]
             stream.close()
             for g, w in zip(got, want):
@@ -135,7 +136,7 @@ def test_an_abandoned_epoch_leaves_no_live_thread(files):
         return np.load(uri)
 
     loader = StreamingShardLoader(files, np.zeros(30, np.int32), slow, 2, True)
-    epoch = loader.epoch(np.arange(30), 15)
+    epoch = loader.epoch(np.arange(30))
     next(epoch)
     assert len(_live_stream_threads()) == 1
     epoch.close()
@@ -147,11 +148,11 @@ def test_an_abandoned_epoch_leaves_no_live_thread(files):
 
 def test_a_short_producer_raises(files, monkeypatch):
     loader = StreamingShardLoader(files[:8], np.zeros(8, np.int32), np.load, 4, True)
-    full = loader._index_batches
-    monkeypatch.setattr(loader, "_index_batches",
-                        lambda order: list(full(order))[:1])
+    full = data.epoch_index_batches
+    monkeypatch.setattr(data, "epoch_index_batches",
+                        lambda order, batch_size: list(full(order, batch_size))[:1])
     with pytest.raises(RuntimeError, match="produced 1/2 batches"):
-        list(loader.epoch(np.arange(8), 2))
+        list(loader.epoch(np.arange(8)))
     assert _live_stream_threads() == []
 
 
@@ -162,7 +163,7 @@ def test_a_loader_error_is_raised_at_its_batch(files):
         return np.load(uri)
 
     loader = StreamingShardLoader(files[:8], np.zeros(8, np.int32), broken, 4, True)
-    epoch = loader.epoch(np.arange(8), 2)
+    epoch = loader.epoch(np.arange(8))
     assert next(epoch)["x"].shape == (4, 4, 4, 3)
     with pytest.raises(OSError, match="unreadable image"):
         next(epoch)
@@ -172,7 +173,7 @@ def test_a_loader_error_is_raised_at_its_batch(files):
 def test_loads_are_timed(files):
     metrics.reset()
     loader = StreamingShardLoader(files[:8], np.zeros(8, np.int32), np.load, 4, False)
-    batches = list(loader.epoch(np.arange(8), 2))
+    batches = list(loader.epoch(np.arange(8)))
     assert len(batches) == 2 and "w" not in batches[0]
     assert metrics.timer("sparkdl.load").seconds > 0
     assert metrics.timer("sparkdl.load_wait").seconds > 0
