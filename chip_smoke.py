@@ -196,6 +196,34 @@ prints no result):
    uncheckpointed one's, the in-memory and streaming fits' images/s with
    ``sparkdl.load``, ``sparkdl.load_wait`` and ``estimator.step``. The
    checkpoints go to a temporary directory, removed afterwards.
+13. the ported paths' remainder. (a) ViT-B/16 fine-tuning in bfloat16
+   (``ViT(dtype=torch.bfloat16)``, phase 5's setup: 64 generated 224x224
+   images, 10 classes, adam, 2 epochs of 2 steps at batch 32): the first
+   step's gradients held to the dense-attention bf16 ones and, at 2 images,
+   to a CPU bf16 run, each tensor within ``BF16_FIT_GRAD_RTOL`` of its norm
+   (the share of elements outside ``BF16_GRAD_TOL`` printed beside); the
+   fit's forward with lse, dQ and dK/dV launches counted (48 each), its
+   float32 weights and gradients, its losses within ``BF16_TOL`` of the
+   dense bf16 fit's; one step at 2 images, card against CPU, by loss
+   (``BF16_TOL``) and the stepped model's rows (``BF16_SLICE_TOL``). Timed:
+   the bf16 step on a resident batch beside the dense bf16 step and phase
+   5's float32 step, a profile of it, and the same step with Python's
+   cyclic collector off. (b) The fitted bf16 transformer saved and loaded,
+   and a ``PipelineModel`` holding it: rows bit for bit equal to the
+   in-memory transformer's, the loaded one launching the lse-free forward
+   24 times; timed save and load. (c) Its weights through ``export_vit_npz``
+   and ``port_vit_npz``: the same ``state_dict`` and rows bit for bit.
+   (d) ``DeepImageFeaturizer(InceptionV3, modelWeights="imagenet")`` under
+   a temporary ``HOME`` whose Keras cache holds phase 10's InceptionV3
+   weights as Keras's weights-only ``.h5`` (written by the port, no Keras,
+   no ``h5py``): features bit for bit equal to the registry module's on the
+   same weights, no attention launch. (e) ``DeepImageFeaturizer``,
+   ``KerasImageFileTransformer`` and the bf16 ViT transformer at
+   ``SPARKDL_DISPATCH_DEPTH`` 0-3 and under ``SPARKDL_SERIAL_INFERENCE=1``,
+   over frames of 4 partitions (one chunk a call) and of 1 partition: the
+   same bytes in every mode; images/s over 5 rounds that take the modes in
+   turn, with ``sparkdl.load``, ``sparkdl.decode``, ``sparkdl.forward``,
+   ``sparkdl.serve`` and ``data.device_stall_ms``.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -2657,6 +2685,451 @@ def keras_remainder(card: str, counted) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 13: the ported paths' remainder
+# ----------------------------------------------------------------------
+
+# a bf16 fit against the dense bf16 fit, both on the card: the first
+# step's gradients, each tensor to BF16_FIT_GRAD_RTOL of its norm (floored
+# at 1e-3 of the largest norm). The flash kernels keep scores, P and their
+# sums in float32 and round once, the dense path rounds scores and P to
+# bf16: the two differ by bf16 roundings (2**-9) carried through 12 blocks
+# and back. Elementwise, the gradients are also logged against
+# BF16_GRAD_TOL (the kernels' own bound).
+BF16_FIT_GRAD_RTOL = 5e-2
+P13_VARIANT = "ViT-B/16"
+P13_IMAGE = 224
+P13_DEVICE = "cuda"
+DISPATCH_MODES = (("SPARKDL_DISPATCH_DEPTH", "0"), ("SPARKDL_DISPATCH_DEPTH", "1"),
+                  ("SPARKDL_DISPATCH_DEPTH", "2"), ("SPARKDL_DISPATCH_DEPTH", "3"),
+                  ("SPARKDL_SERIAL_INFERENCE", "1"))
+
+
+class scoped_env:
+    """Set environment variables for a ``with`` block and put back what
+    was there (or take them out) after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def grads_of(state_dict, attn_impl, dtype, x, y, device):
+    """The first step's loss and gradients (the estimator's per-sample CE,
+    mean over the batch) of a ViT computing in ``dtype``."""
+    from sparkdl_tpu_torch.estimators import TorchImageFileEstimator
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    model = ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl=attn_impl,
+                dtype=dtype, image_size=P13_IMAGE)
+    model.load_state_dict(state_dict, strict=True)
+    model.to(device).train()
+    per = TorchImageFileEstimator(device=device)._per_sample_loss()(model, {"x": x, "y": y})
+    loss = per.mean()
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in model.named_parameters()}
+
+
+def grad_errors(got, want):
+    """The worst per-tensor relative norm error (floored at 1e-3 of the
+    largest norm) and the share of elements outside BF16_GRAD_TOL."""
+    import torch
+
+    norms = {n: g.norm().item() for n, g in want.items()}
+    floor = 1e-3 * max(norms.values())
+    worst = max(((got[n] - g).norm().item() / max(norms[n], floor), n) for n, g in want.items())
+    outside = sum(int((~torch.isclose(got[n], g, **BF16_GRAD_TOL)).sum()) for n, g in want.items())
+    total = sum(g.numel() for g in want.values())
+    return worst, outside / total
+
+
+def bf16_fit(card: str, counted, train_params, uris, f32_step_ms: float):
+    """Phase 13 (a): ViT-B/16 fine-tuning in bfloat16 through kernels #2-#4.
+    Returns the fitted transformer, its launches and the fit's."""
+    import torch
+
+    from sparkdl_tpu_torch.estimators.losses import get_optimizer
+    from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.parallel.trainer import init_train_state, make_train_step
+
+    reset, read = counted
+    dev = torch.device(P13_DEVICE)
+    bf16 = torch.bfloat16
+    state = vit_state_dict_from_flax(train_params)
+    n = len(uris)
+    labels = np.arange(n) % N_CLASSES
+    images = np.stack([load_npy(u) for u in uris])
+    first = np.random.RandomState(0).permutation(n)[:BATCH]
+    xb = torch.from_numpy(images[first]).to(dev)
+    yb = torch.from_numpy(labels[first]).to(dev)
+
+    # the first step's gradients, flash against dense, both bf16
+    flash_loss, flash_grads = grads_of(state, "flash", bf16, xb, yb, dev)
+    full_loss, full_grads = grads_of(state, "full", bf16, xb, yb, dev)
+    (rel, rel_name), outside = grad_errors(flash_grads, full_grads)
+    log(f"bf16 training: first-step gradients flash vs full, both bf16 on the card: worst "
+        f"relative norm error {rel:.3e} ({rel_name}); {100 * outside:.4f}% of the elements "
+        f"outside BF16_GRAD_TOL {BF16_GRAD_TOL}; loss {flash_loss:.6f} vs {full_loss:.6f}")
+    if not rel <= BF16_FIT_GRAD_RTOL:
+        raise AssertionError(f"bf16 first-step gradients differ by {rel:.3e} ({rel_name})")
+    np.testing.assert_allclose(flash_loss, full_loss, **BF16_TOL)
+    dtypes = {g.dtype for g in flash_grads.values()}
+    del flash_grads, full_grads
+
+    # the fit, counted: 12 blocks x 2 epochs x 2 steps of #2, #3, #4
+    df = training_df(uris)
+    steps = 2 * (n // BATCH)
+    module = ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl="flash", dtype=bf16,
+                 image_size=P13_IMAGE)
+    estimator = train_estimator(module, train_params, device=P13_DEVICE)
+    reset()
+    t0 = time.perf_counter()
+    fitted = estimator.fit(df)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = read()
+    expected = 12 * steps
+    log(f"  bf16 fit of {steps} steps: launches {fit_counts} (expected {expected} with lse, "
+        f"dQ and dK/dV, 0 lse-free), {fit_s:.2f} s")
+    if list(fit_counts.values()) != [0, expected, expected, expected]:
+        raise AssertionError(f"bf16 training launches {fit_counts}")
+    master = {p.dtype for p in fitted.module.parameters()}
+    if master != {torch.float32} or dtypes != {torch.float32}:
+        raise AssertionError(f"bf16 fit holds {master} weights, {dtypes} gradients")
+    losses = np.array(fitted._training_losses)
+    full_fit = train_estimator(
+        ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl="full", dtype=bf16,
+            image_size=P13_IMAGE), train_params, device=P13_DEVICE).fit(df)
+    full_losses = np.array(full_fit._training_losses)
+    log(f"  losses bf16 flash {losses.tolist()} vs bf16 full {full_losses.tolist()}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"bad bf16 training losses {losses}")
+    np.testing.assert_allclose(losses, full_losses, **BF16_TOL)
+    del full_fit
+
+    # 2 images, card against CPU, both bf16: the first step's gradients,
+    # then one step of a fit (adam moves each weight by about lr on the sign
+    # of its gradient, which bf16 roundings decide where it is near zero, so
+    # the fits compare by loss and by the stepped model's rows)
+    x2, y2 = xb[:2], yb[:2]
+    card_loss, card_grads = grads_of(state, "flash", bf16, x2, y2, dev)
+    cpu_loss, cpu_grads = grads_of(state, "flash", bf16, x2.cpu(), y2.cpu(), torch.device("cpu"))
+    (rel2, rel2_name), outside2 = grad_errors({n: g.cpu() for n, g in card_grads.items()},
+                                              cpu_grads)
+    log(f"  first-step gradients at 2 images, bf16 flash, card vs CPU: worst relative norm "
+        f"error {rel2:.3e} ({rel2_name}); {100 * outside2:.4f}% of the elements outside "
+        f"BF16_GRAD_TOL; loss {card_loss:.6f} vs {cpu_loss:.6f}")
+    if not rel2 <= BF16_FIT_GRAD_RTOL:
+        raise AssertionError(f"bf16 gradients card vs CPU differ by {rel2:.3e} ({rel2_name})")
+    del card_grads, cpu_grads
+    small_df = training_df(uris[:2])
+    small = {"fitParams": {"epochs": 1, "batch_size": 2, "learning_rate": TRAIN_LR, "seed": 0}}
+    fits = {}
+    for where in (P13_DEVICE, "cpu"):
+        fits[where] = train_estimator(
+            ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl="flash", dtype=bf16,
+                image_size=P13_IMAGE), train_params, device=where, **small).fit(small_df)
+    card_fit, cpu_fit = fits[P13_DEVICE], fits["cpu"]
+    np.testing.assert_allclose(card_fit._training_losses, cpu_fit._training_losses, **BF16_TOL)
+    card_rows = rows_array(card_fit.transform(small_df).collect())
+    cpu_rows = rows_array(cpu_fit.transform(small_df).collect())
+    log(f"  one bf16 step at 2 images, card vs CPU: loss {card_fit._training_losses} vs "
+        f"{cpu_fit._training_losses}; the stepped models' rows "
+        f"max_abs_err={np.abs(card_rows - cpu_rows).max():.3e}")
+    np.testing.assert_allclose(card_rows, cpu_rows, **BF16_SLICE_TOL)
+    del fits, card_fit, cpu_fit
+
+    # the step alone on one resident batch: bf16 flash, bf16 dense
+    import gc
+
+    step_ms = {}
+    gc.collect()
+    tracked = len(gc.get_objects())
+    for impl in ("flash", "full"):
+        model = ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl=impl, dtype=bf16,
+                    image_size=P13_IMAGE)
+        model.load_state_dict(state, strict=True)
+        model.to(dev).train()
+        train = init_train_state(model, get_optimizer("adam", TRAIN_LR))
+        step = make_train_step(ce_per_sample)
+        batch = {"x": xb, "y": yb, "w": torch.ones(BATCH, device=dev)}
+        step_ms[impl] = time_ms(lambda: step(train, batch), iters=5, warmup=2)
+        if impl == "flash" and dev.type == "cuda":
+            # device busy and idle share of the bf16 step: is it the host's?
+            # and the same step with Python's cyclic collector off
+            profile_forward(lambda: step(train, batch), step_ms[impl])
+            gc.disable()
+            try:
+                no_gc_ms = time_ms(lambda: step(train, batch), iters=5, warmup=2)
+            finally:
+                gc.enable()
+            log(f"  bf16 flash step with the cyclic collector off: {no_gc_ms:.3f} ms "
+                f"({tracked} objects tracked by the collector)")
+        del model, train
+    log(f"ViT-B/16 training step at batch {BATCH}, adam ({card}): bf16 flash "
+        f"{step_ms['flash']:.3f} ms, bf16 full {step_ms['full']:.3f} ms, float32 flash "
+        f"{f32_step_ms:.3f} ms (phase 5); bf16 flash / float32 flash "
+        f"{step_ms['flash'] / f32_step_ms:.3f}")
+    return fitted, fit_counts
+
+
+def vit_persistence(card: str, counted, fitted, uris) -> int:
+    """Phase 13 (b) and (c): the fitted bf16 transformer saved and loaded,
+    alone and in a PipelineModel, and its weights through the ViT
+    checkpoint import; each gives the in-memory rows bit for bit. Returns
+    the loaded transformer's forward launches."""
+    import torch
+
+    from sparkdl_tpu_torch.estimators import TorchImageFileTransformer
+    from sparkdl_tpu_torch.ml.pipeline import PipelineModel
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.models.vit_port import export_vit_npz, port_vit_npz
+
+    reset, read = counted
+    df = training_df(uris)
+    want = rows_array(fitted.transform(df).collect())
+    expected = 12 * -(-len(uris) // fitted.batchSize)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-persist-") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        fitted.write().overwrite().save(str(tmp / "vit"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = TorchImageFileTransformer.load(str(tmp / "vit"))
+        load_s = time.perf_counter() - t0
+        reset()
+        got = rows_array(loaded.transform(df).collect())
+        launches = read()
+        size_mb = (tmp / "vit" / "torch_model.pt").stat().st_size / 1e6
+        log(f"persistence: fitted bf16 ViT-B/16 transformer saved ({size_mb:.1f} MB) in "
+            f"{save_s:.2f} s, loaded in {load_s:.2f} s; loaded transform launches {launches} "
+            f"(expected {expected} lse-free)")
+        if list(launches.values()) != [expected, 0, 0, 0]:
+            raise AssertionError(f"loaded transformer launches {launches}")
+        if loaded.device != fitted.device or not np.array_equal(got, want):
+            raise AssertionError("the loaded transformer's rows differ")
+        PipelineModel([fitted]).write().overwrite().save(str(tmp / "pm"))
+        model = PipelineModel.load(str(tmp / "pm"))
+        if not np.array_equal(rows_array(model.transform(df).collect()), want):
+            raise AssertionError("the loaded PipelineModel's rows differ")
+        log("  loaded transformer and PipelineModel: rows bit for bit equal to the "
+            f"in-memory transformer's ({want.shape[0]} rows)")
+
+        # the ViT checkpoint import: .npz out and back in
+        state = {k: v.detach().cpu() for k, v in fitted.module.state_dict().items()}
+        t0 = time.perf_counter()
+        export_vit_npz(state, str(tmp / "vit.npz"))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ported = port_vit_npz(str(tmp / "vit.npz"))
+        import_s = time.perf_counter() - t0
+        bad = differing(ported, state)
+        if bad:
+            raise AssertionError(f"the .npz round trip changed {bad[:4]}")
+        stage = TorchImageFileTransformer(
+            inputCol="uri", outputCol="features", imageLoader=load_npy,
+            module=ViT(variant=P13_VARIANT, num_classes=N_CLASSES, attn_impl="flash",
+                       dtype=fitted.module.dtype, image_size=P13_IMAGE),
+            state_dict=ported, device=P13_DEVICE)
+        reset()
+        if not np.array_equal(rows_array(stage.transform(df).collect()), want):
+            raise AssertionError("the .npz-imported weights give other rows")
+        launches_npz = read()
+        log(f"  ViT checkpoint import: export_vit_npz {export_s:.2f} s, port_vit_npz "
+            f"{import_s:.2f} s, {len(state)} tensors bit for bit; its transformer's rows bit "
+            f"for bit ({launches_npz['flash_attention_fwd']} lse-free launches)")
+    return launches["flash_attention_fwd"] + launches_npz["flash_attention_fwd"]
+
+
+def imagenet_from_cache(card: str, counted):
+    """Phase 13 (d): ``modelWeights="imagenet"`` read from Keras's cache
+    file (written by the port, without Keras, under a temporary HOME),
+    against the registry module on the same weights, bit for bit. Returns
+    what (e) reuses: the Keras config and weights."""
+    import gzip
+
+    from sparkdl_tpu_torch import DeepImageFeaturizer
+    from sparkdl_tpu_torch.models.keras_model import write_legacy_weights
+    from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.named_image import IMAGENET_FILES
+
+    reset, read = counted
+    config = json.loads(gzip.decompress(KERAS_CONFIG.read_bytes()))
+    weights = keras_inception_weights(config, seed=11)
+    state = get_keras_application_model("InceptionV3").state_dict_from_flax(
+        port_keras_weights(keras_layers_view(config, weights)))
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    df = session.createDataFrame(cnn_image_rows(CNN_IMAGES, seed=0), numPartitions=4)
+    args = dict(inputCol="image", outputCol="features", modelName="InceptionV3",
+                computeDtype="float32", batchSize=CNN_BATCH, device=P13_DEVICE)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-home-") as home:
+        cache = Path(home) / ".keras" / "models"
+        cache.mkdir(parents=True)
+        path = cache / IMAGENET_FILES["InceptionV3"]
+        t0 = time.perf_counter()
+        write_legacy_weights(str(path), config, weights)
+        write_s = time.perf_counter() - t0
+        size_mb = path.stat().st_size / 1e6
+        with scoped_env(HOME=home):
+            reset()
+            t0 = time.perf_counter()
+            got = rows_array(DeepImageFeaturizer(modelWeights="imagenet", **args)
+                             .transform(df).collect())
+            first_s = time.perf_counter() - t0
+            launches = read()
+    want = rows_array(DeepImageFeaturizer(modelWeights=state, **args).transform(df).collect())
+    log(f"imagenet from Keras's cache: {path.name} ({size_mb:.1f} MB) written by the "
+        f"port in {write_s:.2f} s; DeepImageFeaturizer(InceptionV3, "
+        f"\"imagenet\") read, ported and ran {len(got)} rows in {first_s:.2f} s; attention "
+        f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the imagenet featurizer launched attention kernels: {launches}")
+    if got.shape != (CNN_IMAGES, 2048) or not np.array_equal(got, want):
+        raise AssertionError("imagenet features differ from the registry module's")
+    log("  features bit for bit equal to the registry module's on the same weights")
+    return config, weights
+
+
+def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) -> int:
+    """Phase 13 (e): ``DeepImageFeaturizer``, ``KerasImageFileTransformer``
+    and the ViT transformer at ``SPARKDL_DISPATCH_DEPTH`` 0-3 and under
+    ``SPARKDL_SERIAL_INFERENCE=1``, each over a frame of 4 partitions (a
+    call of one chunk: 128 / 4 / 32, 64 / 2 / 32) and of 1 partition (a call
+    of 4, 4 and 2 chunks for the prefetch and the window to overlap): the
+    same bytes in every mode, and images/s over 5 rounds that take the
+    modes in turn, with the loop's timers. Returns the ViT transformer's
+    launches."""
+    from sparkdl_tpu_torch import DeepImageFeaturizer, KerasImageFileTransformer
+    from sparkdl_tpu_torch.models.keras_model import write_keras_file
+    from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    reset, read = counted
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    state = get_keras_application_model("InceptionV3").state_dict_from_flax(
+        port_keras_weights(keras_layers_view(config, weights)))
+    timers = ("sparkdl.load.seconds", "sparkdl.decode.seconds", "sparkdl.forward.seconds",
+              "sparkdl.serve.seconds", "data.device_stall_ms.sum",
+              "data.device_stall_ms.count")
+    vit_launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-depth-") as tmp:
+        tmp = Path(tmp)
+        path = str(tmp / "inception_v3.keras")
+        write_keras_file(path, config, weights)
+        pixels = np.random.RandomState(13).randint(0, 256, (CNN_IMAGES, 299, 299, 3))
+        uris = []
+        for i, img in enumerate(pixels.astype(np.float32)):
+            uris.append(str(tmp / f"img_{i:03d}.npy"))
+            np.save(uris[-1], img)
+        featurizer = DeepImageFeaturizer(
+            inputCol="image", outputCol="features", modelName="InceptionV3",
+            modelWeights=state, computeDtype="bfloat16", batchSize=CNN_BATCH,
+            device=P13_DEVICE)
+        keras_stage = KerasImageFileTransformer(
+            inputCol="uri", outputCol="features", modelFile=path, imageLoader=load_npy_tf,
+            computeDtype="bfloat16", batchSize=CNN_BATCH, device=P13_DEVICE)
+        image_rows = cnn_image_rows(CNN_IMAGES, seed=0)
+        vit_rows = [{"uri": u, "label": i % N_CLASSES} for i, u in enumerate(vit_uris)]
+        cases = {}
+        for parts in (4, 1):
+            vit_parts = min(parts, len(vit_uris) // BATCH)
+            cases[f"DeepImageFeaturizer, {parts} partition(s)"] = (
+                featurizer, session.createDataFrame(image_rows, numPartitions=parts))
+            cases[f"KerasImageFileTransformer, {parts} partition(s)"] = (
+                keras_stage, session.createDataFrame([{"uri": u} for u in uris],
+                                                     numPartitions=parts))
+            cases[f"ViT-B/16 bf16 transformer, {vit_parts} partition(s)"] = (
+                vit_stage, session.createDataFrame(vit_rows, numPartitions=vit_parts))
+        modes = [("serial" if env == "SPARKDL_SERIAL_INFERENCE" else f"depth {value}",
+                  {env: value}) for env, value in DISPATCH_MODES]
+
+        # the bytes, in every mode; the first transforms warm each path
+        first = {}
+        for mode, env in modes:
+            with scoped_env(**env):
+                for label, (stage, df) in cases.items():
+                    reset()
+                    rows = vectors(stage.transform(df).collect(), "features")
+                    vit_launches += read()["flash_attention_fwd"]
+                    if label not in first:
+                        first[label] = rows
+                    elif not np.array_equal(rows, first[label]):
+                        raise AssertionError(f"{label} at {mode}: other bytes")
+        log(f"dispatch depth: the same bytes at depths 0-3 and serial for each of "
+            f"{len(cases)} frames")
+
+        # 5 rounds, each taking every mode in turn
+        walls = {(mode, label): [] for mode, _ in modes for label in cases}
+        sums = {key: dict.fromkeys(timers, 0.0) for key in walls}
+        for _ in range(5):
+            for mode, env in modes:
+                with scoped_env(**env):
+                    for label, (stage, df) in cases.items():
+                        before = metrics.snapshot()
+                        reset()
+                        t0 = time.perf_counter()
+                        stage.transform(df).collect()
+                        walls[mode, label].append(time.perf_counter() - t0)
+                        vit_launches += read()["flash_attention_fwd"]
+                        after = metrics.snapshot()
+                        for key in timers:
+                            sums[mode, label][key] += after.get(key, 0.0) - before.get(key, 0.0)
+        for label, (_, df) in cases.items():
+            n = df.count()
+            for mode, _ in modes:
+                w, t = walls[mode, label], sums[mode, label]
+                log(f"dispatch {mode}: {label}, images/s ({n} images, {card}): "
+                    + ", ".join(f"{n / x:.1f}" for x in w)
+                    + f"; median {n / float(np.median(w)):.1f}; over the 5: sparkdl.load "
+                    f"{t['sparkdl.load.seconds']:.4f} s, sparkdl.decode "
+                    f"{t['sparkdl.decode.seconds']:.4f} s, sparkdl.forward "
+                    f"{t['sparkdl.forward.seconds']:.4f} s, sparkdl.serve "
+                    f"{t['sparkdl.serve.seconds']:.4f} s, data.device_stall_ms "
+                    f"{t['data.device_stall_ms.sum']:.1f} over "
+                    f"{int(t['data.device_stall_ms.count'])} waits")
+    return vit_launches
+
+
+def ported_paths_remainder(card: str, counted, train_params, f32_step_ms: float) -> dict:
+    """Phase 13: the bf16 fit, the fitted transformer's persistence and the
+    ViT checkpoint import, imagenet weights from Keras's cache, and the
+    dispatch depths. Returns the main path's launches of each kernel."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bf16-") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(1)
+        for i in range(N_IMAGES):
+            np.save(tmp / f"img_{i:03d}.npy",
+                    rng.random((P13_IMAGE, P13_IMAGE, 3), dtype=np.float32))
+        uris = sorted(str(p) for p in tmp.glob("*.npy"))
+        fitted, fit_counts = bf16_fit(card, counted, train_params, uris, f32_step_ms)
+        persisted = vit_persistence(card, counted, fitted, uris)
+        config, weights = imagenet_from_cache(card, counted)
+        depth = dispatch_depths(card, counted, config, weights, fitted, uris)
+    launches = dict(fit_counts)
+    launches["flash_attention_fwd"] += persisted + depth
+    return launches
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -3182,6 +3655,15 @@ def main() -> int:
                                          "flash_attention_bwd_dkv")):
         record["launches"] += resumed["fit"][key]
     keras_remainder(card, counted=(reset_counts, counts))
+
+    # phase 13: the ported paths' remainder: the bf16 fit through #2-#4,
+    # the fitted transformer's persistence and the .npz import (#1),
+    # imagenet from Keras's cache, the dispatch depths
+    remainder = ported_paths_remainder(card, (reset_counts, counts), train_params,
+                                       step_ms["flash"])
+    for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
+                                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        record["launches"] += remainder[key]
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -18,10 +18,20 @@ the flash ViT under the default algorithms (the flash kernels use no
 atomics) (:mod:`~sparkdl_tpu_torch.estimators.checkpointing`,
 :mod:`~sparkdl_tpu_torch.resilience`).
 
+The fitted transformer saves and loads as the JAX package's does: its
+module pickled (class and attributes; a custom ``attn_impl`` must be a
+module-level callable) with its weights beside it, taken from the CPU, so a
+saved stage loads on a machine without a card when ``device="cpu"`` is
+passed to :meth:`TorchImageFileTransformer.load`.
+
+A module computing in bfloat16 (``ViT(dtype=torch.bfloat16)``) fits as the
+JAX estimator fits ``ViT(dtype=jnp.bfloat16)``: float32 parameters and
+optimizer state, the forward in bfloat16, the per-sample losses and their
+weighted mean in float32.
+
 Not ported yet (ROADMAP.md): ``shardingRules`` / ``meshShape`` (the DP x TP
-step, item 12), several hosts or cards, and persistence of the fitted
-transformer (item 8). Setting one of those params raises, and so does
-saving the fitted transformer.
+step, item 12) and several hosts or cards. Setting one of those params
+raises.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from __future__ import annotations
 import copy
 import hashlib
 import json
+import os
+import pickle
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -75,8 +87,7 @@ class TorchImageFileTransformer(
     without one it raises unless ``device="cpu"`` is passed.
     """
 
-    _not_savable = ("persistence of the fitted TorchImageFileTransformer is "
-                    "not ported yet (ROADMAP item 8)")
+    _WEIGHTS_FILE = "torch_model.pt"
 
     def __init__(
         self,
@@ -98,6 +109,76 @@ class TorchImageFileTransformer(
         self.features_only = bool(features_only)
         self.device = resolve_device(device)
         self._placed = False
+
+    # -- persistence: the module pickled without its weights, and the
+    # weights as a CPU state_dict, in one torch.save file (the JAX
+    # package's flax_model.pkl holds the Flax module and its variables)
+    def _module_skeleton(self) -> torch.nn.Module:
+        """A copy of the module whose parameters and persistent buffers are
+        meta tensors (no bytes, no device): its class and attributes."""
+        module = self.module
+        persistent = set(module.state_dict())
+        memo = {}
+        for p in module.parameters():
+            memo[id(p)] = torch.nn.Parameter(torch.empty_like(p, device="meta"),
+                                             requires_grad=p.requires_grad)
+        for name, b in module.named_buffers():
+            memo[id(b)] = (torch.empty_like(b, device="meta") if name in persistent
+                           else b.detach().to("cpu", copy=True))
+        return copy.deepcopy(module, memo)
+
+    def _check_save(self) -> None:
+        """Raise before anything is written if the module does not pickle
+        (a lambda or a nested function as ``attn_impl``)."""
+        try:
+            pickle.dumps(self._module_skeleton())
+        except (pickle.PicklingError, TypeError, AttributeError) as exc:
+            raise ValueError(
+                f"cannot save {type(self).__name__}: its module "
+                f"{type(self.module).__name__} does not pickle ({exc}); give it "
+                "module-level callables (such as attn_impl)"
+            ) from exc
+
+    def _save_artifacts(self, path: str):
+        if self.state_dict is not None and not self._placed:
+            self.module.load_state_dict(self.state_dict, strict=True)
+        weights = {k: v.detach().to("cpu", copy=True)
+                   for k, v in self.module.state_dict().items()}
+        torch.save({"module": self._module_skeleton(), "state_dict": weights},
+                   os.path.join(path, self._WEIGHTS_FILE))
+        return {"batchSize": self.batchSize, "features_only": self.features_only,
+                "device": str(self.device)}
+
+    @classmethod
+    def _load_instance(cls, metadata, path: str, device=None):
+        from sparkdl_tpu_torch.ml.util import _decode_param
+
+        extra, params = metadata["extra"], metadata["params"]
+        payload = torch.load(os.path.join(path, cls._WEIGHTS_FILE), weights_only=False)
+        module = payload["module"]
+        module.load_state_dict(payload["state_dict"], strict=True, assign=True)
+        return cls(
+            inputCol=_decode_param(params["inputCol"], path),
+            outputCol=_decode_param(params["outputCol"], path),
+            imageLoader=_decode_param(params["imageLoader"], path),
+            module=module,
+            batchSize=extra["batchSize"],
+            features_only=extra["features_only"],
+            device=extra["device"] if device is None else device,
+        )
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        """A saved transformer, on the device it was saved with, or on
+        ``device`` (``"cpu"`` loads a card's stage on a machine without
+        one)."""
+        from sparkdl_tpu_torch.ml.util import load_stage
+
+        instance = load_stage(path, **({} if device is None else {"device": device}))
+        if not isinstance(instance, cls):
+            raise TypeError(f"Loaded {type(instance).__name__} from {path}, "
+                            f"expected {cls.__name__}")
+        return instance
 
     def _forward(self):
         module = self.module
@@ -294,7 +375,9 @@ class TorchImageFileEstimator(
         return x, raw.astype(np.int32)
 
     def _per_sample_loss(self):
-        """``(module, batch) -> (batch,)`` per-sample losses."""
+        """``(module, batch) -> (batch,)`` per-sample losses, in float32
+        whatever the module computes in (the weighted mean over them is
+        never taken in bfloat16)."""
         loss_name = self.getOrDefault(self.loss)
         if loss_name == "sparse_categorical_crossentropy":
             # logits-space CE (the module emits logits, unlike the Keras
@@ -312,7 +395,7 @@ class TorchImageFileEstimator(
             raise ValueError(
                 f"loss {loss_name!r} has no per-sample form; use a named loss"
             )
-        return lambda module, batch: per(batch["y"], module(batch["x"]))
+        return lambda module, batch: per(batch["y"], module(batch["x"]).float())
 
     def _fit(self, dataset):
         for p in (self.inputCol, self.outputCol, self.labelCol,

@@ -184,15 +184,15 @@ def _import_class(path: str):
 def _check_savable(stage):
     """Raise before anything is written when ``stage``, or a stage it
     holds, cannot be saved, so that an overwrite never removes the old
-    directory for nothing. A class that cannot be saved names the ROADMAP
-    item it waits for in ``_not_savable``; a composite lists its stages in
+    directory for nothing. A stage with state outside its params checks it
+    in ``_check_save()``; a composite lists its stages in
     ``_held_stages()``. A function-valued param needs the input specs that
     its export traces with (or a loaded program to write back)."""
     from sparkdl_tpu_torch.graph.function import TorchFunction
 
-    reason = getattr(stage, "_not_savable", None)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    check = getattr(stage, "_check_save", None)
+    if check is not None:
+        check()
     for param, value in stage._paramMap.items():
         if (isinstance(value, TorchFunction) and not value.input_specs
                 and value.exported_program is None):
@@ -259,12 +259,14 @@ def load_metadata(path: str) -> Dict[str, Any]:
         return json.load(fh)
 
 
-def load_stage(path: str):
-    """Load any persisted stage without knowing its class up front."""
+def load_stage(path: str, **kwargs):
+    """Load any persisted stage without knowing its class up front.
+    ``kwargs`` go to the class's ``_load_instance`` (such as the device of
+    a ``TorchImageFileTransformer``)."""
     metadata = load_metadata(path)
     cls = _import_class(metadata["class"])
     if hasattr(cls, "_load_instance"):
-        instance = cls._load_instance(metadata, path)
+        instance = cls._load_instance(metadata, path, **kwargs)
     else:
         instance = cls()
     reset_uid(instance, metadata["uid"])

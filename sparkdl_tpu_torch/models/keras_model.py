@@ -24,7 +24,12 @@ The torch counterpart of what ``keras.models.load_model`` and
 - :func:`write_keras_file` writes a ``.keras`` file of a config and its
   weights (with :func:`sparkdl_tpu_torch.utils.hdf5.write`), so a machine
   without Keras can make one; :meth:`KerasModel.keras_weights` gives a
-  module's current weights in that form.
+  module's current weights in that form;
+- :func:`read_legacy_weights` reads a weights-only legacy ``.h5`` (what
+  ``keras.applications`` caches under ``~/.keras/models``, or Keras's
+  legacy ``save_weights``): root ``layer_names``, each layer's
+  ``weight_names``, the arrays at ``<layer>/<weight name>`` and no
+  ``model_config``; :func:`write_legacy_weights` writes one.
 
 Training follows Keras's ``stateless_call(..., training=True)``: under
 ``module.train()`` a ``BatchNormalization`` layer normalises by the batch's
@@ -111,7 +116,8 @@ def read_keras_file(path) -> Tuple[Dict[str, Any], Weights]:
     weights_file = hdf5.File(path)
     if "model_config" not in weights_file.attrs:
         raise ValueError(f"{path}: neither a .keras zip nor an HDF5 file with a "
-                         "model_config attribute")
+                         "model_config attribute (a weights-only file reads with "
+                         "read_legacy_weights)")
     config = json.loads(weights_file.attrs["model_config"])
     root = weights_file["model_weights"] if "model_weights" in weights_file else weights_file
     models = {layer["config"]["name"] for layer in config["config"].get("layers", ())
@@ -125,6 +131,68 @@ def read_keras_file(path) -> Tuple[Dict[str, Any], Weights]:
         else:
             weights[name] = [group[w].read() for w in names]
     return config, weights
+
+
+LegacyWeights = List[Tuple[str, List[Tuple[str, np.ndarray]]]]
+
+
+def read_legacy_weights(path) -> LegacyWeights:
+    """A weights-only legacy ``.h5``: per layer of its ``layer_names``, in
+    order, the (weight name, array) pairs of its ``weight_names``, in
+    order (an empty list for a layer without weights). A full legacy
+    ``.h5`` model (``model_config`` and a ``model_weights`` group) reads
+    from that group, as Keras's ``load_weights`` does."""
+    root = hdf5.File(os.fspath(path))
+    if ("layer_names" not in root.attrs and "layer_names0" not in root.attrs
+            and "model_weights" in root):
+        root = root["model_weights"]
+    layers: LegacyWeights = []
+    for name in _chunked_attribute(root, "layer_names"):
+        group = root[name]
+        names = _chunked_attribute(group, "weight_names")
+        layers.append((name, [(w, group[w].read()) for w in names]))
+    return layers
+
+
+def _legacy_variable_names(layer: Mapping[str, Any], count: int) -> List[str]:
+    """The variable names of a layer of the config, in Keras's order, as a
+    legacy ``.h5`` names its weights."""
+    cls, cfg = layer["class_name"], layer["config"]
+    if cls == "BatchNormalization":
+        names = [v for v, on in (("gamma", cfg.get("scale", True)),
+                                 ("beta", cfg.get("center", True))) if on]
+        names += ["moving_mean", "moving_variance"]
+    else:
+        names = {"Conv2D": ["kernel", "bias"], "Dense": ["kernel", "bias"],
+                 "DepthwiseConv2D": ["depthwise_kernel", "bias"],
+                 "SeparableConv2D": ["depthwise_kernel", "pointwise_kernel", "bias"],
+                 }.get(cls, [])[:count]
+    if len(names) != count:
+        raise NotImplementedError(f"layer {cfg['name']!r} of class {cls} with {count} "
+                                  "weights in a legacy weights file")
+    return names
+
+
+def write_legacy_weights(path, config: Mapping[str, Any], weights: Mapping[str, Any]) -> None:
+    """Write the weights of a config (one without nested models) as the
+    weights-only legacy ``.h5`` Keras's ``save_weights_to_hdf5_group``
+    writes: root ``layer_names`` (every layer, in the config's order),
+    each layer's group with its ``weight_names`` (``<layer>/<variable>``)
+    and the arrays under them."""
+    layers = config["config"]["layers"]
+    tree: Dict[str, Any] = {}
+    attrs: Dict[str, Dict[str, Any]] = {"": {
+        "layer_names": [layer["config"]["name"] for layer in layers],
+        "backend": "torch", "keras_version": _KERAS_VERSION}}
+    for layer in layers:
+        name = layer["config"]["name"]
+        if layer["class_name"] in _MODEL_CLASSES:
+            raise NotImplementedError(f"nested model {name!r} in a legacy weights file")
+        arrays = [np.asarray(a) for a in weights.get(name, ())]
+        variables = _legacy_variable_names(layer, len(arrays))
+        tree[name] = {name: dict(zip(variables, arrays))} if arrays else {}
+        attrs[name] = {"weight_names": [f"{name}/{v}" for v in variables]}
+    hdf5.write(path, tree, attrs)
 
 
 def _chunked_attribute(group, name: str) -> List[str]:

@@ -9,6 +9,10 @@ tree of the JAX package's zoo module (``{"params": ..., "batch_stats":
 :func:`sparkdl_tpu_torch.models.convert.cnn_state_dict_from_flax` carries
 to the port's ``state_dict``.
 
+:func:`keras_layers_view` and :func:`legacy_weights_view` present a Keras
+config with its weights, or a weights-only legacy ``.h5`` (the files
+``keras.applications`` caches), in the same duck-typed form.
+
 Keras auto-names (``conv2d_37``, ``batch_normalization_5``, ...) shift by a
 global uid offset from one construction to the next, but their per-type
 order is stable: :func:`normalized_layer_names` renumbers each auto-named
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.models.convert import cnn_flax_shapes
+from sparkdl_tpu_torch.models.keras_model import _VARIABLE_ORDER, LegacyWeights
 
 # Keras auto-name prefixes that get renumbered per type
 _AUTO_PREFIXES = frozenset(
@@ -93,13 +98,74 @@ def keras_layers_view(config: Mapping[str, Any], weights: Mapping[str, Any]) -> 
     layers = []
     for layer in config["config"]["layers"]:
         cfg = layer["config"]
-        view = type(layer["class_name"], (), {})()
-        view.name = cfg["name"]
-        view.use_bias = cfg.get("use_bias", False)
-        view.scale, view.center = cfg.get("scale", True), cfg.get("center", True)
-        view.get_weights = (lambda arrays: lambda: list(arrays))(weights.get(cfg["name"], []))
-        layers.append(view)
+        flags = {"use_bias": cfg.get("use_bias", False), "scale": cfg.get("scale", True),
+                 "center": cfg.get("center", True)}
+        layers.append(_weights_view(layer["class_name"], cfg["name"],
+                                    weights.get(cfg["name"], []), flags))
     return SimpleNamespace(layers=layers)
+
+
+def _weights_view(cls: str, name: str, arrays, flags: Mapping[str, bool]):
+    """One layer as :func:`port_keras_weights` reads it: an object of class
+    ``cls`` with ``name``, ``get_weights()`` and the flags."""
+    view = type(cls, (), {})()
+    view.name = name
+    for flag, value in flags.items():
+        setattr(view, flag, value)
+    view.get_weights = lambda: list(arrays)
+    return view
+
+
+def _class_of_variables(name: str, variables: Mapping[str, np.ndarray],
+                        depthwise: bool) -> str:
+    """A layer's Keras class, from the names of its variables (and, for a
+    Keras 3 ``DepthwiseConv2D``, whose one weight is named ``kernel``,
+    from ``depthwise``)."""
+    if not variables:
+        return "Layer"
+    if "moving_mean" in variables:
+        return "BatchNormalization"
+    if "depthwise_kernel" in variables:
+        return "SeparableConv2D" if "pointwise_kernel" in variables else "DepthwiseConv2D"
+    if "kernel" in variables and np.ndim(variables["kernel"]) == 4:
+        return "DepthwiseConv2D" if depthwise else "Conv2D"
+    if "kernel" in variables and np.ndim(variables["kernel"]) == 2:
+        return "Dense"
+    raise NotImplementedError(f"no porting rule for layer {name!r} with weights "
+                              f"{sorted(variables)}")
+
+
+def legacy_weights_view(layers: LegacyWeights, depthwise=frozenset()) -> SimpleNamespace:
+    """A weights-only legacy ``.h5``
+    (:func:`~sparkdl_tpu_torch.models.keras_model.read_legacy_weights`) as
+    :func:`port_keras_weights` reads a built Keras model: ``layers`` in the
+    file's ``layer_names`` order, each layer's class told by its variables'
+    names (the last part of each weight name, without a ``:0``):
+    ``moving_mean`` a ``BatchNormalization`` (``scale`` where it has
+    ``gamma``, ``center`` where ``beta``), ``depthwise_kernel`` a
+    ``DepthwiseConv2D`` (Keras 2's name), or with ``pointwise_kernel`` a
+    ``SeparableConv2D``, ``kernel`` of rank 2 a ``Dense`` and of rank 4 a
+    ``Conv2D``, unless the layer's normalized name is in ``depthwise`` (a
+    Keras 3 ``DepthwiseConv2D`` names its weight ``kernel``; the caller's
+    module tells which layers those are); ``use_bias`` where it has
+    ``bias``; the arrays in Keras's variable order."""
+    normalized = normalized_layer_names(
+        SimpleNamespace(layers=[SimpleNamespace(name=name) for name, _ in layers]))
+    views = []
+    for name, pairs in layers:
+        variables: Dict[str, np.ndarray] = {}
+        for weight, array in pairs:
+            var = weight.rsplit("/", 1)[-1].split(":", 1)[0]
+            if var in variables or var not in _VARIABLE_ORDER:
+                raise NotImplementedError(f"weight {weight!r} of layer {name!r} (a nested "
+                                          "model or another layer class)")
+            variables[var] = array
+        cls = _class_of_variables(name, variables, normalized[name] in depthwise)
+        flags = {"use_bias": "bias" in variables, "scale": "gamma" in variables,
+                 "center": "beta" in variables}
+        arrays = [variables[v] for v in _VARIABLE_ORDER if v in variables]
+        views.append(_weights_view(cls, name, arrays, flags))
+    return SimpleNamespace(layers=views)
 
 
 def port_keras_weights(model) -> Dict[str, Any]:

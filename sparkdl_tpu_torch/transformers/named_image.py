@@ -22,9 +22,14 @@ preprocessing the flip is folded into the stem conv's weights instead
   saved stage loads it back;
 - ``"random"``, drawn from a ``torch.Generator`` (seed 0) with the
   distributions of Flax's initialisers: not the JAX package's numbers;
-- ``"imagenet"`` (the default), which without a Keras cache raises as the
-  JAX package does, and with one raises ``NotImplementedError`` (ROADMAP
-  item 5: reading Keras's cache needs Keras or ``h5py``).
+- ``"imagenet"`` (the default): the weights file that
+  ``keras.applications.<Model>(weights="imagenet")`` with its top opens
+  from Keras's cache, ``~/.keras/models/<its file name>``
+  (:data:`IMAGENET_FILES`), read without Keras or ``h5py``
+  (:func:`~sparkdl_tpu_torch.models.keras_model.read_legacy_weights`) and
+  ported as a built Keras model is. Without that file it raises
+  ``RuntimeError`` as the JAX package does (a ``_notop`` file is not it:
+  the constructor with its top never opens one).
 
 A tree or model is ported once per object (memoised by ``id``, holding the
 object, as the JAX package's ``_PORTED_CACHE``), so repeated transforms
@@ -35,7 +40,6 @@ keeps the built module on its device from one transform to the next.
 
 from __future__ import annotations
 
-import glob
 import os
 from typing import Any, Dict, Mapping, Optional
 
@@ -44,9 +48,13 @@ import torch
 
 from sparkdl_tpu_torch.ml.base import Transformer
 from sparkdl_tpu_torch.ml.linalg import DenseVector
-from sparkdl_tpu_torch.models.keras_model import KerasModel
-from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
-from sparkdl_tpu_torch.models.layers import CONV_TYPES
+from sparkdl_tpu_torch.models.keras_model import KerasModel, read_legacy_weights
+from sparkdl_tpu_torch.models.keras_port import (
+    keras_layers_view,
+    legacy_weights_view,
+    port_keras_weights,
+)
+from sparkdl_tpu_torch.models.layers import CONV_TYPES, Conv
 from sparkdl_tpu_torch.models.registry import (
     SUPPORTED_MODELS,
     decode_predictions,
@@ -67,7 +75,8 @@ from sparkdl_tpu_torch.utils.lru import LRUCache
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# (modelName, "random") -> state_dict, shared across stages
+# (modelName, "random") and (modelName, "imagenet", path, mtime) ->
+# state_dict, shared across stages
 _WEIGHTS_CACHE = LRUCache(4)
 
 # (modelName, id(spec)) -> (spec, state_dict) for Flax trees and Keras
@@ -79,19 +88,24 @@ _PORTED_CACHE = LRUCache(4)
 # the strong reference to the weights keeps their id from being reused
 _FORWARD_CACHE = LRUCache(8)
 
-_KERAS_PREFIX = {
-    "InceptionV3": "inception_v3",
-    "Xception": "xception",
-    "ResNet50": "resnet50",
-    "VGG16": "vgg16",
-    "VGG19": "vgg19",
-    "MobileNetV2": "mobilenet_v2",
+#: the imagenet weights file each ``keras.applications`` constructor opens
+#: with its top (``include_top=True``, MobileNetV2 at alpha 1.0 and 224),
+#: as Keras 3.13's ``keras/src/applications/*.py`` name them
+IMAGENET_FILES = {
+    "InceptionV3": "inception_v3_weights_tf_dim_ordering_tf_kernels.h5",
+    "Xception": "xception_weights_tf_dim_ordering_tf_kernels.h5",
+    "ResNet50": "resnet50_weights_tf_dim_ordering_tf_kernels.h5",
+    "VGG16": "vgg16_weights_tf_dim_ordering_tf_kernels.h5",
+    "VGG19": "vgg19_weights_tf_dim_ordering_tf_kernels.h5",
+    "MobileNetV2": "mobilenet_v2_weights_tf_dim_ordering_tf_kernels_1.0_224.h5",
 }
 
 
-def _imagenet_cache_present(model_name: str) -> bool:
-    cache = os.path.expanduser("~/.keras/models")
-    return bool(glob.glob(os.path.join(cache, f"{_KERAS_PREFIX[model_name]}*.h5")))
+def imagenet_cache_file(model_name: str) -> Optional[str]:
+    """The path of ``model_name``'s imagenet weights in Keras's cache
+    (``~/.keras/models``), or None where that file is not there."""
+    path = os.path.join(os.path.expanduser("~/.keras/models"), IMAGENET_FILES[model_name])
+    return path if os.path.isfile(path) else None
 
 
 def _truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
@@ -143,13 +157,19 @@ def _resolve_weights(model_name: str, spec) -> Dict[str, torch.Tensor]:
     """``modelWeights`` -> the ``state_dict`` of the entry's module."""
     entry = get_keras_application_model(model_name)
     if spec is None or spec == "imagenet":
-        if _imagenet_cache_present(model_name):
-            raise NotImplementedError(
-                f"imagenet weights for {model_name}: reading the Keras cache "
-                "needs Keras or h5py, which the port does not use (ROADMAP "
-                "item 5). Pass modelWeights= a built Keras model or a Flax "
-                "variables tree."
-            )
+        path = imagenet_cache_file(model_name)
+        if path is not None:
+            key = (model_name, "imagenet", path, os.path.getmtime(path))
+            state = _WEIGHTS_CACHE.get(key)
+            if state is None:
+                with torch.device("meta"):
+                    module = entry.make_module()
+                depthwise = {name for name, m in module.named_modules()
+                             if isinstance(m, Conv) and m.groups > 1}
+                view = legacy_weights_view(read_legacy_weights(path), depthwise)
+                state = entry.state_dict_from_flax(port_keras_weights(view))
+                _WEIGHTS_CACHE[key] = state
+            return state
         raise RuntimeError(
             f"imagenet weights for {model_name} are unavailable (offline "
             "and no local Keras cache). Pass modelWeights= a built Keras "

@@ -7,8 +7,12 @@ Ports of ``sparkdl_tpu.transformers.utils``:
   and ``run_batched``. The JAX loops padded the ragged last chunk to
   ``batch_size`` so that XLA compiled one static shape; PyTorch runs
   eagerly, so the last chunk runs at its own size and every row still
-  comes back once, in input order. On the card all of them go through one
-  pinned, two-slot loop (:func:`_run_cuda`);
+  comes back once, in input order. All of them run through one loop
+  (:func:`_run_chunks`): a depth-N dispatch window
+  (:mod:`sparkdl_tpu_torch.engine.executor`, ``SPARKDL_DISPATCH_DEPTH``),
+  pinned input buffers on the card, and for ``run_batched_rows`` a
+  two-chunk decode prefetch (:mod:`sparkdl_tpu_torch.data`);
+  ``SPARKDL_SERIAL_INFERENCE=1`` turns the overlaps off;
 - ``decode_image_batch`` and ``make_image_decode_plan`` on their numpy
   paths: uint8 three-channel rows of one size pack as uint8 at source size,
   anything else packs as float32, resized while packing where the sizes are
@@ -29,13 +33,16 @@ Ports of ``sparkdl_tpu.transformers.utils``:
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from concurrent.futures import ThreadPoolExecutor
+import os
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch.data.dataset import Dataset
+from sparkdl_tpu_torch.engine.executor import DispatchWindow, PinnedStaging
 from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.utils.device import place_params, resolve_device  # noqa: F401
 from sparkdl_tpu_torch.utils.lru import LRUCache
@@ -284,53 +291,13 @@ def make_loader_decode_plan(
     return decode
 
 
-def _prefetched(
-    pool: ThreadPoolExecutor,
-    decode: Callable[[Sequence], np.ndarray],
-    rows: Sequence,
-    bounds: Sequence[Tuple[int, int]],
-) -> Iterator[np.ndarray]:
-    """Decoded chunks in order; chunk i+1 decodes on the pool's one thread
-    while the caller runs chunk i."""
-
-    def job(lo, hi):
-        batch = decode(rows[lo:hi])
-        if batch.shape[0] != hi - lo:
-            raise ValueError(
-                f"decode returned {batch.shape[0]} rows for a chunk of "
-                f"{hi - lo}; it must be row-aligned with its input"
-            )
-        return batch
-
-    future = pool.submit(job, *bounds[0])
-    for i in range(len(bounds)):
-        batch = future.result()
-        if i + 1 < len(bounds):
-            future = pool.submit(job, *bounds[i + 1])
-        yield batch
-
-
-class _PinnedSlot:
-    """Pinned host buffers of one chunk in flight (one per input and per
-    output), and the event recorded after the last copy that reads or
-    writes them. A slot is refilled only after that event: a
-    ``non_blocking`` copy still reading a buffer that the host overwrites
-    would ship the next chunk's rows."""
-
-    def __init__(self):
-        self.inp: Dict[int, torch.Tensor] = {}
-        self.out: Dict[int, torch.Tensor] = {}
-        self.done = torch.cuda.Event()
-
-    @staticmethod
-    def _fit(bufs: Dict[int, torch.Tensor], j: int, rows: int,
-             like: torch.Tensor) -> torch.Tensor:
-        buf = bufs.get(j)
-        if buf is None or buf.shape[1:] != like.shape[1:] or buf.dtype != like.dtype:
-            buf = bufs[j] = torch.empty(
-                (rows, *like.shape[1:]), dtype=like.dtype, pin_memory=True
-            )
-        return buf
+def _serial_inference() -> bool:
+    """The kill switch of the pipelined loop: ``SPARKDL_SERIAL_INFERENCE=1``
+    (or true, yes, on) decodes each chunk inline and fetches each result
+    right after its launch (dispatch window depth 0)."""
+    return os.environ.get("SPARKDL_SERIAL_INFERENCE", "").strip().lower() in (
+        "1", "true", "yes", "on",
+    )
 
 
 def _single_output(result) -> torch.Tensor:
@@ -354,29 +321,41 @@ def _outputs(result) -> Tuple[torch.Tensor, ...]:
 def _run_chunks(
     fn: Callable,
     chunks: Iterator[Tuple[np.ndarray, ...]],
-    batch_size: int,
     device: torch.device,
     forward_timer,
+    serial: bool,
 ) -> List[List[np.ndarray]]:
-    """``fn(*inputs)`` over host chunks (tuples of row-aligned arrays of at
-    most ``batch_size`` rows) on ``device``: per output, the host arrays of
+    """``fn(*inputs)`` over host chunks (tuples of row-aligned arrays) on
+    ``device``, through a :class:`DispatchWindow` (depth 0 when ``serial``,
+    else ``SPARKDL_DISPATCH_DEPTH``); on CUDA each chunk goes to the card
+    through :class:`PinnedStaging`. Returns, per output, the host arrays of
     every chunk, in order."""
     collected: List[List[np.ndarray]] = []
 
-    def collect(host: Sequence[np.ndarray]) -> None:
-        if not collected:
-            collected.extend([] for _ in host)
-        for acc, y in zip(collected, host):
-            acc.append(y)
+    def collect(pairs) -> None:
+        for host, _ in pairs:
+            if not collected:
+                collected.extend([] for _ in host)
+            for acc, y in zip(collected, host):
+                acc.append(y)
 
-    if device.type == "cuda":
-        with torch.cuda.device(device):
-            _run_cuda(fn, chunks, batch_size, device, collect, forward_timer)
-    else:
-        for arrays in chunks:
+    window = DispatchWindow(depth=0 if serial else None)
+    cuda = device.type == "cuda"
+    try:
+        with torch.cuda.device(device) if cuda else contextlib.nullcontext():
+            staging = PinnedStaging(device, slots=window.depth + 1) if cuda else None
+            for arrays in chunks:
+                with forward_timer.time():
+                    if cuda:
+                        xs = staging.place(arrays)
+                    else:
+                        xs = tuple(torch.from_numpy(a) for a in arrays)
+                    ys = _outputs(fn(*xs))
+                    collect(window.submit(ys, meta=arrays[0].shape[0]))
             with forward_timer.time():
-                ys = _outputs(fn(*(torch.from_numpy(a).to(device) for a in arrays)))
-                collect([y.detach().cpu().numpy() for y in ys])
+                collect(window.drain())
+    finally:
+        window.abandon()
     return collected
 
 
@@ -389,13 +368,19 @@ def run_batched_rows(
 ) -> np.ndarray:
     """Decode + forward pipeline over row chunks of ``batch_size`` rows.
 
-    - the host decode of chunk i+1 runs on a prefetch thread while chunk i
-      runs;
-    - on CUDA each chunk goes through a pinned host buffer with a
-      ``non_blocking`` host-to-device copy, and comes back with one
-      device-to-host copy into a pinned buffer; two slots alternate, so the
-      host dispatches chunk i+1 before it waits for chunk i.
+    - the decode is a :mod:`sparkdl_tpu_torch.data` pipeline,
+      ``from_items(chunk bounds) -> map(decode) -> prefetch(2)``: up to two
+      chunks decode on a background thread (``sparkdl-decode``) while the
+      card runs, and closing the loop (at its end or on an error) joins it;
+    - the results ride a depth-N :class:`DispatchWindow`
+      (``SPARKDL_DISPATCH_DEPTH``, default 2): each chunk's device-to-host
+      copy starts at once into a pinned buffer, and the host reads it N
+      chunks later;
+    - on CUDA each chunk goes to the card through pinned input buffers with
+      ``non_blocking`` copies (:class:`PinnedStaging`).
 
+    ``SPARKDL_SERIAL_INFERENCE=1`` turns both overlaps off: each chunk
+    decodes inline and each result is fetched after its launch.
     ``decode(chunk_rows) -> np.ndarray`` must be row-aligned with ``rows``;
     ``fn`` takes the batch on ``device`` and returns one tensor. Returns the
     outputs of all rows, in order, as one host array.
@@ -405,18 +390,34 @@ def run_batched_rows(
     if n == 0:
         raise ValueError("run_batched_rows requires non-empty rows")
     bounds = [(lo, min(lo + batch_size, n)) for lo in range(0, n, batch_size)]
+    serial = _serial_inference()
+
+    def decode_chunk(bound: Tuple[int, int]) -> Tuple[np.ndarray]:
+        lo, hi = bound
+        batch = decode(rows[lo:hi])
+        if batch.shape[0] != hi - lo:
+            raise ValueError(
+                f"decode returned {batch.shape[0]} rows for a chunk of "
+                f"{hi - lo}; it must be row-aligned with its input"
+            )
+        return (batch,)
+
+    if serial:
+        chunks = (decode_chunk(b) for b in bounds)
+    else:
+        # prefetch(2) holds at most two decoded chunks ahead of the loop
+        chunks = iter(Dataset.from_items(bounds, name="chunk_bounds")
+                      .map(decode_chunk).prefetch(2, name="sparkdl-decode"))
     # 'sparkdl.forward' times dispatch + fetch; 'sparkdl.serve' the whole
     # loop, load waits included (the rate images_per_sec() reports)
     serve_timer = metrics.timer("sparkdl.serve")
     forward_timer = metrics.timer("sparkdl.forward")
-    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="sparkdl-decode")
     try:
         with serve_timer.time():
-            chunks = ((batch,) for batch in _prefetched(pool, decode, rows, bounds))
             collected = _run_chunks(lambda x: _single_output(fn(x)), chunks,
-                                    batch_size, device, forward_timer)
+                                    device, forward_timer, serial)
     finally:
-        pool.shutdown(wait=True, cancel_futures=True)
+        chunks.close()
     metrics.counter("sparkdl.rows_processed").add(n)
     metrics.counter("sparkdl.batches_run").add(len(bounds))
     return np.concatenate(collected[0], axis=0)
@@ -429,10 +430,11 @@ def run_batched_multi(
     device: "torch.device | str" = "cuda",
 ) -> Tuple[np.ndarray, ...]:
     """``fn(*inputs)`` over row-aligned host arrays in chunks of
-    ``batch_size`` rows on ``device``, through the same loop as
-    :func:`run_batched_rows` (pinned two-slot copies on CUDA). ``fn`` takes
-    one tensor per array and returns one tensor or a tuple. Returns one
-    host array per output, all rows in order."""
+    ``batch_size`` rows on ``device``, through the dispatch window and the
+    pinned staging of :func:`run_batched_rows` (depth 0 under
+    ``SPARKDL_SERIAL_INFERENCE=1``). ``fn`` takes one tensor per array and
+    returns one tensor or a tuple. Returns one host array per output, all
+    rows in order."""
     device = torch.device(device)
     n = arrays[0].shape[0] if len(arrays) else 0
     if n == 0:
@@ -443,7 +445,7 @@ def run_batched_multi(
     forward_timer = metrics.timer("sparkdl.forward")
     with serve_timer.time():
         chunks = (tuple(a[lo:hi] for a in arrays) for lo, hi in bounds)
-        collected = _run_chunks(fn, chunks, batch_size, device, forward_timer)
+        collected = _run_chunks(fn, chunks, device, forward_timer, _serial_inference())
     metrics.counter("sparkdl.rows_processed").add(n)
     metrics.counter("sparkdl.batches_run").add(len(bounds))
     return tuple(np.concatenate(acc, axis=0) for acc in collected)
@@ -457,37 +459,6 @@ def run_batched(
 ) -> np.ndarray:
     """Single-input, single-output :func:`run_batched_multi`."""
     return run_batched_multi(fn, [batch], batch_size, device)[0]
-
-
-def _run_cuda(fn, chunks, batch_size, device, collect, forward_timer):
-    slots = (_PinnedSlot(), _PinnedSlot())
-    pending: List[Tuple[_PinnedSlot, int, int]] = []
-
-    def fetch(slot: _PinnedSlot, k: int, n_out: int) -> None:
-        slot.done.synchronize()
-        collect([slot.out[j][:k].numpy().copy() for j in range(n_out)])
-
-    for i, arrays in enumerate(chunks):
-        with forward_timer.time():
-            k = arrays[0].shape[0]
-            slot = slots[i % 2]
-            slot.done.synchronize()
-            xs = []
-            for j, a in enumerate(arrays):
-                host = torch.from_numpy(a)
-                buf = _PinnedSlot._fit(slot.inp, j, batch_size, host)
-                buf[:k].copy_(host)
-                xs.append(buf[:k].to(device, non_blocking=True))
-            ys = _outputs(fn(*xs))
-            for j, y in enumerate(ys):
-                _PinnedSlot._fit(slot.out, j, batch_size, y)[:k].copy_(y, non_blocking=True)
-            slot.done.record()
-            pending.append((slot, k, len(ys)))
-            if len(pending) == len(slots):
-                fetch(*pending.pop(0))
-    with forward_timer.time():
-        for slot, k, n_out in pending:
-            fetch(slot, k, n_out)
 
 
 _KERAS_FN_CACHE = LRUCache(8)

@@ -24,15 +24,16 @@ naming the object: Keras never writes them, but a user's file could hold
 them.
 
 :func:`write` makes a file of groups, contiguous datasets and string
-attributes (superblock 0, version-1 headers, symbol-table groups): enough to
-write a Keras weights file without ``h5py``.
+attributes, scalar or 1-d (superblock 0, version-1 headers, symbol-table
+groups): enough to write a Keras weights file, ``.keras`` or legacy ``.h5``,
+without ``h5py``.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -540,6 +541,9 @@ class File(Group):
 # the writer
 # ----------------------------------------------------------------------
 
+# the largest attribute message of a version-1 object header (Keras splits
+# longer lists into chunks at 64512 bytes)
+_ATTRIBUTE_LIMIT = 64512
 _LEAF_K = 4       # a symbol table node holds up to 2K entries (h5py's default)
 _INTERNAL_K = 16  # a group B-tree node holds up to 2K children
 
@@ -577,14 +581,27 @@ def _message(mtype: int, data: bytes) -> bytes:
     return struct.pack("<HHB3x", mtype, len(data), 0) + data
 
 
-def _attribute_message(name: str, value: str) -> bytes:
+def _attribute_message(name: str, value: Union[str, Sequence[str]]) -> bytes:
+    """A string attribute: one string (a scalar), or a list of strings (a
+    1-d array of fixed-length strings, null-padded to the longest, as
+    ``h5py`` writes a numpy ``S`` array)."""
     raw_name = name.encode("utf-8") + b"\0"
-    raw = value.encode("utf-8")
-    dtype, space = _string_datatype(max(len(raw), 1)), _dataspace_message(())
+    if isinstance(value, str):
+        raw = value.encode("utf-8")
+        dtype, space = _string_datatype(max(len(raw), 1)), _dataspace_message(())
+        data = raw or b"\0"
+    else:
+        items = [v.encode("utf-8") for v in value]
+        size = max([len(v) for v in items] + [1])
+        dtype, space = _string_datatype(size), _dataspace_message((len(items),))
+        data = b"".join(v + b"\0" * (size - len(v)) for v in items)
     body = struct.pack("<BBHHH", 1, 0, len(raw_name), len(dtype), len(space))
     for part in (raw_name, dtype, space):
         body += part + b"\0" * (_pad8(len(part)) - len(part))
-    return _message(_ATTRIBUTE, body + (raw or b"\0"))
+    if len(body) + len(data) > _ATTRIBUTE_LIMIT:
+        raise ValueError(f"attribute {name!r} takes {len(data)} bytes, more than an "
+                         "HDF5 object header holds; split it into chunks")
+    return _message(_ATTRIBUTE, body + data)
 
 
 class _Writer:
@@ -601,7 +618,7 @@ class _Writer:
         body = b"".join(messages)
         return self._alloc(struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body)
 
-    def dataset(self, value: np.ndarray, attrs: Mapping[str, str]) -> int:
+    def dataset(self, value: np.ndarray, attrs: Mapping[str, Any]) -> int:
         value = np.asarray(value)
         if value.dtype.byteorder == ">":
             value = value.astype(value.dtype.newbyteorder("<"))
@@ -614,7 +631,7 @@ class _Writer:
         messages += [_attribute_message(k, v) for k, v in attrs.items()]
         return self._header(messages)
 
-    def group(self, children: Dict[str, int], attrs: Mapping[str, str]) -> int:
+    def group(self, children: Dict[str, int], attrs: Mapping[str, Any]) -> int:
         names = sorted(children)
         heap = bytearray(8)  # offset 0: the empty name
         offsets = {}
@@ -674,11 +691,12 @@ class _Writer:
 
 
 def write(target: Optional[Union[str, os.PathLike]], tree: Mapping[str, Any],
-          attrs: Optional[Mapping[str, Mapping[str, str]]] = None) -> bytes:
+          attrs: Optional[Mapping[str, Mapping[str, Any]]] = None) -> bytes:
     """Write an HDF5 file of ``tree``: a nested mapping in which a mapping
     is a group and an array a contiguous dataset (little-endian integers or
     floats). ``attrs`` maps an object's path (``""`` or ``"/"`` for the
-    root, ``"a/b"``) to its string attributes. Writes to ``target`` when
+    root, ``"a/b"``) to its attributes: each a string, or a list of strings
+    (a 1-d array of fixed-length strings). Writes to ``target`` when
     given; returns the file's bytes."""
     attrs = {k.strip("/"): v for k, v in (attrs or {}).items()}
     writer = _Writer()

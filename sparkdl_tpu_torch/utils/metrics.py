@@ -14,7 +14,10 @@ sustained rate of the current process; and the always-on part of
 ``estimator.checkpoint_bytes``); the estimators time a resume into
 ``estimator.restore``, and the streaming loader its loads into
 ``sparkdl.load`` and the fit loop's waits for them into
-``sparkdl.load_wait``. Trace spans are not ported yet. Thread-safe.
+``sparkdl.load_wait``; the transform loop's prefetch sets the
+``data.queue_depth`` gauge and observes ``data.device_stall_ms``, its
+dispatch window the ``engine.inflight`` gauge. Trace spans are not ported
+yet. Thread-safe.
 """
 
 from __future__ import annotations
@@ -69,6 +72,24 @@ class Timer:
             return self._seconds
 
 
+class Gauge:
+    """Last-set value (a queue's depth, the results in flight)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
 class Histogram:
     """Every observation, oldest first (a few a fit)."""
 
@@ -87,12 +108,13 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Process-wide named counters, timers and histograms."""
+    """Process-wide named counters, timers, gauges and histograms."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._timers: Dict[str, Timer] = {}
+        self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
 
     def counter(self, name: str) -> Counter:
@@ -107,6 +129,12 @@ class MetricsRegistry:
                 self._timers[name] = Timer(name)
             return self._timers[name]
 
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            if name not in self._gauges:
+                self._gauges[name] = Gauge(name)
+            return self._gauges[name]
+
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             if name not in self._histograms:
@@ -114,15 +142,16 @@ class MetricsRegistry:
             return self._histograms[name]
 
     def snapshot(self, prefix: Optional[str] = None) -> Dict[str, float]:
-        """Flat dict of every counter value, timer total (``.seconds``) and
-        histogram count and sum (``.count``, ``.sum``), keeping only names
-        that start with ``prefix`` when one is given."""
+        """Flat dict of every counter and gauge value, timer total
+        (``.seconds``) and histogram count and sum (``.count``, ``.sum``),
+        keeping only names that start with ``prefix`` when one is given."""
         with self._lock:
             counters = dict(self._counters)
             timers = dict(self._timers)
+            gauges = dict(self._gauges)
             histograms = dict(self._histograms)
         out: Dict[str, float] = {}
-        for name, c in counters.items():
+        for name, c in {**counters, **gauges}.items():
             out[name] = c.value
         for name, t in timers.items():
             out[name + ".seconds"] = t.seconds
@@ -148,6 +177,7 @@ class MetricsRegistry:
         with self._lock:
             self._counters.clear()
             self._timers.clear()
+            self._gauges.clear()
             self._histograms.clear()
 
 

@@ -469,3 +469,47 @@ def test_checkpointed_vit_fit_resumes_on_the_card_bit_for_bit(cuda, tmp_path):
     for name, tensor in resumed.module.state_dict().items():
         assert tensor.device.type == "cuda"
         assert torch.equal(tensor, want[name]), name
+
+
+def test_pinned_buffers_are_reused_only_after_their_copy(cuda, monkeypatch):
+    """The transform loop's pinned input buffers on the card: a buffer is
+    refilled only after the event of the ``non_blocking`` copy that last
+    read it. (a) One slot, the stream held busy by a spin kernel so that
+    the first copy is still queued when the second batch arrives: both
+    batches reach the card whole. (b) ``run_batched_rows`` with a slow
+    decode over 6 chunks, so that each slot is refilled (warm) after its
+    first use (cold), at depths 0-3 and serial, twice each: the same bytes
+    every time, equal to the CPU loop's."""
+    import time
+
+    from sparkdl_tpu_torch.engine.executor import PinnedStaging
+    from sparkdl_tpu_torch.transformers.utils import run_batched_rows
+
+    staging = PinnedStaging(cuda, slots=1)
+    a = np.full((64, 1024), 1.0, np.float32)
+    b = np.full((64, 1024), 2.0, np.float32)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning ahead of the copies
+    xa, = staging.place([a])
+    xb, = staging.place([b])
+    assert torch.equal(xa.cpu(), torch.from_numpy(a))
+    assert torch.equal(xb.cpu(), torch.from_numpy(b))
+
+    def decode(chunk):
+        time.sleep(0.01)
+        return np.stack([np.full((16, 16, 3), r, np.float32) for r in chunk])
+
+    def fn(x):
+        torch.cuda._sleep(2_000_000)
+        return (x * 3.0 - 1.0).sum(dim=(1, 2))
+
+    rows = list(range(45))
+    want = run_batched_rows(lambda x: (x * 3.0 - 1.0).sum(dim=(1, 2)), rows, decode, 8,
+                            device="cpu")
+    for env, value in [("SPARKDL_DISPATCH_DEPTH", d) for d in "0123"] + [
+            ("SPARKDL_SERIAL_INFERENCE", "1")]:
+        with monkeypatch.context() as m:
+            m.setenv(env, value)
+            cold = run_batched_rows(fn, rows, decode, 8, device=cuda)
+            warm = run_batched_rows(fn, rows, decode, 8, device=cuda)
+        assert np.array_equal(cold, warm), (env, value)
+        assert np.array_equal(cold, want), (env, value)

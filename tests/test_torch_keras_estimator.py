@@ -606,16 +606,18 @@ def test_a_keras_model_as_a_param_saves_and_loads(mobilenet, tmp_path, kind):
 
 
 def test_a_param_of_an_unported_stage_is_refused_before_the_disk(bright_rows, tmp_path):
-    """``_check_savable`` still refuses what waits for item 8 before it
+    """``_check_savable`` refuses a stage that cannot be saved (here a ViT
+    stage whose attention is a lambda, which does not pickle) before it
     touches the directory, Keras-model params or not."""
     from sparkdl_tpu_torch import TorchImageFileTransformer, ViT
 
     stage = TorchImageFileTransformer(inputCol="uri", outputCol="out", imageLoader=_loader,
-                                      module=ViT("ViT-Ti/16", num_classes=2, image_size=16),
+                                      module=ViT("ViT-Ti/16", num_classes=2, image_size=16,
+                                                 attn_impl=lambda q, k, v: v),
                                       device="cpu")
     target = tmp_path / "existing"
     target.mkdir()
     (target / "keep").write_text("x")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="does not pickle"):
         stage.write().overwrite().save(str(target))
     assert (target / "keep").read_text() == "x"

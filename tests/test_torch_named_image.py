@@ -301,12 +301,19 @@ def test_read_images_matches_jax(tpu_session, image_dir):
 
 # -- weights and device ---------------------------------------------------
 
-def test_imagenet_weights_raise_without_a_cache(monkeypatch):
-    monkeypatch.setattr(named_image, "_imagenet_cache_present", lambda name: False)
+def test_imagenet_weights_raise_without_a_cache(monkeypatch, tmp_path):
+    """Without Keras's cache file, ``"imagenet"`` (and the default) raise as
+    the JAX package does; a file of another model, or a ``_notop`` one,
+    does not count (the weights read from a cache file:
+    ``tests/test_torch_imagenet_cache.py``)."""
+    monkeypatch.setenv("HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="imagenet weights for InceptionV3"):
         named_image._resolve_weights("InceptionV3", None)
-    monkeypatch.setattr(named_image, "_imagenet_cache_present", lambda name: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    cache = tmp_path / ".keras" / "models"
+    cache.mkdir(parents=True)
+    (cache / "inception_v3_weights_tf_dim_ordering_tf_kernels_notop.h5").write_bytes(b"")
+    (cache / named_image.IMAGENET_FILES["ResNet50"]).write_bytes(b"")
+    with pytest.raises(RuntimeError, match="imagenet weights for InceptionV3"):
         named_image._resolve_weights("InceptionV3", "imagenet")
 
 
