@@ -224,6 +224,31 @@ prints no result):
    same bytes in every mode; images/s over 5 rounds that take the modes in
    turn, with ``sparkdl.load``, ``sparkdl.decode``, ``sparkdl.forward``,
    ``sparkdl.serve`` and ``data.device_stall_ms``.
+14. the engine and online serving, in a temporary compile-cache directory.
+   (a) ViT-B/16 in bf16 (phase 5's seeded weights, flash attention) served
+   through ``ModelServer.from_torch_function`` with
+   ``ServingConfig(max_batch=32, max_wait_ms=2)`` and a durable
+   fingerprint: ``warmup()`` compiles the slot-block program with
+   AOTInductor (``ExecutionEngine``), then 256 single 224x224 images from
+   16 threads. Checks: each row within 3% of the largest value of the
+   float32 plain forward (dense attention, one image at a time);
+   ``serving.compiles`` unchanged after warmup; at most 64 blocks; the
+   lse-free forward launched 12 times a dispatched block. (b) A second
+   process builds the same server on the same cache directory: its warmup
+   loads from disk (``engine.cache_hit``, no ``engine.compile``), and its
+   program's output on one full block equals the cold program's bit for
+   bit. (c) Phase 10's ``.keras`` InceptionV3 through
+   ``registerKerasImageUDF`` and ``ModelServer.from_registered_udf``, 128
+   299x299 image structs decoded by the client, from 8 threads: rows
+   against the UDF's SQL rows and the plain forward at ``SLICE_TOL``, no
+   attention launch. (d) ``SPARKDL_RAGGED=0`` on the ViT endpoint at
+   ``max_batch=4``: the ladder compiles three programs, 32 requests from 4
+   threads held as in (a); then 16 decode streams of 4-16 steps admitted
+   mid-flight into 8 slots of a torch step compiled through the engine,
+   each equal to its closed form. Timed: each warmup (compile or load),
+   requests/s and p50/p99 latency per endpoint, the decode run; measured:
+   the card memory of the ViT endpoint's weights, of its slot-block
+   program and of the ladder's three programs, and the package's size.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -3130,6 +3155,364 @@ def ported_paths_remainder(card: str, counted, train_params, f32_step_ms: float)
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the engine and online serving
+# ---------------------------------------------------------------------------
+P14_VARIANT = "ViT-B/16"
+P14_IMAGE = 224
+P14_DEVICE = "cuda"
+P14_REQUESTS = 256      # (a): single-image requests ...
+P14_THREADS = 16        # ... from this many threads
+P14_UDF_REQUESTS = 128  # (c)
+P14_UDF_THREADS = 8
+P14_PADDED_REQUESTS = 32  # (d), from 4 threads
+P14_STREAMS = 16        # (d): decode streams ...
+P14_SLOTS = 8           # ... into this many slots
+P14_FINGERPRINT = "chip-smoke:vit-b16:flax-seed2:bf16"
+#: code the warm-start process runs after importing this script as ``cs``
+#: (a scratch harness that shrinks phase 14 for the CPU shrinks it there too)
+P14_CHILD_PRELUDE = ""
+P14_WARM_START = """
+import json, sys, time
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+{prelude}
+from sparkdl_tpu_torch.ops.flash_attention import FLASH_FWD
+from sparkdl_tpu_torch.utils.metrics import metrics
+FLASH_FWD.build()
+server = cs.vit_server(cs.flax_layout_vit_params(seed=2, classes=cs.N_CLASSES), 32)
+t0 = time.perf_counter()
+server.warmup()
+load_s = time.perf_counter() - t0
+report = server.status()["program_cache"]["warmup"]["vit"]["ragged"]
+block = torch.from_numpy(np.load({block!r})).to(cs.P14_DEVICE)
+mask = torch.ones(block.shape[0], dtype=torch.bool, device=cs.P14_DEVICE)
+ep = server._endpoints["vit"]
+out = ep._ragged_program()(ep._params, block, mask).cpu().numpy()
+np.save({out!r}, out)
+server.close()
+print(json.dumps({{"source": report["source"], "load_s": load_s,
+                   **metrics.snapshot("engine.")}}))
+"""
+
+
+def vit_server(train_params, max_batch: int):
+    """Phase 14's ViT-B/16 endpoint: phase 5's seeded weights in a bf16
+    flash ViT, served through ``ModelServer.from_torch_function`` with a
+    durable fingerprint (a warm start in another process loads it)."""
+    import torch
+
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+
+    module = ViT(variant=P14_VARIANT, num_classes=N_CLASSES, image_size=P14_IMAGE,
+                 attn_impl="flash", dtype=torch.bfloat16)
+    module.load_state_dict(vit_state_dict_from_flax(train_params), strict=True)
+    fn = TorchFunction.from_module(module.to(P14_DEVICE).eval())
+    fn.fingerprint = P14_FINGERPRINT
+    fn.input_specs = [((1, P14_IMAGE, P14_IMAGE, 3), np.float32)]
+    return ModelServer.from_torch_function(
+        fn, model_id="vit", config=ServingConfig(max_batch=max_batch, max_wait_ms=2.0),
+        device=P14_DEVICE)
+
+
+def serve_from_threads(server, items, n_threads: int):
+    """Each of ``n_threads`` threads sends its share of ``items`` one request
+    at a time (item i by thread i % n_threads) and waits for each result.
+    Returns the results in item order, each request's latency (ms, the
+    client's clock) and the wall seconds of the whole."""
+    import threading
+
+    out, lat = [None] * len(items), [0.0] * len(items)
+    barrier = threading.Barrier(n_threads + 1)
+    errors = []
+
+    def client(t):
+        barrier.wait()
+        try:
+            for i in range(t, len(items), n_threads):
+                t0 = time.perf_counter()
+                out[i] = server.predict(items[i], timeout=600)
+                lat[i] = 1e3 * (time.perf_counter() - t0)
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(n_threads)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return np.stack(out), lat, wall
+
+
+def serving_line(label: str, n: int, lat, wall: float, card: str) -> str:
+    p50, p99 = np.percentile(lat, [50, 99])
+    return (f"{label}: {n} requests in {wall:.3f} s = {n / wall:.1f} requests/s, latency "
+            f"p50 {p50:.2f} ms, p99 {p99:.2f} ms ({card})")
+
+
+def vit_plain_f32(train_params, images):
+    """The float32 plain forward, unbatched: ViT-B/16 with dense attention
+    on each image alone."""
+    import torch
+
+    from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    module = ViT(variant=P14_VARIANT, num_classes=N_CLASSES, image_size=P14_IMAGE,
+                 attn_impl="full")
+    module.load_state_dict(vit_state_dict_from_flax(train_params), strict=True)
+    module = module.to(P14_DEVICE).eval()
+    with torch.inference_mode():
+        return np.stack([module(torch.from_numpy(x[None]).to(P14_DEVICE))[0].cpu().numpy()
+                         for x in images])
+
+
+def check_bf16_rows(label: str, got, want) -> float:
+    err = float(np.abs(got - want).max())
+    bound = CNN_BF16_MAX_REL * float(np.abs(want).max())
+    log(f"  {label}: max_abs_err {err:.4e} against the float32 plain forward "
+        f"(bound {bound:.4e}: 3% of its largest value)")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > bound:
+        raise AssertionError(f"{label}: served rows off the float32 plain forward by {err}")
+    return err
+
+
+def device_used() -> int:
+    """Bytes in use on the card as its driver counts them (so a loaded
+    program's own allocations count too), the caching allocator's free
+    blocks released first."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def mib(n: float) -> str:
+    return f"{n / 2**20:.1f} MiB"
+
+
+def online_serving(card: str, counted, train_params) -> int:
+    """Phase 14: ``ModelServer`` on the card through ``ExecutionEngine``
+    (AOTInductor programs in a persistent cache): (a) a ViT-B/16 bf16
+    endpoint through #1, (b) its warm start from disk in another process,
+    (c) the Keras InceptionV3 UDF endpoint, (d) the padded ladder and the
+    decode plane. Returns the lse-free forward's launches of (a) and (d)."""
+    import gzip
+    import os
+
+    import torch
+
+    from sparkdl_tpu_torch import registerKerasImageUDF
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct, imageStructToArray
+    from sparkdl_tpu_torch.models.keras_model import write_keras_file
+    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+    from sparkdl_tpu_torch.sql.functions import col
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
+
+    reset, read = counted
+    blocks = VIT_VARIANTS[P14_VARIANT][2]  # flash launches a forward: one per block
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serving-") as tmp, \
+            scoped_env(SPARKDL_COMPILE_CACHE=os.path.join(tmp, "programs"),
+                       SPARKDL_RAGGED="1"):
+        tmp = Path(tmp)
+        rng = np.random.default_rng(14)
+        images = rng.random((P14_REQUESTS, P14_IMAGE, P14_IMAGE, 3), dtype=np.float32)
+        want = vit_plain_f32(train_params, images)
+
+        # (a) the ViT-B/16 endpoint, ragged, through the flash forward
+        metrics.reset()
+        used0 = device_used()
+        server = vit_server(train_params, 32)
+        used1 = device_used()
+        t0 = time.perf_counter()
+        assert server.warmup() == {"vit": ("ragged",)}
+        cold_s = time.perf_counter() - t0
+        used2 = device_used()
+        status = server.status()["program_cache"]
+        report = status["warmup"]["vit"]["ragged"]
+        weights = sum(t.numel() * t.element_size()
+                      for t in server._endpoints["vit"]._params.values())
+        log(f"serving (a): ViT-B/16 bf16 slot block of 32, warmup {cold_s:.2f} s "
+            f"({report['source']}; engine.compile {metrics.timer('engine.compile').seconds:.2f} s)"
+            f" ({card})")
+        log(f"  (a) card memory: the endpoint's weights {mib(used1 - used0)} ({mib(weights)} of "
+            f"params), its slot-block program {mib(used2 - used1)} more; the package on disk "
+            f"{mib(status['persistent']['bytes'])}")
+        if report["source"] != "compile":
+            raise AssertionError(f"the cold warmup did not compile: {report}")
+        compiles = metrics.counter("serving.compiles").value
+        batches0 = metrics.counter("serving.batches").value
+        reset()
+        got, lat, wall = serve_from_threads(server, images, P14_THREADS)
+        counts = read()
+        batches = metrics.counter("serving.batches").value - batches0
+        log(serving_line(f"  (a) {P14_THREADS} threads", P14_REQUESTS, lat, wall, card))
+        snap = metrics.snapshot("serving.")
+        log(f"  (a) {batches:.0f} blocks, occupancy mean {snap['serving.batch_occupancy.mean']:.3f}; "
+            f"server-side latency p50 {snap['serving.latency_ms.p50']:.2f} ms, p99 "
+            f"{snap['serving.latency_ms.p99']:.2f} ms; launches {counts}")
+        check_bf16_rows("(a) served rows", got, want)
+        if metrics.counter("serving.compiles").value != compiles:
+            raise AssertionError("serving compiled after warmup")
+        if batches > P14_REQUESTS // 4:
+            raise AssertionError(f"{P14_REQUESTS} requests took {batches} blocks")
+        if list(counts.values()) != [blocks * batches, 0, 0, 0]:
+            raise AssertionError(f"(a) launches {counts}, expected {blocks} x {batches} "
+                                 "dispatched blocks")
+        launches += counts["flash_attention_fwd"]
+
+        # (b) a warm start: another process, the same cache directory
+        block = images[:32]
+        np.save(tmp / "block.npy", block)
+        block_dev = torch.from_numpy(block).to(P14_DEVICE)
+        mask = torch.ones(32, dtype=torch.bool, device=P14_DEVICE)
+        ep = server._endpoints["vit"]
+        cold_out = ep._ragged_program()(ep._params, block_dev, mask).cpu().numpy()
+        server.close()
+        del server, ep
+        code = P14_WARM_START.format(root=str(Path(__file__).resolve().parent),
+                                     prelude=P14_CHILD_PRELUDE,
+                                     block=str(tmp / "block.npy"), out=str(tmp / "warm.npy"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=600)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the warm-start process failed:\n{proc.stderr[-3000:]}")
+        warm = json.loads(proc.stdout.strip().splitlines()[-1])
+        warm_out = np.load(tmp / "warm.npy")
+        log(f"serving (b): warm start in a second process ({process_s:.1f} s in all): "
+            f"{warm['source']}, warmup {warm['load_s']:.2f} s (of it engine.cache_load "
+            f"{warm.get('engine.cache_load.seconds', 0.0):.2f} s), engine.cache_hit "
+            f"{warm.get('engine.cache_hit', 0):.0f}, engine.compile "
+            f"{warm.get('engine.compile.seconds', 0.0):.2f} s; block of 32 bit for bit "
+            f"{warm_out.tobytes() == cold_out.tobytes()} ({card})")
+        if warm["source"] != "disk" or warm.get("engine.cache_miss", 0) or \
+                warm.get("engine.compile.seconds", 0.0):
+            raise AssertionError(f"the warm start compiled: {warm}")
+        if warm_out.tobytes() != cold_out.tobytes():
+            raise AssertionError("the loaded program's block differs from the cold program's")
+
+        # (c) the Keras InceptionV3 UDF endpoint
+        config = json.loads(gzip.decompress(KERAS_CONFIG.read_bytes()))
+        path = str(tmp / "inception_v3.keras")
+        write_keras_file(path, config, keras_inception_weights(config, seed=11))
+        session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+        udf = registerKerasImageUDF("inception_serving", path, session=session,
+                                    device=P14_DEVICE)
+        bgr = rng.integers(0, 256, (P14_UDF_REQUESTS, 299, 299, 3), dtype=np.uint8)
+        structs = [imageArrayToStruct(a, origin=f"img_{i}") for i, a in enumerate(bgr)]
+        # a client decodes each struct (stored BGR) to the model's RGB floats
+        items = [imageStructToArray(s)[..., ::-1].astype(np.float32) for s in structs]
+        metrics.reset()
+        udf_server = ModelServer.from_registered_udf(
+            "inception_serving", session=session,
+            config=ServingConfig(max_batch=32, max_wait_ms=2.0))
+        t0 = time.perf_counter()
+        udf_server.warmup()
+        udf_s = time.perf_counter() - t0
+        log(f"serving (c): Keras InceptionV3 UDF endpoint, float32 slot block of 32, warmup "
+            f"{udf_s:.2f} s ({card})")
+        reset()
+        got, lat, wall = serve_from_threads(udf_server, items, P14_UDF_THREADS)
+        counts = read()
+        udf_server.close()
+        log(serving_line(f"  (c) {P14_UDF_THREADS} threads", P14_UDF_REQUESTS, lat, wall, card)
+            + f"; {metrics.counter('serving.batches').value:.0f} blocks; launches {counts}")
+        if any(counts.values()):
+            raise AssertionError(f"the Keras endpoint launched attention kernels: {counts}")
+        df = session.createDataFrame([{"i": i, "image": s} for i, s in enumerate(structs)],
+                                     numPartitions=4)
+        rows = sorted(df.select(col("i"), udf("image").alias("p")).collect(),
+                      key=lambda r: r["i"])
+        sql = np.stack([np.asarray(r["p"]) for r in rows])
+        fn = TorchFunction.from_keras(path)
+        plain = np.concatenate([fn(np.stack(items[i:i + 32]), device=P14_DEVICE).cpu().numpy()
+                                for i in range(0, len(items), 32)])
+        np.testing.assert_allclose(got, sql, **SLICE_TOL)
+        np.testing.assert_allclose(got, plain, **SLICE_TOL)
+        log(f"  (c) served rows against the UDF's SQL rows max_abs_err "
+            f"{np.abs(got - sql).max():.3e}, against the plain forward "
+            f"{np.abs(got - plain).max():.3e}")
+
+        # (d) the padded ladder, and the decode plane
+        with scoped_env(SPARKDL_RAGGED="0"):
+            metrics.reset()
+            padded = vit_server(train_params, 4)
+            used0 = device_used()
+            t0 = time.perf_counter()
+            warmed = padded.warmup()
+            ladder_s = time.perf_counter() - t0
+            ladder_mem = device_used() - used0
+            if warmed != {"vit": (1, 2, 4)} or metrics.counter("serving.compiles").value != 3:
+                raise AssertionError(f"the padded ladder warmed {warmed}")
+            report = padded.status()["program_cache"]["warmup"]["vit"]
+            log(f"serving (d): padded ladder (1, 2, 4) warmup {ladder_s:.2f} s: "
+                + ", ".join(f"bucket {b} {r['seconds']:.2f} s" for b, r in report.items())
+                + f"; the three programs {mib(ladder_mem)} of card memory beside the weights"
+                + f" ({card})")
+            batches0 = metrics.counter("serving.batches").value
+            reset()
+            got, lat, wall = serve_from_threads(padded, images[:P14_PADDED_REQUESTS], 4)
+            counts = read()
+            batches = metrics.counter("serving.batches").value - batches0
+            padded.close()
+        log(serving_line("  (d) padded, 4 threads", P14_PADDED_REQUESTS, lat, wall, card)
+            + f"; {batches:.0f} batches; launches {counts}")
+        check_bf16_rows("(d) padded rows", got, want[:P14_PADDED_REQUESTS])
+        if list(counts.values()) != [blocks * batches, 0, 0, 0]:
+            raise AssertionError(f"(d) launches {counts}, expected {blocks} x {batches} "
+                                 "batches")
+        launches += counts["flash_attention_fwd"]
+
+        def step(carries):
+            return carries + 1.0, carries[:, 0].clone()
+
+        def init(prompt):
+            return np.asarray([float(np.sum(prompt)), 0.0], np.float32)
+
+        metrics.reset()
+        decoder = ModelServer(device=P14_DEVICE)
+        decoder.register_decode("dec", step, init, max_steps=64, n_slots=P14_SLOTS,
+                                fingerprint="chip-smoke:counting-step")
+        # the first stream binds the carry shape and compiles the step
+        if decoder.decode([0.0], max_steps=2, timeout=600).tolist() != [0.0, 1.0]:
+            raise AssertionError("the first decode stream is not the closed form")
+        decode_compile_s = metrics.timer("engine.compile").seconds
+        source = decoder.warmup()["dec"]
+        t0 = time.perf_counter()
+        reqs = [decoder.submit_decode([float(i)], max_steps=4 + 3 * (i % 5))
+                for i in range(P14_STREAMS)]
+        outs = [r.future.result(timeout=300) for r in reqs]
+        decode_s = time.perf_counter() - t0
+        decoder.close()
+        for i, out in enumerate(outs):
+            if out.tolist() != [float(i + k) for k in range(4 + 3 * (i % 5))]:
+                raise AssertionError(f"decode stream {i} gave {out.tolist()}")
+        log(f"  (d) decode: {P14_STREAMS} streams into {P14_SLOTS} slots; the step compiled "
+            f"in {decode_compile_s:.2f} s (then {source[0]}); "
+            f"{int(metrics.counter('decode.tokens').value)} tokens in "
+            f"{int(metrics.counter('decode.steps').value)} fused steps, {decode_s:.3f} s; "
+            f"every stream the closed form")
+    return launches
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -3146,7 +3529,36 @@ def import_package() -> bool:
     return True
 
 
+def host_build_env() -> str:
+    """The environment of this script's own AOTInductor builds and loads,
+    set for it and the processes it starts, before torch is imported
+    (Inductor reads both variables when its config is imported):
+
+    - ``CXX``: a package's C++ must link OpenMP, and a ``CXX`` that is a
+      wrapper with search paths of its own may not find OpenMP's link
+      spec, so the script builds with the ``g++`` on ``PATH``, the host
+      compiler ``nvcc`` takes;
+    - ``TORCHINDUCTOR_VEC_ISA_OK=1``: the first compile or load in a
+      process probes the CPU's vector instruction sets by starting a
+      Python process that imports torch for each; the variable trusts the
+      CPU's flags for most of them, which pays where starting torch is
+      slow (a check or two that does not read it still probes).
+
+    Returns a line that says what was set."""
+    import os
+    import shutil
+
+    before = os.environ.get("CXX")
+    gxx = shutil.which("g++")
+    if gxx is not None:
+        os.environ["CXX"] = gxx
+    os.environ.setdefault("TORCHINDUCTOR_VEC_ISA_OK", "1")
+    return (f"host build environment: CXX={os.environ.get('CXX')!r} (was {before!r}), "
+            f"TORCHINDUCTOR_VEC_ISA_OK={os.environ['TORCHINDUCTOR_VEC_ISA_OK']}")
+
+
 def main() -> int:
+    compiler = host_build_env()
     import torch
 
     # phase 1: the package, the device
@@ -3161,6 +3573,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} | nvidia-smi: {card} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    log(compiler)
 
     from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
     from sparkdl_tpu_torch.models.vit import ViT
@@ -3664,6 +4077,10 @@ def main() -> int:
     for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
                                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         record["launches"] += remainder[key]
+
+    # phase 14: the engine and online serving: the ViT-B/16 endpoint through
+    # #1 (ragged and padded), its warm start, the Keras UDF endpoint, decode
+    records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params)
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -33,9 +33,10 @@ preprocessing the flip is folded into the stem conv's weights instead
 
 A tree or model is ported once per object (memoised by ``id``, holding the
 object, as the JAX package's ``_PORTED_CACHE``), so repeated transforms
-reuse one ``state_dict`` and so one cached module. The JAX package's engine
-and AOT compile cache (ROADMAP item 9) have no counterpart: a small cache
-keeps the built module on its device from one transform to the next.
+reuse one ``state_dict`` and so one cached module. The stages run their
+modules eagerly, where the JAX package compiles them through its engine
+(whether an AOT compile pays here is ROADMAP item D's question): a small
+cache keeps the built module on its device from one transform to the next.
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ Ports of ``sparkdl_tpu.transformers.utils``:
   the stored BGR order. The C++ ``native/batchpack.cpp`` bridge is not
   ported yet (ROADMAP item 13);
 - ``normalize_channels``, ``place_params``, ``make_input_prologue`` and
-  ``load_keras_function``;
+  ``load_keras_function``; ``pad_to_batch``, ``shape_bucket`` and
+  ``bucket_ladder``, the padded serving ladder's;
 - ``device_resize`` and ``cast_and_resize_on_device``. The resize is
   ``jax.image.resize(..., "bilinear")``'s: half-pixel centers, a triangle
   kernel widened by the downscale factor (antialiasing), weights
@@ -224,6 +225,43 @@ def make_image_decode_plan(
         )
 
     return decode
+
+
+def pad_to_batch(batch: np.ndarray, batch_size: int) -> np.ndarray:
+    """``batch``'s leading dim padded up to ``batch_size`` by repeating the
+    last row (the caller slices the pad rows off). A real row, not zeros,
+    keeps the pad inert for row-independent forwards without feeding the
+    model values it never sees."""
+    k = batch.shape[0]
+    if k >= batch_size:
+        return batch
+    return np.concatenate([batch, np.repeat(batch[-1:], batch_size - k, axis=0)], axis=0)
+
+
+def shape_bucket(n: int, max_batch: int) -> int:
+    """The padded leading dim of an ``n``-row batch: the smallest power of
+    two at least ``n``, capped at ``max_batch`` (always its own bucket,
+    power of two or not)."""
+    if n <= 0:
+        raise ValueError(f"shape_bucket requires n >= 1, got {n}")
+    if n >= max_batch:
+        return int(max_batch)
+    return min(1 << (int(n) - 1).bit_length(), int(max_batch))
+
+
+def bucket_ladder(max_batch: int) -> Tuple[int, ...]:
+    """Every bucket :func:`shape_bucket` gives for ``max_batch``: the
+    program set a padded serving endpoint compiles at warmup, so that no
+    request shape compiles at request time."""
+    if max_batch <= 0:
+        raise ValueError(f"bucket_ladder requires max_batch >= 1, got {max_batch}")
+    out = []
+    b = 1
+    while b < max_batch:
+        out.append(b)
+        b <<= 1
+    out.append(int(max_batch))
+    return tuple(out)
 
 
 def cast_and_resize_on_device(

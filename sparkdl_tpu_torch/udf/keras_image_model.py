@@ -15,9 +15,15 @@ pipeline transformers, on ``device`` (the card unless ``"cpu"`` is set):
   ``preprocessor(path) -> ndarray`` does all the loading and preprocessing;
   its output goes to the model unchanged.
 
-Not ported: the JAX package compiles the forward ahead of time through its
-engine with a persistent-cache fingerprint (ROADMAP item 9), and hangs a
-``_serving_endpoint`` on the UDF for its online server (item 10).
+The UDF (and the copy the session's registry keeps) carries
+``_serving_endpoint``: the fused forward (cast, resize and model) with the
+placed params it takes, its item contract and the fingerprint ``keras_udf:<file fingerprint>:<size>``, so
+that ``ModelServer.from_registered_udf`` serves the same model online,
+compiled ahead of time through the engine and persisted under that
+fingerprint. The SQL batch path itself runs the forward eagerly, where the
+JAX package compiles it through its engine: an AOTInductor compile of every
+batch stage would cost minutes a model before its first row (ROADMAP item D
+asks whether it pays on the card's host-bound forwards).
 """
 
 from __future__ import annotations
@@ -79,13 +85,18 @@ def registerKerasImageUDF(
     fn = _resolve_model(keras_model_or_file, compute_dtype=computeDtype)
     size = getattr(fn, "input_hw", None)
     device = resolve_device(device)
-    params = fn.placed_params(device)
+    # contiguous, so that the online endpoint (which takes its weights
+    # contiguous) shares this copy
+    params = {k: v.contiguous() for k, v in fn.placed_params(device).items()}
 
-    def forward(x: torch.Tensor) -> torch.Tensor:
+    def forward_core(p, x: torch.Tensor) -> torch.Tensor:
         # batches arrive at source size (uint8 where they can): cast and
         # resize on the device, then the model
+        return fn.apply(p, cast_and_resize_on_device(x, size))[0]
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return fn.apply(params, cast_and_resize_on_device(x, size))[0]
+            return forward_core(params, x)
 
     def evaluate(values):
         if not values:
@@ -113,8 +124,23 @@ def registerKerasImageUDF(
         return [DenseVector(v) for v in flat]
 
     udf = UserDefinedFunction(evaluate, name=udfName, vectorized=True)
+    # the online-serving hook: the fused forward and its item contract, for
+    # ModelServer.from_registered_udf (which compiles it). A file-loader UDF
+    # keeps item_shape=None: the first request binds it
+    base_fp = getattr(fn, "fingerprint", None)
+    udf._serving_endpoint = {
+        "model_id": udfName,
+        "forward": forward_core,
+        "params": params,
+        "item_shape": (size[0], size[1], 3) if size is not None else None,
+        "dtype": np.float32,
+        "device": device,
+        "fingerprint": f"keras_udf:{base_fp}:{size}" if base_fp else None,
+    }
     from sparkdl_tpu_torch.sql.session import TorchSession
 
     session = session or TorchSession.getActiveSession()
-    session.udf.register(udfName, udf)
+    registered = session.udf.register(udfName, udf)
+    # the registry re-wraps the UDF: the hook rides on its copy too
+    registered._serving_endpoint = udf._serving_endpoint
     return udf

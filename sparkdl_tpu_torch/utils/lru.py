@@ -44,3 +44,23 @@ class LRUCache:
             self._data.move_to_end(key)
             while len(self._data) > self.maxsize:
                 self._data.popitem(last=False)
+
+    def pop(self, key) -> bool:
+        """Drop ``key``; True when it was there."""
+        with self._lock:
+            return self._data.pop(key, _MISSING) is not _MISSING
+
+    def keys(self) -> list:
+        """The keys, least recently used first."""
+        with self._lock:
+            return list(self._data)
+
+    def clear(self) -> int:
+        """Drop every entry; returns how many."""
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+            return n
+
+
+_MISSING = object()

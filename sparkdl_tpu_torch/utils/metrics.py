@@ -16,14 +16,21 @@ sustained rate of the current process; and the always-on part of
 ``sparkdl.load`` and the fit loop's waits for them into
 ``sparkdl.load_wait``; the transform loop's prefetch sets the
 ``data.queue_depth`` gauge and observes ``data.device_stall_ms``, its
-dispatch window the ``engine.inflight`` gauge. Trace spans are not ported
-yet. Thread-safe.
+dispatch window the ``engine.inflight`` gauge; the engine counts
+``engine.cache_hit`` and ``engine.cache_miss`` and times ``engine.compile``
+and ``engine.cache_load``; the serving plane keeps its ``serving.*``,
+``batcher.*`` and ``decode.*`` series, its latencies as histograms whose
+snapshot gives the p50, p95 and p99 of the last 4096 observations. Trace
+spans, exemplars and the Prometheus text are not ported yet (ROADMAP item
+14). Thread-safe.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional
 
@@ -90,21 +97,56 @@ class Gauge:
             return self._value
 
 
+#: how many of its latest observations a histogram keeps for quantiles
+HISTOGRAM_WINDOW = 4096
+
+
 class Histogram:
-    """Every observation, oldest first (a few a fit)."""
+    """A distribution: lifetime count and sum, and the last
+    :data:`HISTOGRAM_WINDOW` observations for quantiles (a serving
+    endpoint's p99 is of recent traffic, not of a cold start's compile, and
+    a long-lived server's memory stays bounded)."""
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
-        self._values: List[float] = []
+        self._values: "deque[float]" = deque(maxlen=HISTOGRAM_WINDOW)
+        self._count = 0
+        self._sum = 0.0
 
     def observe(self, value: float) -> None:
         with self._lock:
             self._values.append(float(value))
+            self._count += 1
+            self._sum += float(value)
 
     def values(self) -> List[float]:
+        """The observations in the window, oldest first."""
         with self._lock:
             return list(self._values)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def total(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def quantile(self, q: float) -> Optional[float]:
+        """The linearly interpolated quantile ``q`` of the window; None when
+        it is empty."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        data = sorted(self.values())
+        if not data:
+            return None
+        rank = q * (len(data) - 1)
+        lo = math.floor(rank)
+        hi = min(lo + 1, len(data) - 1)
+        return data[lo] * (1.0 - (rank - lo)) + data[hi] * (rank - lo)
 
 
 class MetricsRegistry:
@@ -144,6 +186,8 @@ class MetricsRegistry:
     def snapshot(self, prefix: Optional[str] = None) -> Dict[str, float]:
         """Flat dict of every counter and gauge value, timer total
         (``.seconds``) and histogram count and sum (``.count``, ``.sum``),
+        with, once it has observations, its mean and the p50, p95 and p99
+        of its window (``.mean``, ``.p50``, ``.p95``, ``.p99``),
         keeping only names that start with ``prefix`` when one is given."""
         with self._lock:
             counters = dict(self._counters)
@@ -156,9 +200,13 @@ class MetricsRegistry:
         for name, t in timers.items():
             out[name + ".seconds"] = t.seconds
         for name, h in histograms.items():
-            values = h.values()
-            out[name + ".count"] = len(values)
-            out[name + ".sum"] = sum(values)
+            count, total = h.count, h.total
+            out[name + ".count"] = count
+            out[name + ".sum"] = total
+            if count:
+                out[name + ".mean"] = total / count
+                for q in (50, 95, 99):
+                    out[f"{name}.p{q}"] = h.quantile(q / 100)
         if prefix is not None:
             out = {k: v for k, v in out.items() if k.startswith(prefix)}
         return out

@@ -351,7 +351,7 @@ def test_a_scope_off_the_main_thread_polls_without_a_handler():
 
 
 def test_fault_plan_fires_at_the_nth_call_and_resets():
-    plan = FaultPlan().add("estimator.step", raise_=ValueError, at=2)
+    plan = FaultPlan().add("estimator.step", error=ValueError, at=2)
     for _ in range(2):
         # each activation starts the plan's counts again
         with active_plan(plan):
@@ -374,7 +374,7 @@ def test_fault_plan_preempts_through_the_scope():
 @pytest.mark.parametrize("kwargs,match", [
     ({"site": "data.map", "preempt": True, "at": 1}, "unknown fault site"),
     ({"site": "estimator.step", "at": 1}, "exactly one action"),
-    ({"site": "estimator.step", "preempt": True, "raise_": ValueError, "at": 1},
+    ({"site": "estimator.step", "preempt": True, "error": ValueError, "at": 1},
      "exactly one action"),
 ])
 def test_fault_plan_refuses_rules_it_cannot_fire(kwargs, match):

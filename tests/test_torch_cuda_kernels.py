@@ -513,3 +513,30 @@ def test_pinned_buffers_are_reused_only_after_their_copy(cuda, monkeypatch):
             warm = run_batched_rows(fn, rows, decode, 8, device=cuda)
         assert np.array_equal(cold, warm), (env, value)
         assert np.array_equal(cold, want), (env, value)
+
+
+def test_engine_program_launches_the_kernel_and_loads_from_disk(cuda, tmp_path):
+    """A ViT-Ti flash function compiled by the engine (AOTInductor) on the
+    card: the program calls the forward op (12 launches a call) and gives
+    the eager function's rows; a second engine on the same cache directory
+    loads the package instead of compiling, and its rows are the first's
+    bit for bit."""
+    from sparkdl_tpu_torch.engine import ExecutionEngine, PersistentCompileCache
+    from sparkdl_tpu_torch.models.vit import ViT
+
+    torch.manual_seed(0)
+    module = ViT(variant="ViT-Ti/16", num_classes=4, image_size=32,
+                 attn_impl="flash").to(cuda).eval()
+    x = torch.from_numpy(np.random.RandomState(0).rand(3, 32, 32, 3).astype(np.float32))
+    x = x.to(cuda)
+    cache = PersistentCompileCache(str(tmp_path / "programs"))
+    cold = ExecutionEngine(cache=cache).program(module, (x,), fingerprint="vit-ti:seed0")
+    launches = FLASH_FWD.launches
+    got = cold(x)
+    torch.cuda.synchronize()
+    assert cold.source == "compile" and FLASH_FWD.launches == launches + 12
+    with torch.inference_mode():
+        torch.testing.assert_close(got, module(x), atol=5e-4, rtol=5e-3)
+    warm = ExecutionEngine(cache=cache).program(module, (x,), fingerprint="vit-ti:seed0")
+    assert warm.source == "disk" and warm.key == cold.key
+    assert torch.equal(warm(x), got)

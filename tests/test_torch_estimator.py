@@ -687,7 +687,7 @@ def test_preemption_resumes_bit_identical(flax_params, train_df, straight_fits, 
 def test_an_error_after_a_save_still_commits_it(flax_params, train_df, tmp_path):
     ckpt = str(tmp_path / "ck")
     est = _ckpt_estimator(flax_params, 2, ckpt)
-    with active_plan(FaultPlan().add("estimator.checkpoint_saved", raise_=OSError, at=1)):
+    with active_plan(FaultPlan().add("estimator.checkpoint_saved", error=OSError, at=1)):
         with pytest.raises(OSError, match="injected fault"):
             est.fit(train_df)
     assert checkpointing.committed_epochs(ckpt, est._ckpt_namespace()) == [1]

@@ -248,6 +248,18 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.resilience.errors",
         "sparkdl_tpu_torch.resilience.inject",
         "sparkdl_tpu_torch.resilience.preempt",
+        "sparkdl_tpu_torch.engine.cache",
+        "sparkdl_tpu_torch.engine.core",
+        "sparkdl_tpu_torch.engine.slots",
+        "sparkdl_tpu_torch.resilience.policy",
+        "sparkdl_tpu_torch.resilience.watchdog",
+        "sparkdl_tpu_torch.serving.errors",
+        "sparkdl_tpu_torch.serving.admission",
+        "sparkdl_tpu_torch.serving.cache",
+        "sparkdl_tpu_torch.serving.batcher",
+        "sparkdl_tpu_torch.serving.decode",
+        "sparkdl_tpu_torch.serving.server",
+        "sparkdl_tpu_torch.serving",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -263,7 +275,11 @@ def test_port_sources_import_no_jax():
                    "udf/keras_image_model.py", "parallel/keras_train.py",
                    "estimators/keras_image_file_estimator.py", "estimators/checkpointing.py",
                    "estimators/optimizers.py", "resilience/__init__.py", "resilience/errors.py",
-                   "resilience/inject.py", "resilience/preempt.py"):
+                   "resilience/inject.py", "resilience/preempt.py", "resilience/policy.py",
+                   "resilience/watchdog.py", "engine/cache.py", "engine/core.py",
+                   "engine/slots.py", "serving/__init__.py", "serving/errors.py",
+                   "serving/admission.py", "serving/cache.py", "serving/batcher.py",
+                   "serving/decode.py", "serving/server.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:
