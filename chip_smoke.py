@@ -245,10 +245,36 @@ prints no result):
    ``max_batch=4``: the ladder compiles three programs, 32 requests from 4
    threads held as in (a); then 16 decode streams of 4-16 steps admitted
    mid-flight into 8 slots of a torch step compiled through the engine,
-   each equal to its closed form. Timed: each warmup (compile or load),
+   each equal to its closed form. (e) The InceptionV3 UDF endpoint's
+   compiled slot-block program called straight through
+   ``ExecutionEngine.program`` (a memory hit: no batcher, no compile) with
+   the Keras model's kernels in their own non-contiguous layout: rows
+   within ``SLICE_TOL`` of the plain forward (the engine's runner makes
+   every tensor leaf contiguous). Timed: each warmup (compile or load),
    requests/s and p50/p99 latency per endpoint, the decode run; measured:
    the card memory of the ViT endpoint's weights, of its slot-block
    program and of the ladder's three programs, and the package's size.
+15. the data pipeline and streaming inference, while phase 14's ViT
+   endpoint is still open. (a) Phase 4's 64 images as ``.npy`` files
+   through ``Dataset.from_files -> map(np.load, 8 workers) -> batch(32,
+   cyclic) -> prefetch -> prefetch_to_device`` (pinned buffers, a
+   side-stream copy) into the eager bf16 flash ViT-B/16 (phase 5's
+   weights): rows bit for bit those of the same batches placed with
+   ``.to()``, 12 launches of #1 a batch; images/s of both in turns and
+   ``data.device_stall_ms``. (b) ``StreamRunner.from_server`` over the
+   endpoint: phase 14's 256 images from a ``QueueSource`` in micro-batches
+   of 32 into a ``JsonlSink``, tracing on: every offset once, each row
+   within 3% of the float32 plain forward's largest value, no compile, 12
+   launches a served block, the run's poll, epoch and commit spans and
+   the request and batch spans, ``metrics_text()`` with the ``serving.*``
+   and ``streaming.*`` series; records/s, the epochs and
+   ``streaming.record_latency_ms``. (c) Exactly once on the card: a worker
+   process scores ``FileTailSource`` records of the 64 URIs with the eager
+   ViT, uninterrupted; another is killed by a ``SPARKDL_FAULT_PLAN`` rule at
+   ``streaming.commit`` 2 (exit 9) and restarted: each offset once, the
+   replayed epoch bit for bit its payload, rows within the bf16 bound of
+   the uninterrupted run; then an in-process preemption
+   (``request_preemption``) flushes and a second runner resumes.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -3197,21 +3223,28 @@ print(json.dumps({{"source": report["source"], "load_s": load_s,
 """
 
 
-def vit_server(train_params, max_batch: int):
-    """Phase 14's ViT-B/16 endpoint: phase 5's seeded weights in a bf16
-    flash ViT, served through ``ModelServer.from_torch_function`` with a
-    durable fingerprint (a warm start in another process loads it)."""
+def bf16_vit(train_params):
+    """Phase 5's seeded weights in an eager bf16 flash ViT-B/16 on the card
+    (phases 14 and 15)."""
     import torch
 
-    from sparkdl_tpu_torch.graph import TorchFunction
     from sparkdl_tpu_torch.models.convert import vit_state_dict_from_flax
     from sparkdl_tpu_torch.models.vit import ViT
-    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
 
     module = ViT(variant=P14_VARIANT, num_classes=N_CLASSES, image_size=P14_IMAGE,
                  attn_impl="flash", dtype=torch.bfloat16)
     module.load_state_dict(vit_state_dict_from_flax(train_params), strict=True)
-    fn = TorchFunction.from_module(module.to(P14_DEVICE).eval())
+    return module.to(P14_DEVICE).eval()
+
+
+def vit_server(train_params, max_batch: int):
+    """Phase 14's ViT-B/16 endpoint: phase 5's seeded weights in a bf16
+    flash ViT, served through ``ModelServer.from_torch_function`` with a
+    durable fingerprint (a warm start in another process loads it)."""
+    from sparkdl_tpu_torch.graph import TorchFunction
+    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+
+    fn = TorchFunction.from_module(bf16_vit(train_params))
     fn.fingerprint = P14_FINGERPRINT
     fn.input_specs = [((1, P14_IMAGE, P14_IMAGE, 3), np.float32)]
     return ModelServer.from_torch_function(
@@ -3276,13 +3309,13 @@ def vit_plain_f32(train_params, images):
                          for x in images])
 
 
-def check_bf16_rows(label: str, got, want) -> float:
+def check_bf16_rows(label: str, got, want, against: str = "the float32 plain forward") -> float:
     err = float(np.abs(got - want).max())
     bound = CNN_BF16_MAX_REL * float(np.abs(want).max())
-    log(f"  {label}: max_abs_err {err:.4e} against the float32 plain forward "
+    log(f"  {label}: max_abs_err {err:.4e} against {against} "
         f"(bound {bound:.4e}: 3% of its largest value)")
     if got.shape != want.shape or not np.isfinite(got).all() or err > bound:
-        raise AssertionError(f"{label}: served rows off the float32 plain forward by {err}")
+        raise AssertionError(f"{label}: rows off {against} by {err}")
     return err
 
 
@@ -3302,12 +3335,47 @@ def mib(n: float) -> str:
     return f"{n / 2**20:.1f} MiB"
 
 
-def online_serving(card: str, counted, train_params) -> int:
+def udf_program_repair(udf_server, fn, items, plain) -> None:
+    """Phase 14 (e), the repair of a package given non-contiguous weights:
+    the UDF endpoint's compiled slot-block program called straight through
+    ``ExecutionEngine.program`` (a memory hit, no batcher, no compile) with
+    the Keras model's weights in their own layout (``fn.placed_params``:
+    the kernels are transposed views), its rows held to the plain forward
+    at ``SLICE_TOL``."""
+    import torch
+
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    ep = udf_server._endpoints[next(iter(udf_server._endpoints))]
+    raw = fn.placed_params(P14_DEVICE)
+    strided = sum(not v.is_contiguous() for v in raw.values() if isinstance(v, torch.Tensor))
+    if not strided:
+        raise AssertionError("(e) the Keras kernels are all contiguous: nothing to repair")
+    compiles = metrics.timer("engine.compile").entries
+    hits = metrics.counter("engine.cache_hit").value
+    n = ep._pool.n_slots
+    block, mask = ep._place(np.stack(items[:n]).astype(ep._dtype), np.ones(n, bool))
+    repaired = ep._ragged_program()(raw, block, mask).cpu().numpy()
+    if metrics.timer("engine.compile").entries != compiles or \
+            metrics.counter("engine.cache_hit").value != hits:
+        raise AssertionError("(e) resolving the UDF's program did not hit memory")
+    err = float(np.abs(repaired - plain[:n]).max())
+    log(f"  (e) the UDF's compiled program called through the engine with {strided} "
+        f"non-contiguous kernels of {len(raw)} weights: {n} rows max_abs_err {err:.3e} "
+        f"against the plain forward (SLICE_TOL {SLICE_TOL}), no compile")
+    np.testing.assert_allclose(repaired, plain[:n], **SLICE_TOL)
+
+
+def online_serving(card: str, counted, train_params, then=None) -> int:
     """Phase 14: ``ModelServer`` on the card through ``ExecutionEngine``
     (AOTInductor programs in a persistent cache): (a) a ViT-B/16 bf16
     endpoint through #1, (b) its warm start from disk in another process,
-    (c) the Keras InceptionV3 UDF endpoint, (d) the padded ladder and the
-    decode plane. Returns the lse-free forward's launches of (a) and (d)."""
+    (c) the Keras InceptionV3 UDF endpoint, (e) its compiled program called
+    straight through the engine with the Keras model's non-contiguous
+    kernels, (d) the padded ladder and the decode plane. ``then(server,
+    images, want)`` runs last, with (a)'s endpoint still open and its
+    programs in memory (phase 15 streams through it). Returns the lse-free
+    forward's launches of (a) and (d)."""
     import gzip
     import os
 
@@ -3384,8 +3452,7 @@ def online_serving(card: str, counted, train_params) -> int:
         mask = torch.ones(32, dtype=torch.bool, device=P14_DEVICE)
         ep = server._endpoints["vit"]
         cold_out = ep._ragged_program()(ep._params, block_dev, mask).cpu().numpy()
-        server.close()
-        del server, ep
+        del ep  # the endpoint stays open for phase 15, its programs in memory
         code = P14_WARM_START.format(root=str(Path(__file__).resolve().parent),
                                      prelude=P14_CHILD_PRELUDE,
                                      block=str(tmp / "block.npy"), out=str(tmp / "warm.npy"))
@@ -3432,7 +3499,6 @@ def online_serving(card: str, counted, train_params) -> int:
         reset()
         got, lat, wall = serve_from_threads(udf_server, items, P14_UDF_THREADS)
         counts = read()
-        udf_server.close()
         log(serving_line(f"  (c) {P14_UDF_THREADS} threads", P14_UDF_REQUESTS, lat, wall, card)
             + f"; {metrics.counter('serving.batches').value:.0f} blocks; launches {counts}")
         if any(counts.values()):
@@ -3450,6 +3516,9 @@ def online_serving(card: str, counted, train_params) -> int:
         log(f"  (c) served rows against the UDF's SQL rows max_abs_err "
             f"{np.abs(got - sql).max():.3e}, against the plain forward "
             f"{np.abs(got - plain).max():.3e}")
+
+        udf_program_repair(udf_server, fn, items, plain)
+        udf_server.close()
 
         # (d) the padded ladder, and the decode plane
         with scoped_env(SPARKDL_RAGGED="0"):
@@ -3510,6 +3579,335 @@ def online_serving(card: str, counted, train_params) -> int:
             f"{int(metrics.counter('decode.tokens').value)} tokens in "
             f"{int(metrics.counter('decode.steps').value)} fused steps, {decode_s:.3f} s; "
             f"every stream the closed form")
+        if then is not None:
+            then(server, images, want)
+        server.close()
+    return launches
+
+
+P15_IMAGES = 64          # (a): phase 4's images, from .npy files ...
+P15_BATCH = 32           # ... in batches of this many
+P15_MAP_WORKERS = 8
+P15_ROUNDS = 3           # (a): pipeline and plain placement, in turns
+P15_STREAM_BATCH = 32    # (b): StreamRunner micro-batch over phase 14's 256 images
+P15_WORKER_BATCH = 16    # (c): the worker's micro-batch over the URI records
+P15_KILL_AT = 2          # (c): the streaming.commit call the worker dies at
+P15_WORKER = """
+import json, os, sys
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+{prelude}
+from sparkdl_tpu_torch.ops.flash_attention import FLASH_FWD
+from sparkdl_tpu_torch.streaming import FileTailSource, JsonlSink, StreamRunner
+FLASH_FWD.build()
+module = cs.bf16_vit(cs.flax_layout_vit_params(seed=2, classes=cs.N_CLASSES))
+workdir = {workdir!r}
+runner = StreamRunner(FileTailSource(os.path.join(workdir, "in.jsonl")), cs.uri_scorer(module),
+                      JsonlSink(os.path.join(workdir, "out.jsonl")), os.path.join(workdir, "log"),
+                      config=cs.worker_config(), pack=False)
+summary = runner.run(idle_timeout_s=1.0)
+print(json.dumps({{"summary": summary, "launches": FLASH_FWD.launches}}))
+"""
+
+
+def uri_scorer(module):
+    """Phase 15 (c)'s scoring function: a micro-batch of ``{"uri": path}``
+    records loaded and stacked on the host, then the eager bf16 ViT on the
+    card; the runner takes the result through its dispatch window."""
+    import torch
+
+    def score(values):
+        x = torch.from_numpy(np.stack([np.load(v["uri"]) for v in values]))
+        with torch.inference_mode():
+            return module(x.to(P14_DEVICE))
+
+    return score
+
+
+def worker_config():
+    from sparkdl_tpu_torch.streaming import StreamConfig
+
+    # a queue of one micro-batch: a preemption flushes what was admitted,
+    # and the resumed run has the rest to do
+    return StreamConfig(max_batch=P15_WORKER_BATCH, max_wait_ms=20.0,
+                        poll_batch=P15_WORKER_BATCH, poll_interval_ms=2.0,
+                        queue_capacity=P15_WORKER_BATCH)
+
+
+def sink_rows(path) -> list:
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.endswith("\n")]
+
+
+def exactly_once(label: str, rows, n: int) -> dict:
+    """The sink's rows by offset; raises unless offsets 1..n each appear
+    once (FileTailSource offsets are byte positions: then their count and
+    uniqueness)."""
+    offsets = [r["offset"] for r in rows]
+    if len(offsets) != n or len(set(offsets)) != n:
+        raise AssertionError(f"{label}: {len(offsets)} rows, {len(set(offsets))} distinct "
+                             f"offsets for {n} records")
+    return {r["offset"]: r for r in rows}
+
+
+def streaming_inference(card: str, counted, train_params, server, images, want) -> int:
+    """Phase 15: the data pipeline and streaming inference on the card. (a)
+    ``Dataset.from_files`` over phase 4's images, a threaded load, cyclic
+    batches of 32, ``prefetch`` and ``prefetch_to_device`` (a pinned buffer
+    and a side-stream copy) into the eager bf16 flash ViT-B/16: rows bit for
+    bit those of the same batches placed by ``.to()``. (b)
+    ``StreamRunner.from_server`` over phase 14's endpoint, 256 records into a
+    ``JsonlSink``, tracing on: each offset once, within the bf16 bound of the
+    float32 plain forward, no compile. (c) exactly-once on the card: a
+    worker process scoring ``FileTailSource`` URI records, uninterrupted,
+    then killed at ``streaming.commit`` and restarted; then an in-process
+    preemption flushed and resumed. Returns #1's launches of (a), (b) and
+    (c)'s in-process runs."""
+    import io
+    import os
+
+    import torch
+
+    from sparkdl_tpu_torch.data import Dataset
+    from sparkdl_tpu_torch.obs import JsonlTraceSink, tracer
+    from sparkdl_tpu_torch.resilience import preempt
+    from sparkdl_tpu_torch.streaming import (
+        CommitLog,
+        JsonlSink,
+        QueueSource,
+        StreamConfig,
+        StreamRunner,
+    )
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
+
+    reset, read = counted
+    blocks = VIT_VARIANTS[P14_VARIANT][2]
+    launches = 0
+    module = bf16_vit(train_params)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(1)  # phase 4's images
+        uris = []
+        for i in range(P15_IMAGES):
+            uris.append(str(tmp / f"img_{i:03d}.npy"))
+            np.save(uris[-1], rng.random((P14_IMAGE, P14_IMAGE, 3), dtype=np.float32))
+
+        # (a) the pipeline, against the same batches placed plainly
+        def load(pair):
+            return np.load(io.BytesIO(pair[1]))
+
+        def batches():
+            return (Dataset.from_files(uris).map(load, num_workers=P15_MAP_WORKERS)
+                    .batch(P15_BATCH, pad="cyclic"))
+
+        def run(pipelined: bool):
+            source = batches().prefetch(2).prefetch_to_device(device=P14_DEVICE) \
+                if pipelined else batches()
+            rows = []
+            with torch.inference_mode():
+                for b in source:
+                    x = b.items if pipelined else torch.from_numpy(b.items).to(P14_DEVICE)
+                    rows.append(module(x).float()[:b.n_real])
+            return torch.cat(rows).cpu().numpy()
+
+        plain = run(False)
+        metrics.reset()
+        reset()
+        piped = run(True)
+        counts = read()
+        n_batches = -(-P15_IMAGES // P15_BATCH)
+        if list(counts.values()) != [blocks * n_batches, 0, 0, 0]:
+            raise AssertionError(f"(a) launches {counts}, expected {blocks} x {n_batches}")
+        launches += counts["flash_attention_fwd"]
+        if piped.tobytes() != plain.tobytes():
+            raise AssertionError(f"(a) prefetch_to_device rows differ from plain placement by "
+                                 f"{np.abs(piped - plain).max()}")
+        walls = {True: [], False: []}
+        for _ in range(P15_ROUNDS):
+            for pipelined in (True, False):
+                t0 = time.perf_counter()
+                run(pipelined)
+                walls[pipelined].append(time.perf_counter() - t0)
+        snap = metrics.snapshot("data.")
+        log(f"stream (a): Dataset.from_files -> map({P15_MAP_WORKERS} workers) -> "
+            f"batch({P15_BATCH}, cyclic) -> prefetch -> prefetch_to_device, {P15_IMAGES} "
+            f"images into the eager bf16 flash ViT-B/16: rows bit for bit those of plain "
+            f"placement; launches {counts} ({card})")
+        log(f"  (a) images/s, prefetch_to_device: "
+            + ", ".join(f"{P15_IMAGES / w:.1f}" for w in walls[True])
+            + "; plain .to(): " + ", ".join(f"{P15_IMAGES / w:.1f}" for w in walls[False])
+            + f"; data.device_stall_ms mean {snap.get('data.device_stall_ms.mean', 0.0):.3f} "
+            f"ms, p99 {snap.get('data.device_stall_ms.p99', 0.0):.3f} ms over "
+            f"{snap.get('data.device_stall_ms.count', 0):.0f} waits; data.rows_out "
+            f"{snap.get('data.rows_out', 0):.0f}")
+
+        # (b) StreamRunner.from_server over phase 14's endpoint, traced
+        compiles = metrics.timer("engine.compile").entries
+        served_compiles = metrics.counter("serving.compiles").value
+        batches0 = metrics.counter("serving.batches").value
+        spans = JsonlTraceSink(capacity=1 << 16)
+        tracer.enable(spans)
+        try:
+            src = QueueSource()
+            src.put_all(list(images))
+            src.end()
+            runner = StreamRunner.from_server(
+                src, server, JsonlSink(str(tmp / "served.jsonl")), str(tmp / "served_log"),
+                model_id="vit",
+                config=StreamConfig(max_batch=P15_STREAM_BATCH, max_wait_ms=5.0,
+                                    poll_batch=64, poll_interval_ms=2.0),
+                encode=lambda rec, out: {"offset": int(rec.offset),
+                                         "output": np.asarray(out).tolist()})
+            reset()
+            t0 = time.perf_counter()
+            summary = runner.run()
+            wall = time.perf_counter() - t0
+            counts = read()
+            text = server.metrics_text()
+        finally:
+            tracer.disable()
+        served = metrics.counter("serving.batches").value - batches0
+        by_offset = exactly_once("(b)", sink_rows(tmp / "served.jsonl"), len(images))
+        if sorted(by_offset) != list(range(1, len(images) + 1)):
+            raise AssertionError("(b) the sink's offsets are not the source's")
+        got = np.stack([np.asarray(by_offset[i + 1]["output"], np.float32)
+                        for i in range(len(images))])
+        check_bf16_rows("(b) streamed rows", got, want)
+        if metrics.timer("engine.compile").entries != compiles or \
+                metrics.counter("serving.compiles").value != served_compiles:
+            raise AssertionError("(b) the stream compiled a program")
+        if list(counts.values()) != [blocks * served, 0, 0, 0]:
+            raise AssertionError(f"(b) launches {counts}, expected {blocks} x {served} blocks")
+        launches += counts["flash_attention_fwd"]
+        names = {sp["name"] for sp in spans.spans()}
+        missing = {"streaming.run", "streaming.poll", "streaming.epoch", "streaming.commit",
+                   "serving.request", "serving.batch"} - names
+        if missing or spans.dropped:
+            raise AssertionError(f"(b) spans missing {missing} (dropped {spans.dropped})")
+        for series in ("serving_requests", "serving_batches", "serving_latency_ms",
+                       "streaming_records_in", "streaming_epochs_committed",
+                       "streaming_record_latency_ms"):
+            if series not in text:
+                raise AssertionError(f"(b) metrics_text() lacks {series}")
+        lat = metrics.snapshot("streaming.record_latency_ms")
+        log(f"stream (b): StreamRunner.from_server over phase 14's endpoint, {len(images)} "
+            f"records in {wall:.3f} s = {len(images) / wall:.1f} records/s, "
+            f"{summary['epochs']} epochs, {served:.0f} served blocks, "
+            f"streaming.record_latency_ms p50 {lat['streaming.record_latency_ms.p50']:.2f} ms, "
+            f"p99 {lat['streaming.record_latency_ms.p99']:.2f} ms; engine.compile 0; "
+            f"launches {counts}; {len(spans)} spans ({len(names)} names), metrics_text "
+            f"{len(text.splitlines())} lines ({card})")
+        # where an epoch's time goes, from the spans: the score call (the
+        # rows submitted to the endpoint, their futures awaited) and the
+        # commit (payload, sink and marker, each written and fsync-ed)
+        for name in ("streaming.epoch", "streaming.commit", "serving.batch"):
+            ms = np.array([sp["duration_ms"] for sp in spans.find(name)])
+            log(f"  (b) {name} spans: {len(ms)}, mean {ms.mean():.2f} ms, max {ms.max():.2f} "
+                f"ms, sum {ms.sum():.1f} ms")
+
+        # (c) exactly-once on the card: a worker process, killed and restarted
+        records = [{"uri": u} for u in uris]
+
+        def workdir(name):
+            path = tmp / name
+            path.mkdir()
+            with open(path / "in.jsonl", "w") as fh:
+                fh.writelines(json.dumps(r) + "\n" for r in records)
+            return path
+
+        def worker(path, plan=None):
+            env = dict(os.environ)
+            env.pop("SPARKDL_FAULT_PLAN", None)
+            if plan is not None:
+                env["SPARKDL_FAULT_PLAN"] = json.dumps(plan)
+            code = P15_WORKER.format(root=str(Path(__file__).resolve().parent),
+                                     prelude=P14_CHILD_PRELUDE, workdir=str(path))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                                  text=True, timeout=600)
+            return proc, time.perf_counter() - t0
+
+        t_c = time.perf_counter()
+        clean_dir, killed_dir = workdir("clean"), workdir("killed")
+        proc, clean_s = worker(clean_dir)
+        if proc.returncode != 0:
+            raise AssertionError(f"(c) the uninterrupted worker failed:\n{proc.stderr[-3000:]}")
+        clean_launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
+        clean = exactly_once("(c) uninterrupted", sink_rows(clean_dir / "out.jsonl"), len(records))
+        proc, killed_s = worker(killed_dir, [{"site": "streaming.commit", "kill": True,
+                                              "at": P15_KILL_AT}])
+        if proc.returncode != 9:
+            raise AssertionError(f"(c) the killed worker exited {proc.returncode}, not 9:\n"
+                                 f"{proc.stderr[-3000:]}")
+        log_dir = CommitLog(str(killed_dir / "log"))
+        pending = log_dir.pending()
+        if not pending:
+            raise AssertionError("(c) the kill left no payload without its marker")
+        payloads = {e: log_dir.payload(e)["records"] for e in pending}
+        proc, restart_s = worker(killed_dir)
+        if proc.returncode != 0:
+            raise AssertionError(f"(c) the restarted worker failed:\n{proc.stderr[-3000:]}")
+        restarted = json.loads(proc.stdout.strip().splitlines()[-1])["summary"]
+        if restarted["replayed"] != len(pending) or log_dir.pending():
+            raise AssertionError(f"(c) the restart replayed {restarted['replayed']} of "
+                                 f"{len(pending)} pending epochs")
+        rows = sink_rows(killed_dir / "out.jsonl")
+        resumed = exactly_once("(c) killed and restarted", rows, len(records))
+        if set(resumed) != set(clean):
+            raise AssertionError("(c) the restarted sink holds other offsets")
+        for epoch, recs in payloads.items():
+            lines = [{k: v for k, v in r.items() if k != "epoch"} for r in rows
+                     if r["epoch"] == epoch]
+            if json.dumps(lines) != json.dumps(recs):
+                raise AssertionError(f"(c) replayed epoch {epoch} differs from its payload")
+        by_uri = {r["input"]["uri"]: np.asarray(r["output"], np.float32) for r in clean.values()}
+        got = np.stack([np.asarray(r["output"], np.float32) for r in resumed.values()])
+        ref = np.stack([by_uri[r["input"]["uri"]] for r in resumed.values()])
+        check_bf16_rows("(c) restarted rows", got, ref, against="the uninterrupted run")
+
+        # ... and an in-process preemption: flushed, then resumed
+        src = QueueSource()
+        src.put_all(records)
+        sink_path = tmp / "preempted.jsonl"
+        score = uri_scorer(module)
+        scored = []
+
+        def scored_then_preempted(values):
+            # the first micro-batch asks for a preemption, as SIGTERM would:
+            # the loop stops at its next check and flushes what was admitted
+            if not scored:
+                preempt.request_preemption("chip smoke preemption")
+            scored.append(len(values))
+            return score(values)
+
+        runner = StreamRunner(src, scored_then_preempted, JsonlSink(str(sink_path)),
+                              str(tmp / "preempted_log"), config=worker_config(), pack=False)
+        reset()
+        summary = runner.run()
+        src.end()
+        second = StreamRunner(src, uri_scorer(module), JsonlSink(str(sink_path)),
+                              str(tmp / "preempted_log"), config=worker_config(),
+                              pack=False).run()
+        counts = read()
+        launches += counts["flash_attention_fwd"]
+        preempted = exactly_once("(c) preempted and resumed", sink_rows(sink_path),
+                                 len(records))
+        got = np.stack([np.asarray(r["output"], np.float32) for r in preempted.values()])
+        ref = np.stack([by_uri[r["input"]["uri"]] for r in preempted.values()])
+        check_bf16_rows("(c) preempted rows", got, ref, against="the uninterrupted run")
+        if summary["stop_reason"] != "preempted" or second["stop_reason"] != "source_finished":
+            raise AssertionError(f"(c) preemption: {summary['stop_reason']}, then "
+                                 f"{second['stop_reason']}")
+        log(f"stream (c): worker processes over {len(records)} FileTailSource URI records: "
+            f"uninterrupted {clean_s:.1f} s ({clean_launches} launches), killed at "
+            f"streaming.commit {P15_KILL_AT} (exit 9) {killed_s:.1f} s, restarted "
+            f"{restart_s:.1f} s replaying epochs {sorted(payloads)} bit for bit from their "
+            f"payloads; every offset once; preempted in process after "
+            f"{summary['epochs']} epochs, resumed for {second['epochs']}; (c) in all "
+            f"{time.perf_counter() - t_c:.1f} s ({card})")
     return launches
 
 
@@ -4079,8 +4477,16 @@ def main() -> int:
         record["launches"] += remainder[key]
 
     # phase 14: the engine and online serving: the ViT-B/16 endpoint through
-    # #1 (ragged and padded), its warm start, the Keras UDF endpoint, decode
-    records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params)
+    # #1 (ragged and padded), its warm start, the Keras UDF endpoint and its
+    # program given non-contiguous weights, decode; then phase 15 (the data
+    # pipeline with device prefetch and streaming inference, exactly once)
+    # while phase 14's ViT endpoint is still open
+    streamed = []
+    records[0]["launches"] += online_serving(
+        card, (reset_counts, counts), train_params,
+        then=lambda server, images, want: streamed.append(streaming_inference(
+            card, (reset_counts, counts), train_params, server, images, want)))
+    records[0]["launches"] += streamed[0]
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

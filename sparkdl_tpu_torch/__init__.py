@@ -10,6 +10,7 @@ Exports resolve lazily (PEP 562) so importing the package stays cheap.
 """
 
 import importlib
+import os
 
 VERSION = __version__ = "0.1.0"
 
@@ -46,12 +47,31 @@ _EXPORTS = {
     "flash_attention": "sparkdl_tpu_torch.ops.flash_attention",
     "inception_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
     "makeGraphUDF": "sparkdl_tpu_torch.graph.tensorframes_udf",
+    "prometheus_text": "sparkdl_tpu_torch.obs",
+    "tracer": "sparkdl_tpu_torch.obs",
     "registerKerasImageUDF": "sparkdl_tpu_torch.udf.keras_image_model",
     "resolve_device": "sparkdl_tpu_torch.utils.device",
     "vit_state_dict_from_flax": "sparkdl_tpu_torch.models.convert",
 }
 
 __all__ = ["VERSION", *sorted(_EXPORTS)]
+
+# Zero-code trace capture: SPARKDL_TRACE_OUT=<path.jsonl> enables the tracer
+# with a bounded JSONL sink appended at interpreter exit, so a worker
+# subprocess captures into the same file with no code of its own;
+# SPARKDL_TRACE_SAMPLE arms tail-aware sampling. No variable, no obs import.
+if os.environ.get("SPARKDL_TRACE_OUT") or os.environ.get("SPARKDL_TRACE_SAMPLE"):
+    from sparkdl_tpu_torch.obs import enable_from_env as _obs_enable_from_env
+
+    _obs_enable_from_env()
+
+# Zero-code flight recorder: SPARKDL_BLACKBOX_DIR=<dir> arms it (periodic
+# atomic persist and crash hooks), so a worker leaves a post-mortem dump
+# even when it is killed.
+if os.environ.get("SPARKDL_BLACKBOX_DIR"):
+    from sparkdl_tpu_torch.obs.blackbox import enable_from_env as _blackbox_enable_from_env
+
+    _blackbox_enable_from_env()
 
 
 def __getattr__(name):

@@ -11,10 +11,13 @@ Port of ``sparkdl_tpu.data.prefetch``. The protocol cannot deadlock:
 - an exception of the producer is re-raised on the consumer.
 
 Instrumented through callbacks: ``on_depth`` gets the items ready ahead of
-the consumer after each ``next()`` (the ``data.queue_depth`` gauge) and
+the consumer after each ``next()`` (the ``data.queue_depth`` gauge),
 ``on_wait_ms`` how long the consumer waited on the host (the
-``data.device_stall_ms`` histogram). The JAX package's trace-context
-handover and ``data.producer_busy`` timer are not ported.
+``data.device_stall_ms`` histogram) and ``on_busy_s`` how long the producer
+worked on each item (the ``data.producer_busy`` timer). The trace context
+crosses the queue explicitly: the consumer captures its current span and
+hands it over as ``context_span``, and the producer thread re-enters it for
+its whole run.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ class PrefetchIterator:
         size: int,
         on_wait_ms: Optional[Callable[[float], None]] = None,
         on_depth: Optional[Callable[[int], None]] = None,
+        on_busy_s: Optional[Callable[[float], None]] = None,
+        context_span=None,
         name: str = "sparkdl-prefetch",
     ):
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(1, int(size)))
@@ -55,20 +60,35 @@ class PrefetchIterator:
         self._done = False
         self._on_wait_ms = on_wait_ms
         self._on_depth = on_depth
+        self._on_busy_s = on_busy_s
+        self._context_span = context_span
         self._thread = threading.Thread(
             target=self._produce, args=(source_factory,), name=name, daemon=True
         )
         self._thread.start()
 
     def _produce(self, source_factory) -> None:
+        if self._context_span is not None:
+            from sparkdl_tpu_torch.obs.trace import tracer
+
+            with tracer.use_span(self._context_span):
+                self._produce_loop(source_factory)
+        else:
+            self._produce_loop(source_factory)
+
+    def _produce_loop(self, source_factory) -> None:
         it = None
         try:
             it = iter(source_factory())
             while not self._cancel.is_set():
+                t0 = time.perf_counter()
                 try:
                     item = next(it)
                 except StopIteration:
                     return
+                finally:
+                    if self._on_busy_s is not None:
+                        self._on_busy_s(time.perf_counter() - t0)
                 # blocking put: the consumer's close drains the queue, so
                 # this completes and the sentinel below is never dropped
                 self._queue.put(item)
@@ -101,6 +121,7 @@ class PrefetchIterator:
             self._thread.join()
             raise StopIteration
         if isinstance(item, _ProducerError):
+            self._done = True
             self.close()
             raise item.exc
         return item

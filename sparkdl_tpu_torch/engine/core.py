@@ -143,10 +143,17 @@ class ProgramHandle:
                 f"key={self.key[:12]})")
 
 
+def _contiguous_leaf(leaf):
+    leaf = _as_tensor(leaf)
+    return leaf.contiguous() if isinstance(leaf, torch.Tensor) else leaf
+
+
 class _Runner:
-    """A loaded package as a function: tensor arguments made contiguous (a
-    package is compiled for the layout of its example inputs); one output
-    comes back alone, several as a tuple (so a function returning a
+    """A loaded package as a function: every tensor leaf of every argument
+    made contiguous, those of a params pytree included (a package is
+    compiled for the layout of its example inputs, and a non-contiguous
+    leaf is read with the example's strides: wrong rows, no error); one
+    output comes back alone, several as a tuple (so a function returning a
     1-tuple comes back as its one tensor)."""
 
     __slots__ = ("_package",)
@@ -155,8 +162,7 @@ class _Runner:
         self._package = package
 
     def __call__(self, *args):
-        args = [a.contiguous() if isinstance(a, torch.Tensor) else a
-                for a in (_as_tensor(a) for a in args)]
+        args = pytree.tree_map(_contiguous_leaf, list(args))
         out = self._package(*args)
         if isinstance(out, (list, tuple)):
             return out[0] if len(out) == 1 else tuple(out)

@@ -6,21 +6,20 @@ pool, and batch each epoch's permutation with the cyclic-pad policy of
 ``in_memory_epoch_dataset``, batch for batch; ``labels_to_array`` is the
 Keras estimator's label policy. :class:`StreamingShardLoader` keeps only the
 URIs in memory and loads each batch as the epoch reaches it, with the same
-batches. The multi-host shard (``runner``) is not ported yet (ROADMAP.md
-item 12), nor the ``sparkdl_tpu.data`` pipeline the JAX loader is built on
-(item 11): here a producer thread fills a bounded queue.
+batches, on the :mod:`sparkdl_tpu_torch.data` pipeline as the JAX loader
+is. The multi-host shard (``runner``) is not ported yet (ROADMAP.md item
+12).
 """
 
 from __future__ import annotations
 
-import queue
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from sparkdl_tpu_torch.data.dataset import Dataset
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 #: threads loading one batch's images, and batches the producer keeps ready
@@ -109,11 +108,11 @@ class StreamingShardLoader:
 
     The in-memory path loads every image up front; this loader loads one
     batch at a time through ``loader`` in a pool of ``LOAD_WORKERS``
-    threads, on a producer thread that keeps up to ``PREFETCH`` batches
-    ready in a bounded queue while the card steps. :meth:`epoch` gives the
-    batches of :func:`epoch_batches` over the same permutation, cyclic
-    padding and zero-weight pad rows included, so a streaming fit equals an
-    in-memory one bit for bit. Each batch's load is timed into
+    threads, on a pipeline that keeps up to ``PREFETCH`` batches ready on a
+    producer thread (``sparkdl-stream``) while the card steps. :meth:`epoch`
+    gives the batches of :func:`epoch_batches` over the same permutation,
+    cyclic padding and zero-weight pad rows included, so a streaming fit
+    equals an in-memory one bit for bit. Each batch's load is timed into
     ``sparkdl.load``; the time the fit loop waits for a batch goes to
     ``sparkdl.load_wait``.
     """
@@ -132,64 +131,61 @@ class StreamingShardLoader:
         self.batch_size = int(batch_size)
         self.weighted = bool(weighted)
 
-    def _load_batch(self, pool, rows, weights) -> Dict[str, np.ndarray]:
+    def _load_batch(self, pool, rows, n_real: int) -> Dict[str, np.ndarray]:
         with metrics.timer("sparkdl.load").time():
             images = list(pool.map(
                 lambda i: np.asarray(self.loader(self.uris[i]), dtype=np.float32), rows))
             batch = {"x": np.stack(images), "y": self.y[rows]}
         if self.weighted:
-            batch["w"] = weights
+            w = np.zeros(self.batch_size, np.float32)
+            w[:n_real] = 1.0
+            batch["w"] = w
         return batch
+
+    def dataset(self, order: np.ndarray, steps: int) -> Dataset:
+        """The epoch as a :class:`~sparkdl_tpu_torch.data.Dataset`:
+        ``from_arrays(order).batch(batch_size, pad="cyclic",
+        min_batches=steps)`` (the in-memory loop's batch composition), then
+        a load stage that owns the thread pool, then ``prefetch``. The pool
+        lives one iteration: made when the pipeline starts, shut down when
+        the load stage closes (the prefetch producer closes its upstream on
+        cancel or exhaustion), so an abandoned epoch leaks no thread."""
+        batches = Dataset.from_arrays(np.asarray(order)).batch(
+            self.batch_size, pad="cyclic", min_batches=steps)
+
+        def loaded():
+            it = iter(batches)
+            with ThreadPoolExecutor(max_workers=LOAD_WORKERS) as pool:
+                try:
+                    for b in it:
+                        yield self._load_batch(pool, np.asarray(b.items, np.int64), b.n_real)
+                finally:
+                    it.close()
+
+        return Dataset(loaded, length=steps, name="load").prefetch(
+            PREFETCH, name="sparkdl-stream")
 
     def epoch(self, order: np.ndarray) -> Iterator[Dict[str, np.ndarray]]:
         """Yield the epoch's ``ceil(len(order) / batch_size)`` batches
         following ``order``. A loader's error is raised here, at the batch
-        it failed on; a producer that ends short of that count raises too.
+        it failed on; a pipeline that ends short of that count raises too.
         Closing the generator early (an abandoned epoch, a preemption)
         cancels the producer and joins its thread."""
         steps = -(-len(order) // self.batch_size)
-        slots: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
-        cancel = threading.Event()
-        done = object()
-
-        def put(item) -> bool:
-            while not cancel.is_set():
-                try:
-                    slots.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
-            try:
-                with ThreadPoolExecutor(max_workers=LOAD_WORKERS) as pool:
-                    for rows, weights in epoch_index_batches(order, self.batch_size):
-                        if cancel.is_set() or not put(("batch", self._load_batch(
-                                pool, rows, weights))):
-                            return
-                put(("end", done))
-            except BaseException as exc:  # raised again in the consuming thread
-                put(("error", exc))
-
-        producer = threading.Thread(target=produce, name="sparkdl-stream", daemon=True)
-        producer.start()
         produced = 0
+        it = iter(self.dataset(order, steps))
         try:
-            while True:
+            while produced < steps:
                 t0 = time.perf_counter()
-                kind, item = slots.get()
-                metrics.timer("sparkdl.load_wait").add_seconds(time.perf_counter() - t0)
-                if kind == "error":
-                    raise item
-                if kind == "end":
+                try:
+                    batch = next(it)
+                except StopIteration:
                     break
+                finally:
+                    metrics.timer("sparkdl.load_wait").add_seconds(time.perf_counter() - t0)
                 produced += 1
-                yield item
-                if produced == steps:
-                    break
+                yield batch
         finally:
-            cancel.set()
-            producer.join()
+            it.close()
         if produced != steps:
             raise RuntimeError(f"streaming loader produced {produced}/{steps} batches")

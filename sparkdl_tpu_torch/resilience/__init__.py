@@ -12,9 +12,10 @@
 - ``inject``: deterministic fault plans fired at the fit loops' and the
   serving plane's sites.
 
-Not ported yet (ROADMAP.md item 14): the flight recorder the JAX package
-dumps on a preemption or a hard timeout, the trace events of retries and
-breaker flips, and the fault sites of the replica plane (item 10b).
+Retries and breaker flips are events of the current trace span, and the
+flight recorder (:mod:`sparkdl_tpu_torch.obs.blackbox`) dumps on a breaker's
+trip, a preemption and a watchdog hard timeout. The replica plane's fault
+sites and its ``act=`` rules come with that plane (ROADMAP item 10b).
 """
 
 from sparkdl_tpu_torch.resilience.errors import (

@@ -1,6 +1,7 @@
 """Retry with backoff, deadlines and circuit breaking: a copy of
-``sparkdl_tpu.resilience.policy`` without its trace events and flight
-recorder (the obs layer, ROADMAP item 14).
+``sparkdl_tpu.resilience.policy``. Retry attempts and breaker flips become
+events of the current trace span, and a breaker's trip dumps the flight
+recorder (both no-ops while tracing is off and no recorder is armed).
 
 - :class:`RetryPolicy`: exponential backoff with deterministic jitter, an
   attempt cap and an optional total-sleep budget. It retries only what
@@ -33,6 +34,24 @@ from sparkdl_tpu_torch.resilience.errors import (
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 logger = logging.getLogger(__name__)
+
+
+def _span_event(name: str, **attrs) -> None:
+    """An event on the current trace span, if tracing is on. ``obs`` is a
+    higher layer than ``resilience``: this lazy import, on cold paths only
+    (a retry about to sleep, a breaker changing state), is the one crossing."""
+    from sparkdl_tpu_torch.obs.trace import record_event
+
+    record_event(name, **attrs)
+
+
+def _blackbox_trip(reason: str, **attrs) -> None:
+    """A breadcrumb and an event dump into the armed flight recorder, if
+    any. Called OUTSIDE the breaker's lock: a dump writes a file."""
+    from sparkdl_tpu_torch.obs import blackbox
+
+    blackbox.note(reason, **attrs)
+    blackbox.dump(reason)
 
 
 class Deadline:
@@ -173,6 +192,8 @@ class RetryPolicy:
                         delay = min(delay, rem)
                 metrics.counter("resilience.retries").add(1)
                 metrics.timer("resilience.backoff").add_seconds(delay)
+                _span_event("retry", attempt=attempt, error=type(exc).__name__,
+                            delay_s=round(delay, 6))
                 if on_retry is not None:
                     on_retry(attempt, exc)
                 logger.debug(
@@ -235,8 +256,12 @@ class CircuitBreaker:
 
     # -- transitions (callers hold the lock) ---------------------------
     def _to(self, state: str) -> None:
+        previous = self._state
         self._state = state
         self._gauge.set(_STATE_VALUE[state])
+        # a flip is rare and diagnostic: it lands on the span it happened
+        # under, so a retry storm and its trip share one trace
+        _span_event("breaker_state", breaker=self.name, state=state, from_state=previous)
 
     def allow(self) -> bool:
         """May a call proceed right now?  (Half-open admits probes up to
@@ -277,6 +302,7 @@ class CircuitBreaker:
                 self._half_open_inflight = 0
 
     def record_failure(self) -> None:
+        tripped_after = None
         with self._lock:
             self._failures += 1
             if self._state == "half_open" or (
@@ -289,9 +315,13 @@ class CircuitBreaker:
                         "circuit %r opened after %d consecutive failures",
                         self.name, self._failures,
                     )
+                    tripped_after = self._failures
                 self._to("open")
                 self._opened_at = self._clock()
                 self._half_open_inflight = 0
+        if tripped_after is not None:
+            _blackbox_trip(f"breaker_open_{self.name}", breaker=self.name,
+                           failures=tripped_after)
 
     def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any):
         """Run ``fn`` under the breaker: rejected-fast when open,

@@ -1,8 +1,9 @@
 """Preemption-safe shutdown: SIGTERM -> typed ``Preempted`` at a safe point
 -> final checkpoint flush -> clean resume on the next fit.
 
-A copy of ``sparkdl_tpu.resilience.preempt`` without the flight recorder
-(ROADMAP.md item 14). The contract:
+A copy of ``sparkdl_tpu.resilience.preempt``; a ``Preempted`` raise leaves
+a breadcrumb and a dump in the armed flight recorder, if any (the grace
+window is the last chance for a post-mortem record). The contract:
 
 1. a fit loop runs inside :func:`preemption_scope`, which installs a
    SIGTERM handler (main thread only; elsewhere the scope only polls) that
@@ -34,6 +35,15 @@ from sparkdl_tpu_torch.utils.metrics import metrics
 logger = logging.getLogger(__name__)
 
 
+def _blackbox_preempted(reason: str) -> None:
+    """Breadcrumb and dump into the armed flight recorder on a ``Preempted``
+    raise (a lazy cold-path import: ``resilience`` stays below ``obs``)."""
+    from sparkdl_tpu_torch.obs import blackbox
+
+    blackbox.note("preempted", reason=reason)
+    blackbox.dump("preempted")
+
+
 class PreemptionToken:
     """The flag a scope's loop polls at safe points."""
 
@@ -54,7 +64,9 @@ class PreemptionToken:
         """Raise :class:`Preempted` when a preemption is pending; call it
         at step boundaries, where stopping is safe."""
         if self._event.is_set():
-            raise Preempted(self.reason or "preemption requested")
+            reason = self.reason or "preemption requested"
+            _blackbox_preempted(reason)
+            raise Preempted(reason)
 
 
 #: innermost-last stack of active scopes (fitMultiple nests fits)
@@ -70,6 +82,7 @@ def request_preemption(reason: str = "preemption requested") -> None:
     with _SCOPES_LOCK:
         token = _SCOPES[-1] if _SCOPES else None
     if token is None:
+        _blackbox_preempted(reason)
         raise Preempted(reason)
     token.request(reason)
 

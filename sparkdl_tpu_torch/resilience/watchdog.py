@@ -1,8 +1,7 @@
 """Watchdogged device calls: turn an unbounded hang into a typed failure.
 
-A trimmed copy of ``sparkdl_tpu.resilience.watchdog``, without its flight
-recorder (ROADMAP item 14). :func:`watchdogged` runs the call on a worker
-thread and watches it from the caller's thread:
+A trimmed copy of ``sparkdl_tpu.resilience.watchdog``. :func:`watchdogged`
+runs the call on a worker thread and watches it from the caller's thread:
 
 - past the **soft timeout** it runs a bounded out-of-process probe of the
   card, logs what the probe says and keeps waiting (an AOTInductor compile
@@ -11,6 +10,9 @@ thread and watches it from the caller's thread:
   :class:`~sparkdl_tpu_torch.resilience.errors.DeviceUnresponsive` with the
   probe's answer. The worker thread cannot be killed, so it is abandoned as
   a daemon: the caller's thread, and with it the job, stays in control.
+
+Both timeouts leave a breadcrumb in the armed flight recorder, and the hard
+one dumps it (no-ops while none is armed).
 
 :func:`check_device` is ``ModelServer.status(probe_device=True)``'s probe:
 one structured ``{"ok", "error_class", "detail"}`` record.
@@ -37,6 +39,23 @@ DEFAULT_PROBE_CODE = (
     "import torch; torch.zeros(1, device='cuda'); "
     "print(torch.cuda.get_device_name(0))"
 )
+
+
+def _blackbox_note(name: str, **attrs) -> None:
+    """A breadcrumb into the armed flight recorder, if any (a lazy cold-path
+    import: ``resilience`` stays below ``obs``)."""
+    from sparkdl_tpu_torch.obs import blackbox
+
+    blackbox.note(name, **attrs)
+
+
+def _blackbox_dump(reason: str, **attrs) -> None:
+    """A breadcrumb and an event dump: a hard timeout is the silent wedge
+    the recorder exists for."""
+    from sparkdl_tpu_torch.obs import blackbox
+
+    blackbox.note(reason, **attrs)
+    blackbox.dump(reason)
 
 
 def bounded_subprocess_probe(code: str, timeout_s: int) -> "tuple[bool, str]":
@@ -86,6 +105,7 @@ def watchdogged(
     diagnostic = None
     if not done.wait(soft_timeout_s):
         metrics.counter("resilience.watchdog_soft_timeouts").add(1)
+        _blackbox_note("watchdog_soft_timeout", what=name, timeout_s=soft_timeout_s)
         ok, msg = bounded_subprocess_probe(diagnostic_code, int(diagnostic_timeout_s))
         diagnostic = f"probe {'ok' if ok else 'FAILED'}: {msg}"
         logger.warning("%s exceeded its soft timeout (%.1fs); out-of-process %s",
@@ -96,6 +116,8 @@ def watchdogged(
     if not done.is_set():
         metrics.counter("resilience.watchdog_hard_timeouts").add(1)
         detail = f"; {diagnostic}" if diagnostic else ""
+        _blackbox_dump(f"watchdog_{name}", what=name, timeout_s=hard_timeout_s,
+                       diagnostic=diagnostic)
         raise DeviceUnresponsive(
             f"{name} still running after its hard timeout of {hard_timeout_s:.1f}s{detail}"
         )

@@ -2,8 +2,7 @@
 bookkeeping and per-tenant weighted-fair scheduling.
 
 Port of ``sparkdl_tpu.serving.admission`` (host code, unchanged but for its
-imports and the trace span a request carried there, which waits for the
-obs layer, ROADMAP item 14). Requests are admitted into a *bounded* queue:
+imports). Requests are admitted into a *bounded* queue:
 a full queue sheds at submit with the typed
 :class:`~sparkdl_tpu_torch.serving.errors.ServerOverloaded`, never an
 unbounded backlog. The batcher's worker takes them with a
@@ -55,6 +54,10 @@ class Request:
     deadline: Optional[float] = None
     #: fair-share bucket; None lands in :data:`DEFAULT_TENANT`
     tenant: Optional[str] = None
+    #: the request's trace span (None when tracing is off): captured at
+    #: submit, carried EXPLICITLY across the queue so the batch worker can
+    #: record which member spans it coalesced
+    span: Optional[Any] = None
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline is None:

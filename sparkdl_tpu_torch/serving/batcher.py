@@ -34,8 +34,15 @@ circuit breaker work as in the JAX package. Counters and histograms:
 ``serving.expired``, ``serving.shed``, ``serving.latency_ms``,
 ``serving.batch_occupancy``, ``batcher.rows_real``,
 ``batcher.rows_computed``, ``batcher.pad_fraction`` (a histogram and a
-gauge) and ``batcher.slot_occupancy``. The trace spans of the JAX batcher
-wait for the obs layer (ROADMAP item 14).
+gauge) and ``batcher.slot_occupancy``; a latency observation carries its
+request's trace id as an exemplar.
+
+With tracing on, each request has a ``serving.request`` span (a child of
+the caller's current span, ended when its future resolves) and each device
+call a ``serving.batch`` span on the worker, carrying its members' span ids;
+each member span gets a ``coalesced`` event pointing back (and, ragged, a
+``slot_acquired`` event), so a trace walks request -> batch -> retry events
+either way.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from sparkdl_tpu_torch.engine import DispatchWindow, FetchFailure, PinnedStaging, SlotPool
+from sparkdl_tpu_torch.obs.trace import tracer
 from sparkdl_tpu_torch.resilience import inject
 from sparkdl_tpu_torch.resilience.errors import CircuitOpen
 from sparkdl_tpu_torch.resilience.policy import CircuitBreaker, Deadline, RetryPolicy
@@ -86,6 +94,22 @@ def widened(out):
     if isinstance(out, torch.Tensor) and out.dtype == torch.bfloat16:
         return out.float()
     return out
+
+
+def _end_request_span(span):
+    """A future callback closing a request span with its outcome."""
+
+    def done(future):
+        exc = future.exception()
+        if exc is not None:
+            span.set_attribute("error", type(exc).__name__)
+        span.end()
+
+    return done
+
+
+def _exemplar(request) -> Optional[int]:
+    return request.span.trace_id if request.span is not None else None
 
 
 def _contiguous(leaf):
@@ -283,6 +307,12 @@ class MicroBatcher:
                 f"request to {self.model_id!r} expired before submit ({deadline_ms}ms budget)"))
             return fut
         req = Request(value=arr, deadline=deadline, tenant=tenant, enqueued_at=time.monotonic())
+        if tracer.enabled:
+            # one span per request, a child of the caller's current span;
+            # it ends when the future resolves (on the worker thread), so it
+            # covers queue, batch and forward as the client sees them
+            req.span = tracer.start_span("serving.request", model_id=self.model_id)
+            req.future.add_done_callback(_end_request_span(req.span))
         metrics.counter("serving.requests").add(1)
         self._m_requests.add(1)
         self._ensure_worker()
@@ -454,6 +484,8 @@ class MicroBatcher:
             if slot is None:  # take() was capped at n_free
                 raise RuntimeError("slot pool overflow")
             slots.append(slot)
+            if r.span is not None:
+                r.span.event("slot_acquired", slot=slot.index)
 
         if not self._compile:
             # plain endpoints get exactly the occupied rows, synchronously
@@ -521,27 +553,49 @@ class MicroBatcher:
         deadline = Deadline(min(dls), what=f"batch to {self.model_id!r}") if dls else None
         return retry.call(once, deadline=deadline)
 
+    def _batch_span(self, live, n_computed, **attributes):
+        """The span fan-in: one ``serving.batch`` span per device call,
+        carrying its member requests' span ids, and a ``coalesced`` event on
+        each member span pointing back. None when tracing is off."""
+        if not tracer.enabled:
+            return None
+        bspan = tracer.start_span(
+            "serving.batch", model_id=self.model_id, bucket=n_computed, n_real=len(live),
+            member_span_ids=[r.span.span_id for r in live if r.span is not None],
+            **attributes)
+        for r in live:
+            if r.span is not None:
+                r.span.event("coalesced", batch_span=bspan.span_id, bucket=n_computed)
+        return bspan
+
     def _dispatch(self, live, n_computed, dispatch_once, t_batch, slots) -> None:
         """Launch a compiled batch and hand its result to the window; the
         batch's futures resolve when it falls out (``_complete``)."""
+        # a ragged block (it has slots) says so, as in the JAX batcher
+        bspan = self._batch_span(live, n_computed,
+                                 **({"ragged": True} if slots is not None else {}))
         try:
-            out_dev = self._retried(live, dispatch_once)
+            with tracer.use_span(bspan):
+                out_dev = self._retried(live, dispatch_once)
         except CircuitOpen as e:
-            self._fail_batch(live, e, record=False, slots=slots)
+            self._fail_batch(live, e, record=False, slots=slots, bspan=bspan)
             return
         except Exception as e:
             metrics.counter("serving.errors").add(1)
             self._m_errors.add(len(live))
-            self._fail_batch(live, e, record=True, slots=slots)
+            self._fail_batch(live, e, record=True, slots=slots, bspan=bspan)
             return
         t_dispatched = time.monotonic()
         for host, meta in self._window.submit(
-                out_dev, meta=(live, n_computed, t_batch, t_dispatched, slots)):
+                out_dev, meta=(live, n_computed, t_batch, t_dispatched, slots, bspan)):
             self._complete(host, meta)
 
-    def _fail_batch(self, live, exc, record: bool, slots=None) -> None:
+    def _fail_batch(self, live, exc, record: bool, slots=None, bspan=None) -> None:
         if record:
             self._breaker.record_failure()
+        if bspan is not None:
+            bspan.set_attribute("error", type(exc).__name__)
+            bspan.end()
         for r in live:
             r.future.set_exception(exc)
         for s in slots or ():
@@ -552,11 +606,11 @@ class MicroBatcher:
         padded ladder passes ``slots=None`` (request i reads row i), the
         ragged path its slots (request j reads its slot's row, then frees
         it). Each request gets a copy of its row."""
-        live, n_computed, t_batch, t_dispatched, slots = meta
+        live, n_computed, t_batch, t_dispatched, slots, bspan = meta
         if isinstance(host, FetchFailure):
             metrics.counter("serving.errors").add(1)
             self._m_errors.add(len(live))
-            self._fail_batch(live, host.error, record=True, slots=slots)
+            self._fail_batch(live, host.error, record=True, slots=slots, bspan=bspan)
             return
         self._breaker.record_success()
         # counted before the futures resolve: a caller woken by its result
@@ -574,22 +628,26 @@ class MicroBatcher:
             }
             r.future.set_result(np.array(host[slots[i].index if slots is not None else i]))
             ms = (done - r.enqueued_at) * 1000.0
-            latency.observe(ms)
-            self._m_latency.observe(ms)
+            latency.observe(ms, exemplar=_exemplar(r))
+            self._m_latency.observe(ms, exemplar=_exemplar(r))
         for s in slots or ():
             self._pool.release(s)
+        if bspan is not None:
+            bspan.end()
 
     def _forward_batch(self, live, n_computed, forward_once, t_batch) -> None:
         """A plain endpoint's batch, synchronously: forward, then resolve."""
+        bspan = self._batch_span(live, n_computed)
         try:
-            out = self._retried(live, forward_once)
+            with tracer.use_span(bspan):
+                out = self._retried(live, forward_once)
         except CircuitOpen as e:
-            self._fail_batch(live, e, record=False)
+            self._fail_batch(live, e, record=False, bspan=bspan)
             return
         except Exception as e:
             metrics.counter("serving.errors").add(1)
             self._m_errors.add(len(live))
-            self._fail_batch(live, e, record=True)
+            self._fail_batch(live, e, record=True, bspan=bspan)
             return
         self._breaker.record_success()
         self._observe_batch(len(live), n_computed)
@@ -603,8 +661,10 @@ class MicroBatcher:
             }
             r.future.set_result(np.array(out[i]))
             ms = (done - r.enqueued_at) * 1000.0
-            latency.observe(ms)
-            self._m_latency.observe(ms)
+            latency.observe(ms, exemplar=_exemplar(r))
+            self._m_latency.observe(ms, exemplar=_exemplar(r))
+        if bspan is not None:
+            bspan.end()
 
     def _observe_batch(self, n_real: int, n_computed: int) -> None:
         """Per-batch pad accounting: ``n_real`` rows asked for rode a device

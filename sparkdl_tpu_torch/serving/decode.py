@@ -33,8 +33,12 @@ Metrics: the ``decode.slots_occupied`` gauge, the ``decode.ttft_ms`` and
 ``decode.step_ms`` histograms, ``decode.requests``, ``decode.steps``,
 ``decode.tokens``, ``decode.errors`` and ``decode.evicted_disconnect``.
 Fault sites: ``decode.step`` before each fused step, ``decode.stream``
-before each emitted frame. The trace spans wait for the obs layer (ROADMAP
-item 14); the replica plane's stream frames for item 10b.
+before each emitted frame. With tracing on, a ``decode.request`` span per
+stream (its ``slot_acquired`` event, its ``steps`` at the end) and a
+``decode.steps`` span per fused step group carrying its members' span ids,
+the batcher's fan-in; the step and first-token histograms carry trace ids
+as exemplars. The replica plane's stream frames come with that plane
+(ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -49,9 +53,15 @@ import numpy as np
 import torch
 
 from sparkdl_tpu_torch.engine.slots import SlotPool, slot_block_fingerprint
+from sparkdl_tpu_torch.obs.trace import tracer
 from sparkdl_tpu_torch.resilience import inject
 from sparkdl_tpu_torch.serving.admission import AdmissionQueue, Request, TenantPolicy
-from sparkdl_tpu_torch.serving.batcher import sanitize_name, to_host
+from sparkdl_tpu_torch.serving.batcher import (
+    _end_request_span,
+    _exemplar,
+    sanitize_name,
+    to_host,
+)
 from sparkdl_tpu_torch.serving.errors import DeadlineExceeded, ServerClosed
 from sparkdl_tpu_torch.utils.metrics import metrics
 
@@ -162,6 +172,10 @@ class DecodeEndpoint:
         req = DecodeRequest(value=np.asarray(prompt, dtype=self._dtype), deadline=deadline,
                             tenant=tenant, enqueued_at=time.monotonic(), emit=emit,
                             max_steps=steps)
+        if tracer.enabled:
+            req.span = tracer.start_span("decode.request", model_id=self.model_id,
+                                         max_steps=steps)
+            req.future.add_done_callback(_end_request_span(req.span))
         metrics.counter("decode.requests").add(1)
         self._m_requests.add(1)
         self._ensure_worker()
@@ -279,10 +293,27 @@ class DecodeEndpoint:
                 continue
             if slot is None:  # take() was capped at n_free
                 raise RuntimeError("slot pool overflow")
+            if req.span is not None:
+                req.span.event("slot_acquired", slot=slot.index)
 
     def _step_group(self, occupied) -> None:
         """One fused step over every slot, then per-slot emit and eviction:
-        the continuous-batching inner loop."""
+        the continuous-batching inner loop, under its ``decode.steps`` span."""
+        gspan = None
+        if tracer.enabled:
+            gspan = tracer.start_span(
+                "decode.steps", model_id=self.model_id, n_slots=self._pool.n_slots,
+                n_occupied=len(occupied),
+                member_span_ids=[s.request.span.span_id for s in occupied
+                                 if s.request.span is not None])
+        try:
+            self._run_step_group(occupied, gspan)
+        finally:
+            # an eos_fn or a future callback that raises must not leak it
+            if gspan is not None:
+                gspan.end()
+
+    def _run_step_group(self, occupied, gspan) -> None:
         t0 = time.monotonic()
         try:
             inject.fire("decode.step")
@@ -301,13 +332,16 @@ class DecodeEndpoint:
             # a failed fused step fails every stream on the endpoint, typed:
             # their per-slot state is gone
             metrics.counter("decode.errors").add(len(occupied))
+            if gspan is not None:
+                gspan.set_attribute("error", type(exc).__name__)
             for slot in occupied:
                 req = slot.request
                 self._pool.release(slot)
                 if not req.future.done():
                     req.future.set_exception(exc)
             return
-        self._m_step.observe((time.monotonic() - t0) * 1000.0)
+        self._m_step.observe((time.monotonic() - t0) * 1000.0,
+                             exemplar=gspan.trace_id if gspan is not None else None)
         metrics.counter("decode.steps").add(1)
         now = time.monotonic()
         for slot in occupied:
@@ -316,7 +350,8 @@ class DecodeEndpoint:
             slot.step += 1
             if slot.first_token_at is None:
                 slot.first_token_at = now
-                self._m_ttft.observe((now - req.enqueued_at) * 1000.0)
+                self._m_ttft.observe((now - req.enqueued_at) * 1000.0,
+                                     exemplar=_exemplar(req))
             if req.cancelled.is_set():
                 self._pool.release(slot)
                 self._evict_disconnected(req, step=slot.step)
@@ -358,6 +393,8 @@ class DecodeEndpoint:
     def _finish(self, req: DecodeRequest, slot) -> None:
         acquired_at = slot.acquired_at
         self._emit_frame(req, slot, None, final=True)
+        if req.span is not None:
+            req.span.set_attribute("steps", slot.step)
         self._pool.release(slot)
         if not req.future.done():
             if acquired_at is not None:

@@ -13,8 +13,11 @@ with ``device="cpu"``::
     probs = fut.result(timeout=5.0)
     server.status()                      # a /healthz-style snapshot
 
-``metrics_text`` and ``start_telemetry`` need the obs layer (ROADMAP item
-14) and raise until it is ported.
+``metrics_text()`` renders the process's metrics in the Prometheus text
+format (:func:`sparkdl_tpu_torch.obs.export.prometheus_text`).
+``start_telemetry`` (the HTTP introspection server, its time series and SLO
+engine) needs ``ObsServer``, which comes with the replica plane in the next
+slice, and raises until then.
 """
 
 from __future__ import annotations
@@ -276,14 +279,19 @@ class ModelServer:
         return out
 
     def metrics_text(self, serving_only: bool = False) -> str:
-        raise NotImplementedError(
-            "ModelServer.metrics_text needs the obs layer's Prometheus exporter, not "
-            "ported yet (ROADMAP item 14); read status()['metrics'] instead")
+        """The process's metrics in the Prometheus text exposition format
+        (only the ``serving.*`` series when ``serving_only``): what a
+        ``/metrics`` endpoint serves."""
+        from sparkdl_tpu_torch.obs.export import prometheus_text
+
+        return prometheus_text(metrics, prefix="serving." if serving_only else None)
 
     def start_telemetry(self, *args, **kwargs):
         raise NotImplementedError(
-            "ModelServer.start_telemetry needs the obs layer (time series, SLO engine, "
-            "HTTP server), not ported yet (ROADMAP item 14)")
+            "ModelServer.start_telemetry serves /metrics, /healthz and /slo through "
+            "ObsServer, which is not ported yet: it comes with the replica plane in the "
+            "next slice (ROADMAP item 10b); metrics_text() and "
+            "sparkdl_tpu_torch.obs.SLOEngine work without it")
 
     def close(self) -> None:
         self._closed = True

@@ -20,9 +20,11 @@ dispatch window the ``engine.inflight`` gauge; the engine counts
 ``engine.cache_hit`` and ``engine.cache_miss`` and times ``engine.compile``
 and ``engine.cache_load``; the serving plane keeps its ``serving.*``,
 ``batcher.*`` and ``decode.*`` series, its latencies as histograms whose
-snapshot gives the p50, p95 and p99 of the last 4096 observations. Trace
-spans, exemplars and the Prometheus text are not ported yet (ROADMAP item
-14). Thread-safe.
+snapshot gives the p50, p95 and p99 of the last 4096 observations, each
+with an exemplar (the trace id of the worst windowed observation that
+carried one); the data pipeline keeps ``data.*`` and the streaming runner
+``streaming.*``. :meth:`MetricsRegistry.collect` is the one typed view
+:func:`sparkdl_tpu_torch.obs.export.prometheus_text` renders. Thread-safe.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -60,6 +62,7 @@ class Timer:
         self.name = name
         self._lock = threading.Lock()
         self._seconds = 0.0
+        self._entries = 0
 
     @contextmanager
     def time(self):
@@ -72,11 +75,17 @@ class Timer:
     def add_seconds(self, seconds: float) -> None:
         with self._lock:
             self._seconds += seconds
+            self._entries += 1
 
     @property
     def seconds(self) -> float:
         with self._lock:
             return self._seconds
+
+    @property
+    def entries(self) -> int:
+        with self._lock:
+            return self._entries
 
 
 class Gauge:
@@ -111,14 +120,29 @@ class Histogram:
         self.name = name
         self._lock = threading.Lock()
         self._values: "deque[float]" = deque(maxlen=HISTOGRAM_WINDOW)
+        #: exemplar refs (trace ids) appended in lockstep with ``_values``
+        #: (same maxlen, so index i of one matches index i of the other);
+        #: None for an observation without a trace
+        self._exemplars: "deque[Optional[int]]" = deque(maxlen=HISTOGRAM_WINDOW)
         self._count = 0
         self._sum = 0.0
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar: Optional[int] = None) -> None:
         with self._lock:
             self._values.append(float(value))
+            self._exemplars.append(exemplar)
             self._count += 1
             self._sum += float(value)
+
+    def exemplar(self) -> Optional[Tuple[float, int]]:
+        """``(value, trace_id)`` of the largest windowed observation that
+        carried an exemplar, or None: the one hop from a p99 outlier to
+        the trace that produced it (read when scraped, never on observe)."""
+        with self._lock:
+            pairs = [(v, e) for v, e in zip(self._values, self._exemplars) if e is not None]
+        if not pairs:
+            return None
+        return max(pairs, key=lambda p: p[0])
 
     def values(self) -> List[float]:
         """The observations in the window, oldest first."""
@@ -134,6 +158,11 @@ class Histogram:
     def total(self) -> float:
         with self._lock:
             return self._sum
+
+    @property
+    def mean(self) -> Optional[float]:
+        with self._lock:
+            return (self._sum / self._count) if self._count else None
 
     def quantile(self, q: float) -> Optional[float]:
         """The linearly interpolated quantile ``q`` of the window; None when
@@ -183,30 +212,46 @@ class MetricsRegistry:
                 self._histograms[name] = Histogram(name)
             return self._histograms[name]
 
+    def collect(self) -> Dict[str, Dict[str, object]]:
+        """A point-in-time view of the registry by kind: ``{"counters":
+        {name: Counter}, "timers": ..., "gauges": ..., "histograms": ...}``
+        (each metric stays live and thread-safe to read): what exporters
+        read instead of the registry's internals."""
+        with self._lock:
+            return {
+                "counters": dict(self._counters),
+                "timers": dict(self._timers),
+                "gauges": dict(self._gauges),
+                "histograms": dict(self._histograms),
+            }
+
     def snapshot(self, prefix: Optional[str] = None) -> Dict[str, float]:
         """Flat dict of every counter and gauge value, timer total
-        (``.seconds``) and histogram count and sum (``.count``, ``.sum``),
-        with, once it has observations, its mean and the p50, p95 and p99
-        of its window (``.mean``, ``.p50``, ``.p95``, ``.p99``),
-        keeping only names that start with ``prefix`` when one is given."""
-        with self._lock:
-            counters = dict(self._counters)
-            timers = dict(self._timers)
-            gauges = dict(self._gauges)
-            histograms = dict(self._histograms)
+        (``.seconds``) and, for each histogram with observations, its count,
+        sum, mean, the p50, p95 and p99 of its window and its exemplar
+        (``.count``, ``.sum``, ``.mean``, ``.p50``, ``.p95``, ``.p99``,
+        ``.exemplar_value``, ``.exemplar_trace_id``), keeping only names
+        that start with ``prefix`` when one is given."""
+        view = self.collect()
         out: Dict[str, float] = {}
-        for name, c in {**counters, **gauges}.items():
+        for name, c in {**view["counters"], **view["gauges"]}.items():
             out[name] = c.value
-        for name, t in timers.items():
+        for name, t in view["timers"].items():
             out[name + ".seconds"] = t.seconds
-        for name, h in histograms.items():
-            count, total = h.count, h.total
-            out[name + ".count"] = count
-            out[name + ".sum"] = total
-            if count:
-                out[name + ".mean"] = total / count
-                for q in (50, 95, 99):
-                    out[f"{name}.p{q}"] = h.quantile(q / 100)
+        for name, h in view["histograms"].items():
+            count = h.count
+            if not count:
+                continue
+            out[name + ".count"] = float(count)
+            out[name + ".sum"] = h.total
+            out[name + ".mean"] = h.mean
+            for q in (50, 95, 99):
+                out[f"{name}.p{q}"] = h.quantile(q / 100)
+            ex = h.exemplar()
+            if ex is not None:
+                # trace ids are 63-bit ints; a float cast would corrupt them
+                out[name + ".exemplar_value"] = ex[0]
+                out[name + ".exemplar_trace_id"] = ex[1]  # type: ignore[assignment]
         if prefix is not None:
             out = {k: v for k, v in out.items() if k.startswith(prefix)}
         return out

@@ -245,6 +245,38 @@ def test_params_passed_as_an_input_are_not_baked_in(export_only):
     assert len(export_only.compiled) == 2
 
 
+def test_every_tensor_leaf_reaches_the_package_contiguous(monkeypatch):
+    """A package is compiled for the layout of its example inputs: the
+    runner makes each tensor leaf contiguous, a transposed weight inside a
+    params dict too (on the card a package given 54 non-contiguous Keras
+    kernels computed wrong rows). A recording stub stands in for the
+    package; nothing is compiled."""
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return args[1]
+
+    monkeypatch.setattr(core, "compile_package", lambda fn, example_args, path: None)
+    monkeypatch.setattr(core, "load_package", lambda path: record)
+    w = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    eng = ExecutionEngine(persistent=False)
+    prog = eng.program(lambda p, x: x @ p["w"].T, ({"w": w}, torch.ones(2, 4)))
+    params = {"w": w.T.contiguous().T, "nested": [w.T], "scale": 2.0}
+    assert not params["w"].is_contiguous() and not params["nested"][0].is_contiguous()
+    x = torch.ones(4, 2).T
+    out = prog(params, x)
+    (p, xin), = seen
+    assert p["w"].is_contiguous() and p["nested"][0].is_contiguous() and xin.is_contiguous()
+    assert p["scale"] == 2.0
+    torch.testing.assert_close(p["w"], w, rtol=0, atol=0)
+    torch.testing.assert_close(p["nested"][0], w.T, rtol=0, atol=0)
+    assert out is xin
+    # contiguous leaves pass as they are: no copy on the served path
+    prog({"w": w}, torch.ones(2, 4))
+    assert seen[1][0]["w"] is w
+
+
 # ----------------------------------------------------------------------
 # the disk tier
 # ----------------------------------------------------------------------

@@ -314,8 +314,8 @@ def test_replica_plane_names_wait_for_item_10b():
 
     with pytest.raises(AttributeError, match="10b"):
         serving.ReplicaSupervisor  # noqa: B018
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_server().metrics_text()
+    with pytest.raises(NotImplementedError, match="10b"):
+        make_server().start_telemetry()
 
 
 # ----------------------------------------------------------------------

@@ -260,6 +260,20 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.serving.decode",
         "sparkdl_tpu_torch.serving.server",
         "sparkdl_tpu_torch.serving",
+        "sparkdl_tpu_torch.obs",
+        "sparkdl_tpu_torch.obs.trace",
+        "sparkdl_tpu_torch.obs.export",
+        "sparkdl_tpu_torch.obs.timeseries",
+        "sparkdl_tpu_torch.obs.slo",
+        "sparkdl_tpu_torch.obs.blackbox",
+        "sparkdl_tpu_torch.data",
+        "sparkdl_tpu_torch.data.dataset",
+        "sparkdl_tpu_torch.data.prefetch",
+        "sparkdl_tpu_torch.data.device",
+        "sparkdl_tpu_torch.streaming",
+        "sparkdl_tpu_torch.streaming.sources",
+        "sparkdl_tpu_torch.streaming.commit",
+        "sparkdl_tpu_torch.streaming.runner",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -279,7 +293,11 @@ def test_port_sources_import_no_jax():
                    "resilience/watchdog.py", "engine/cache.py", "engine/core.py",
                    "engine/slots.py", "serving/__init__.py", "serving/errors.py",
                    "serving/admission.py", "serving/cache.py", "serving/batcher.py",
-                   "serving/decode.py", "serving/server.py"):
+                   "serving/decode.py", "serving/server.py", "obs/__init__.py",
+                   "obs/trace.py", "obs/export.py", "obs/timeseries.py", "obs/slo.py",
+                   "obs/blackbox.py", "data/__init__.py", "data/dataset.py",
+                   "data/prefetch.py", "data/device.py", "streaming/__init__.py",
+                   "streaming/sources.py", "streaming/commit.py", "streaming/runner.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:

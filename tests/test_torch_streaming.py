@@ -148,9 +148,17 @@ def test_an_abandoned_epoch_leaves_no_live_thread(files):
 
 def test_a_short_producer_raises(files, monkeypatch):
     loader = StreamingShardLoader(files[:8], np.zeros(8, np.int32), np.load, 4, True)
-    full = data.epoch_index_batches
-    monkeypatch.setattr(data, "epoch_index_batches",
-                        lambda order, batch_size: list(full(order, batch_size))[:1])
+    full = StreamingShardLoader.dataset
+
+    def first_batch_only(self, order, steps):
+        it = iter(full(self, order, steps))
+        try:
+            first = [next(it)]
+        finally:
+            it.close()
+        return data.Dataset.from_items(first).map(lambda batch: batch)
+
+    monkeypatch.setattr(StreamingShardLoader, "dataset", first_batch_only)
     with pytest.raises(RuntimeError, match="produced 1/2 batches"):
         list(loader.epoch(np.arange(8)))
     assert _live_stream_threads() == []
