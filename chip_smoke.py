@@ -275,6 +275,26 @@ prints no result):
    replayed epoch bit for bit its payload, rows within the bf16 bound of
    the uninterrupted run; then an in-process preemption
    (``request_preemption``) flushes and a second runner resumes.
+16. the replica plane, still inside phase 14. (a) ``ReplicaSupervisor``
+   spawns two replica processes from
+   ``ReplicaSpec(factory="chip_smoke:vit_replica_server")``: each builds
+   ``ModelServer()`` on the card with an eager bf16 flash ViT-B/16 (phase
+   5's weights, ``max_batch=32``) and phase 14 (d)'s decode step in 8
+   slots, and raises unless its first block launched #1 12 times; tracing
+   on in the router and the replicas. (b) Phase 14's 256 images through
+   ``router.route`` from 16 threads: rows within 3% of the float32 plain
+   forward's largest value, both replicas served (the spans' per-replica
+   counts); requests/s and p50/p99 beside phase 14 (a)'s. (c) The images
+   again with 16 decode streams of 4-16 steps, replica 0 SIGKILLed a third
+   of the way: every request answered within the bound, every stream its
+   closed form (a stream torn by the kill fails typed and is sent again),
+   replica 0 back at a higher generation, then 32 requests served by both;
+   the kill-to-live time. (d) SIGTERM of replica 1 with requests in flight:
+   every request answered, the replica exits 0, then revived. (e)
+   ``start_telemetry()``: each replica's ``/healthz`` and ``/metrics``, the
+   fleet collector's merged series, ``/slo``. (f) 64 images on the other
+   wire lane (shm or tcp) through a second router. ``diagnose_paths`` over
+   the router's and the replicas' span files attributes (b)'s latency.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -3373,9 +3393,10 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
     (c) the Keras InceptionV3 UDF endpoint, (e) its compiled program called
     straight through the engine with the Keras model's non-contiguous
     kernels, (d) the padded ladder and the decode plane. ``then(server,
-    images, want)`` runs last, with (a)'s endpoint still open and its
-    programs in memory (phase 15 streams through it). Returns the lse-free
-    forward's launches of (a) and (d)."""
+    images, want, serving_a)`` runs last, with (a)'s endpoint still open and
+    its programs in memory (phase 15 streams through it; phase 16 sets its
+    routed requests/s beside ``serving_a``, (a)'s line). Returns the
+    lse-free forward's launches of (a) and (d)."""
     import gzip
     import os
 
@@ -3430,7 +3451,8 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
         got, lat, wall = serve_from_threads(server, images, P14_THREADS)
         counts = read()
         batches = metrics.counter("serving.batches").value - batches0
-        log(serving_line(f"  (a) {P14_THREADS} threads", P14_REQUESTS, lat, wall, card))
+        serving_a = serving_line(f"(a) {P14_THREADS} threads", P14_REQUESTS, lat, wall, card)
+        log("  " + serving_a)
         snap = metrics.snapshot("serving.")
         log(f"  (a) {batches:.0f} blocks, occupancy mean {snap['serving.batch_occupancy.mean']:.3f}; "
             f"server-side latency p50 {snap['serving.latency_ms.p50']:.2f} ms, p99 "
@@ -3580,7 +3602,7 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
             f"{int(metrics.counter('decode.steps').value)} fused steps, {decode_s:.3f} s; "
             f"every stream the closed form")
         if then is not None:
-            then(server, images, want)
+            then(server, images, want, serving_a)
         server.close()
     return launches
 
@@ -3909,6 +3931,317 @@ def streaming_inference(card: str, counted, train_params, server, images, want) 
             f"{summary['epochs']} epochs, resumed for {second['epochs']}; (c) in all "
             f"{time.perf_counter() - t_c:.1f} s ({card})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the replica plane
+# ---------------------------------------------------------------------------
+P16_REPLICAS = 2
+P16_THREADS = 16         # (b), (c): client threads of the one-shot waves
+P16_STREAMS = 16         # (c): decode streams of 4-16 steps ...
+P16_STREAM_THREADS = 4   # ... from this many threads
+P16_AFTER = 32           # (c): requests after the restart
+P16_DRAIN = 64           # (d): requests in flight across the drain
+P16_OTHER_LANE = 64      # (f)
+P16_SPAWN_TIMEOUT_S = 300.0
+
+
+def vit_replica_server():
+    """Phase 16's replica factory (``chip_smoke:vit_replica_server``, run in
+    each replica process): ``ModelServer()`` on the card with two eager
+    endpoints, phase 5's seeded weights as a bf16 flash ViT-B/16 at full
+    width (``vit``, ``ServingConfig(max_batch=32, max_wait_ms=2)``) and
+    phase 14 (d)'s torch decode step in 8 slots (``dec``). Eager, because a
+    fresh process's first program load costs tens of seconds. Before it
+    returns, one request through the server must launch #1 once a block."""
+    import torch
+
+    from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
+    from sparkdl_tpu_torch.ops.flash_attention import FLASH_FWD
+    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    module = bf16_vit(flax_layout_vit_params(seed=2, classes=N_CLASSES))
+    server = ModelServer(ServingConfig(max_batch=32, max_wait_ms=2.0))
+
+    def forward(x):
+        with torch.inference_mode():
+            return module(x)
+
+    def step(carries):
+        return carries + 1.0, carries[:, 0].clone()
+
+    def init(prompt):
+        return np.asarray([float(np.sum(prompt)), 0.0], np.float32)
+
+    server.register("vit", forward, item_shape=(P14_IMAGE, P14_IMAGE, 3), compile=False)
+    server.register_decode("dec", step, init, max_steps=64, n_slots=P14_SLOTS, compile=False)
+    blocks = VIT_VARIANTS[P14_VARIANT][2]
+    before = FLASH_FWD.launches
+    row = server.predict(np.zeros((P14_IMAGE, P14_IMAGE, 3), np.float32), model_id="vit",
+                         timeout=600)
+    if FLASH_FWD.launches - before != blocks or not np.isfinite(row).all():
+        raise RuntimeError(f"the replica's first block launched #1 "
+                           f"{FLASH_FWD.launches - before} times, not {blocks}")
+    return server
+
+
+class RoutedClient:
+    """``serve_from_threads``' view of a router: ``predict`` is one routed
+    request of the ViT endpoint."""
+
+    def __init__(self, router, on_answer=None):
+        self.router = router
+        self.on_answer = on_answer
+
+    def predict(self, item, timeout=None):
+        out = self.router.route(item, model_id="vit", timeout_s=timeout)
+        if self.on_answer is not None:
+            self.on_answer()
+        return out
+
+
+def http_get(url: str):
+    """(status, body) of one GET, an error status included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def routed_stream(router, prompt: float, steps: int):
+    """One decode stream through the router, re-sent whole after a typed
+    transient or connection-shaped failure (the router retries a stream only
+    before its first token; a stream torn by a replica's death fails typed,
+    never spliced). Returns (tokens, times re-sent)."""
+    from sparkdl_tpu_torch.resilience.errors import is_transient
+
+    for resent in range(4):
+        try:
+            reply = router.route_stream([prompt], model_id="dec", max_steps=steps,
+                                        timeout_s=120.0)
+            return reply["result"].tolist(), resent
+        except Exception as exc:  # noqa: BLE001 - re-raised unless typed
+            if not (isinstance(exc, (ConnectionError, OSError)) or is_transient(exc)):
+                raise
+    raise AssertionError(f"the stream of prompt {prompt} failed four times")
+
+
+def replica_plane(card: str, images, want, serving_a: str) -> None:
+    """Phase 16: ``ReplicaSupervisor`` over two replica processes of
+    :func:`vit_replica_server` behind the ``Router``, tracing on in the
+    router and the replicas. (a) start, (b) phase 14's 256 images from 16
+    threads, (c) a second wave with 16 decode streams and a SIGKILL of
+    replica 0 a third of the way, (d) SIGTERM of replica 1 with requests in
+    flight, (e) the telemetry plane, (f) the other wire lane. #1's launches
+    are checked in the replicas (12 a block, in the factory); the parent
+    counts none."""
+    import os
+    import threading
+
+    from sparkdl_tpu_torch.obs import JsonlTraceSink, diagnose, diagnose_paths, tracer
+    from sparkdl_tpu_torch.serving import ReplicaSpec, ReplicaSupervisor
+    from sparkdl_tpu_torch.serving.router import Router
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    spec = ReplicaSpec(factory="chip_smoke:vit_replica_server", pythonpath=(root,))
+    metrics.reset()
+    sink = JsonlTraceSink(capacity=1 << 16)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-replicas-") as tmp, \
+            scoped_env(SPARKDL_TRACE_OUT=os.path.join(tmp, "replica_spans.jsonl"),
+                       PYTHONPATH=os.pathsep.join(
+                           p for p in (root, os.environ.get("PYTHONPATH")) if p)):
+        tracer.enable(sink)
+        sup = ReplicaSupervisor(spec, replicas=P16_REPLICAS, spawn_timeout_s=P16_SPAWN_TIMEOUT_S,
+                                monitor_interval_s=0.1)
+        try:
+            # (a) start: the replicas spawn one after another
+            t0 = time.perf_counter()
+            sup.start()
+            if not sup.wait_live(P16_REPLICAS, P16_SPAWN_TIMEOUT_S):
+                raise AssertionError(f"(a) replicas not live: {sup.status()}")
+            start_s = time.perf_counter() - t0
+            spawn = metrics.timer("supervisor.spawn_seconds")
+            lanes = sup.router.lanes()
+            log(f"replicas (a): {P16_REPLICAS} replica processes of the bf16 flash ViT-B/16 "
+                f"and the decode endpoint live in {start_s:.2f} s, {spawn.seconds / spawn.entries:.2f} "
+                f"s a replica (spawn to ready line: import, CUDA context, weights, one block "
+                f"of 12 launches of #1); lanes {lanes} ({card})")
+
+            # (b) load: phase 14's images through router.route from 16 threads
+            got, lat, wall = serve_from_threads(RoutedClient(sup.router), images, P16_THREADS)
+            log(serving_line(f"replicas (b): routed, {P16_THREADS} threads", len(images), lat,
+                             wall, card) + f"; in process, phase 14 {serving_a.strip()}")
+            check_bf16_rows("(b) routed rows", got, want)
+            served = diagnose(sink.spans(), record_metrics=False)["per_replica"]
+            router_spans = os.path.join(tmp, "router_spans.jsonl")
+            sink.flush(router_spans)
+            if len(served) != P16_REPLICAS or not all(v["requests"] for v in served.values()):
+                raise AssertionError(f"(b) not every replica served: {served}")
+            log("  (b) requests per replica: " + ", ".join(
+                f"{name} {v['requests']}" for name, v in served.items()))
+
+            # (c) kill: a second wave with decode streams, replica 0 killed
+            answered, killed = [0], {}
+            lock = threading.Lock()
+
+            def on_answer():
+                with lock:
+                    answered[0] += 1
+                    if answered[0] == len(images) // 3 and not killed:
+                        killed["pid"] = sup.kill_replica(0)
+                        killed["t"] = time.perf_counter()
+
+            streams = [None] * P16_STREAMS
+
+            def stream_client(t):
+                for i in range(t, P16_STREAMS, P16_STREAM_THREADS):
+                    streams[i] = routed_stream(sup.router, float(i), 4 + (i % 13))
+                    time.sleep(0.05)
+
+            stream_threads = [threading.Thread(target=stream_client, args=(t,))
+                              for t in range(P16_STREAM_THREADS)]
+            generation = sup.handles()[0].generation
+            for t in stream_threads:
+                t.start()
+            got, lat, wall = serve_from_threads(RoutedClient(sup.router, on_answer),
+                                                images[::-1], P16_THREADS)
+            for t in stream_threads:
+                t.join()
+            if not killed:
+                raise AssertionError("(c) the kill never fired")
+            check_bf16_rows("(c) rows across the kill", got, want[::-1])
+            resent = 0
+            for i, (tokens, n) in enumerate(streams):
+                resent += n
+                if tokens != [float(i + k) for k in range(4 + (i % 13))]:
+                    raise AssertionError(f"(c) stream {i} gave {tokens}")
+            if not sup.wait_live(P16_REPLICAS, P16_SPAWN_TIMEOUT_S) or \
+                    sup.handles()[0].generation <= generation:
+                raise AssertionError(f"(c) replica 0 did not come back: {sup.status()}")
+            kill_to_live = time.perf_counter() - killed["t"]
+            log(serving_line(f"replicas (c): {len(images)} requests and {P16_STREAMS} decode "
+                             f"streams, replica 0 (pid {killed['pid']}) SIGKILLed after "
+                             f"{len(images) // 3}", len(images), lat, wall, card)
+                + f"; every row answered, every stream its closed form ({resent} re-sent "
+                f"after a typed failure); kill to live again {kill_to_live:.2f} s, "
+                f"generation {generation} -> {sup.handles()[0].generation}; "
+                f"router.retries {metrics.counter('router.retries').value:.0f}")
+            sink.clear()
+            got, lat, wall = serve_from_threads(RoutedClient(sup.router), images[:P16_AFTER], 4)
+            check_bf16_rows("(c) rows after the restart", got, want[:P16_AFTER])
+            after = diagnose(sink.spans(), record_metrics=False)["per_replica"]
+            if len(after) != P16_REPLICAS or not all(v["requests"] for v in after.values()):
+                raise AssertionError(f"(c) not every replica served after the restart: {after}")
+            log(f"  (c) {P16_AFTER} requests after the restart: " + ", ".join(
+                f"{name} {v['requests']}" for name, v in after.items()))
+
+            # (d) drain: SIGTERM replica 1 with requests in flight; the
+            # stop blocks through the drain, so it runs on a thread of its own
+            drain = threading.Thread(target=sup.stop_replica, args=(1,),
+                                     kwargs={"graceful": True})
+            drained = {}
+
+            def drain_at_a_quarter():
+                with lock:
+                    answered[0] += 1
+                    if answered[0] == P16_DRAIN // 4:
+                        drained["t"] = time.perf_counter()
+                        drain.start()
+
+            answered[0] = 0
+            got, lat, wall = serve_from_threads(RoutedClient(sup.router, drain_at_a_quarter),
+                                                images[:P16_DRAIN], P16_THREADS)
+            drain.join(timeout=120)
+            if drain.is_alive():
+                raise AssertionError("(d) the drain did not end")
+            check_bf16_rows("(d) rows across the drain", got, want[:P16_DRAIN])
+            handle = sup.handles()[1]
+            if handle.state != "stopped" or handle.last_exit != 0:
+                raise AssertionError(f"(d) replica 1 {handle.state}, exit {handle.last_exit}")
+            drain_s = time.perf_counter() - drained["t"]
+            t0 = time.perf_counter()
+            sup.revive(1)
+            if not sup.wait_live(P16_REPLICAS, P16_SPAWN_TIMEOUT_S):
+                raise AssertionError(f"(d) replica 1 did not come back: {sup.status()}")
+            log(f"replicas (d): SIGTERM of replica 1 after {P16_DRAIN // 4} of {P16_DRAIN} "
+                f"answers: every request answered, the replica drained and exited 0 in "
+                f"{drain_s:.2f} s; revived in {time.perf_counter() - t0:.2f} s ({card})")
+
+            # (e) the telemetry plane
+            obs = sup.start_telemetry(sample_interval_s=0.2, slo_interval_s=0.5,
+                                      fleet_interval_s=0.5)
+            serve_from_threads(RoutedClient(sup.router), images[:P16_AFTER], 4)
+            for h in sup.handles():
+                status, body = http_get(h.obs_url() + "/healthz")
+                if status != 200 or not json.loads(body)["healthy"]:
+                    raise AssertionError(f"(e) {h.name} /healthz {status}: {body[:300]}")
+                status, body = http_get(h.obs_url() + "/metrics")
+                series = [ln for ln in body.splitlines() if ln.startswith("serving_")]
+                if status != 200 or not series:
+                    raise AssertionError(f"(e) {h.name} /metrics {status} holds no serving.* "
+                                         "series")
+                log(f"  (e) {h.name} /healthz 200 healthy; /metrics {len(series)} serving "
+                    f"lines, e.g. {series[0][:80]!r}")
+            deadline = time.perf_counter() + 30
+            fleet = []
+            while time.perf_counter() < deadline and not fleet:
+                time.sleep(0.5)
+                status, body = http_get(obs.url + "/debug/timeseries")
+                fleet = [name for name in json.loads(body)["series"]
+                         if name.startswith("fleet.")] if status == 200 else []
+            if not fleet:
+                raise AssertionError(f"(e) the fleet collector merged no series: "
+                                     f"{sup.fleet_collector.snapshot()}")
+            status, body = http_get(obs.url + "/slo")
+            if status != 200:
+                raise AssertionError(f"(e) /slo {status}: {body[:300]}")
+            states = {o["name"]: o["state"] for o in json.loads(body)["slos"]}
+            if set(states) != {"router.latency", "router.errors"}:
+                raise AssertionError(f"(e) /slo holds {states}")
+            log(f"replicas (e): the fleet collector merged {len(fleet)} fleet.* series "
+                f"(e.g. {sorted(fleet)[:3]}); /slo {states}")
+
+            # (f) the other lane, through a second router over the same replicas
+            used = set(sup.router.lanes().values())
+            other = "tcp" if used == {"shm"} else "shm"
+            with scoped_env(SPARKDL_WIRE_TRANSPORT=other):
+                router = Router()
+                for h in sup.handles():
+                    router.add(h.name, h.spec.host, h.port, lanes=h.lanes)
+                try:
+                    got, lat, wall = serve_from_threads(RoutedClient(router),
+                                                        images[:P16_OTHER_LANE], P16_THREADS)
+                    other_lanes = router.lanes()
+                finally:
+                    router.close()
+            if set(other_lanes.values()) != {other}:
+                raise AssertionError(f"(f) asked for {other}, got {other_lanes}")
+            check_bf16_rows(f"(f) rows on the {other} lane", got, want[:P16_OTHER_LANE])
+            log(serving_line(f"replicas (f): the {other} lane ({used} before), "
+                             f"{P16_THREADS} threads", P16_OTHER_LANE, lat, wall, card)
+                + f"; wire.shm.fallback {metrics.counter('wire.shm.fallback').value:.0f}")
+        finally:
+            sup.close()
+            tracer.disable()
+        report = diagnose_paths([router_spans, os.path.join(tmp, "replica_spans.jsonl")],
+                                record_metrics=False)
+    attribution = report["attribution"]
+    log(f"replicas (b) latency attribution (diagnose over the router's and the replicas' "
+        f"span files: {report['spans']} spans, {report['requests']} requests, "
+        f"{report['stitched_requests']} stitched): e2e p50 {attribution['e2e_p50_ms']:.2f} ms, "
+        f"p99 {attribution['e2e_p99_ms']:.2f} ms; " + ", ".join(
+            f"{name} p50 {v['p50_ms']:.2f} p99 {v['p99_ms']:.2f}"
+            for name, v in attribution["phases"].items())
+        + f" ms; coverage of p50 {attribution['coverage_p50']:.3f} ({card})")
+    log(f"replicas: phase 16 in {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def import_package() -> bool:
@@ -4481,11 +4814,17 @@ def main() -> int:
     # program given non-contiguous weights, decode; then phase 15 (the data
     # pipeline with device prefetch and streaming inference, exactly once)
     # while phase 14's ViT endpoint is still open
+    # phase 16: the replica plane, two replica processes behind the router
+    # (#1's launches checked in the replicas, not counted here)
     streamed = []
-    records[0]["launches"] += online_serving(
-        card, (reset_counts, counts), train_params,
-        then=lambda server, images, want: streamed.append(streaming_inference(
-            card, (reset_counts, counts), train_params, server, images, want)))
+
+    def then(server, images, want, serving_a):
+        streamed.append(streaming_inference(card, (reset_counts, counts), train_params,
+                                            server, images, want))
+        replica_plane(card, images, want, serving_a)
+
+    records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params,
+                                             then=then)
     records[0]["launches"] += streamed[0]
 
     print(card, flush=True)

@@ -73,6 +73,13 @@ if os.environ.get("SPARKDL_BLACKBOX_DIR"):
 
     _blackbox_enable_from_env()
 
+# Zero-code introspection server: SPARKDL_OBS_PORT=<port> serves /metrics,
+# /healthz, /slo and /debug/* on localhost (0 picks a free port).
+if os.environ.get("SPARKDL_OBS_PORT"):
+    from sparkdl_tpu_torch.obs.server import enable_from_env as _obs_server_enable_from_env
+
+    _obs_server_enable_from_env()
+
 
 def __getattr__(name):
     if name in _EXPORTS:

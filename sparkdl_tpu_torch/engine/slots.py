@@ -27,6 +27,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch.utils.device import resolve_device
+
 
 def slot_block_fingerprint(fingerprint: Optional[str], kind: str,
                            n_slots: int) -> Optional[str]:
@@ -70,18 +72,19 @@ def _as_tensor(carry) -> torch.Tensor:
 
 class SlotPool:
     """N slots over one reused stack of shape ``(N, *carry_shape)`` on
-    ``device``.
+    ``device`` (``None`` is the card, which raises without one; pass
+    ``"cpu"`` for the CPU).
 
     The carry's shape and dtype bind at the first :meth:`acquire`; every
     later carry must match. :meth:`release` zeroes the slot's row: state
     never leaks into the next request, and a leak would show as zeros
     rather than as a wrong answer."""
 
-    def __init__(self, n_slots: int, occupied_gauge=None, device="cpu"):
+    def __init__(self, n_slots: int, occupied_gauge=None, device=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.n_slots = int(n_slots)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._slots = [Slot(i) for i in range(self.n_slots)]
         self._free: "deque[int]" = deque(range(self.n_slots))
         self._carries: Optional[torch.Tensor] = None

@@ -44,7 +44,8 @@ import torch
 
 from sparkdl_tpu_torch.resilience import inject
 from sparkdl_tpu_torch.resilience.preempt import preemption_scope
-from sparkdl_tpu_torch.utils.metrics import fit_checkpoint, fit_step, metrics, record_commit
+from sparkdl_tpu_torch.obs.hooks import fit_profiler
+from sparkdl_tpu_torch.utils.metrics import metrics, record_commit
 
 logger = logging.getLogger(__name__)
 
@@ -449,6 +450,8 @@ def fit_epochs(
     ckpt_dir: Optional[str] = None,
     namespace: Optional[str] = None,
     payload: Optional[Callable[[Any], Dict[str, Any]]] = None,
+    estimator: str = "estimator",
+    steps_per_epoch: Optional[int] = None,
 ) -> Tuple[Any, List[float]]:
     """The estimators' epoch loop, from ``start_epoch`` to ``epochs``.
 
@@ -463,22 +466,25 @@ def fit_epochs(
     flags the token, the next step boundary raises ``Preempted``, and the
     last completed epoch is committed before it propagates. Fires the fault
     sites ``estimator.step``, ``estimator.epoch`` and
-    ``estimator.checkpoint_saved``. Returns the state and every step's
-    loss."""
+    ``estimator.checkpoint_saved``, inside a
+    :class:`~sparkdl_tpu_torch.obs.hooks.FitProfiler` named ``estimator``
+    (the fit, step and checkpoint spans, each epoch's event). Returns the
+    state and every step's loss."""
     for _ in range(start_epoch):
         rng.permutation(n)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
     step_losses: List[float] = []
     ckptr = AsyncCheckpointer() if ckpt_dir else None
     try:
-        with preemption_scope() as ptoken:
+        with preemption_scope() as ptoken, fit_profiler(
+                estimator, epochs=epochs, steps_per_epoch=steps_per_epoch) as prof:
             for epoch in range(start_epoch, epochs):
                 losses = []
                 with closing(batches(rng.permutation(n))) as epoch_batches:
                     for batch in epoch_batches:
                         ptoken.check()
                         inject.fire("estimator.step")
-                        with fit_step(sync):
+                        with prof.step(sync):
                             state, loss = step_fn(state, {
                                 k: torch.from_numpy(v).to(device) for k, v in batch.items()})
                         losses.append(loss)
@@ -486,9 +492,10 @@ def fit_epochs(
                 # one read of the losses per epoch, as the JAX loop's
                 # float(loss)
                 step_losses += torch.stack(losses).tolist()
+                prof.epoch(epoch + 1, step_losses[-1])
                 logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, step_losses[-1])
                 if ckptr is not None:
-                    with fit_checkpoint():
+                    with prof.checkpoint(epoch=epoch + 1):
                         save_epoch(ckptr, ckpt_dir, namespace, epoch + 1, payload(state))
                     inject.fire("estimator.checkpoint_saved")
     except BaseException as exc:

@@ -203,7 +203,8 @@ class KerasImageFileEstimator(
         rng = np.random.RandomState((seed * 7919 + 0) % 2**32)
         state, step_losses = checkpointing.fit_epochs(
             state, step_fn, batches, n, rng, start_epoch, epochs, device,
-            ckpt_dir, namespace, self._ckpt_payload)
+            ckpt_dir, namespace, self._ckpt_payload, estimator="KerasImageFileEstimator",
+            steps_per_epoch=max(1, -(-n // batch_size)))
         last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)

@@ -447,7 +447,9 @@ class TorchImageFileEstimator(
 
         state, step_losses = checkpointing.fit_epochs(
             state, step_fn, batches, x.shape[0], np.random.RandomState(seed % 2**32),
-            start_epoch, epochs, device, ckpt_dir, namespace, self._ckpt_payload)
+            start_epoch, epochs, device, ckpt_dir, namespace, self._ckpt_payload,
+            estimator="TorchImageFileEstimator",
+            steps_per_epoch=max(1, -(-x.shape[0] // batch_size)))
         last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)

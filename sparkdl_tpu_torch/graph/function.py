@@ -368,8 +368,9 @@ class TorchFunction:
                          input_names=("input",), output_names=("output",),
                          name: Optional[str] = None) -> "TorchFunction":
         raise NotImplementedError(
-            "TorchFunction.from_saved_model is not ported (ROADMAP item 6b): "
-            "TensorFlow is not available to the port"
+            "TorchFunction.from_saved_model raises by design: a SavedModel needs "
+            "TensorFlow, which the port does not use; load the model with from_keras, "
+            "from_checkpoint or from_npz instead"
         )
 
     @classmethod

@@ -17,21 +17,32 @@ Port of the core of ``sparkdl_tpu.obs`` (host code):
   availability bundles;
 - :mod:`blackbox`: :class:`FlightRecorder`, the crash flight recorder
   (``SPARKDL_BLACKBOX_DIR``) that the circuit breaker's trip, a preemption
-  and a watchdog hard timeout dump.
+  and a watchdog hard timeout dump;
+- :mod:`server`: :class:`ObsServer`, the opt-in stdlib HTTP introspection
+  endpoint (``/metrics``, ``/healthz``, ``/slo``, ``/debug/*``;
+  ``SPARKDL_OBS_PORT``);
+- :mod:`hooks`: :class:`FitProfiler`, the estimators' fit, step, epoch and
+  checkpoint spans and the always-on step metrics;
+- :mod:`fleet`: :class:`FleetCollector`, which federates every replica's
+  registry into the supervisor's recorder as labeled ``fleet.*`` series;
+- :mod:`diag`: :func:`diagnose`, the offline span-file analyser (critical
+  paths, latency attribution by phase and by replica, retries and hedges);
+- :mod:`profile`: :class:`StackProfiler`, the sampling stack profiler
+  (``SPARKDL_PROFILE``) whose stacks a flight-recorder dump carries.
 
 Disabled by default: every instrumentation site costs one branch until
 ``tracer.enable(...)`` or the ``SPARKDL_TRACE_OUT`` environment variable
 (read when ``sparkdl_tpu_torch`` is imported; ``SPARKDL_TRACE_SAMPLE`` and
 ``SPARKDL_TRACE_SLOW_MS`` arm tail-aware sampling).
-
-The rest of the JAX package's obs layer (``ObsServer``, the fit profiler's
-hooks, ``FleetCollector``, ``diagnose`` and the stack profiler) comes with
-the replica plane in the next slice (ROADMAP item 10b); its names raise
-``AttributeError`` here.
 """
 
 from sparkdl_tpu_torch.obs.blackbox import FlightRecorder
+from sparkdl_tpu_torch.obs.diag import diagnose, diagnose_paths
 from sparkdl_tpu_torch.obs.export import JsonlTraceSink, prometheus_text
+from sparkdl_tpu_torch.obs.fleet import FleetCollector
+from sparkdl_tpu_torch.obs.hooks import FitProfiler, fit_profiler
+from sparkdl_tpu_torch.obs.profile import StackProfiler, profile_for
+from sparkdl_tpu_torch.obs.server import ObsServer
 from sparkdl_tpu_torch.obs.slo import (
     SLO,
     SLOEngine,
@@ -58,10 +69,6 @@ ENV_SLOW_MS = "SPARKDL_TRACE_SLOW_MS"
 #: the sink installed by :func:`enable_from_env`, if any
 _env_sink = None
 
-#: the JAX package's obs names that come with the next slice
-_NEXT_SLICE = ("ObsServer", "FitProfiler", "fit_profiler", "FleetCollector",
-               "diagnose", "diagnose_paths", "StackProfiler", "profile_for")
-
 
 def enable_from_env() -> "JsonlTraceSink | None":
     """Enable tracing when ``SPARKDL_TRACE_OUT`` names a JSONL path (the
@@ -78,6 +85,12 @@ def enable_from_env() -> "JsonlTraceSink | None":
         slow_spec = os.environ.get(ENV_SLOW_MS, "").strip()
         tracer.configure_sampling(
             float(rate_spec), slow_ms=float(slow_spec) if slow_spec else None)
+
+    # the sampling profiler arms off its own variable (SPARKDL_PROFILE) at
+    # the same import-time seam, so a replica profiles itself with no code
+    from sparkdl_tpu_torch.obs import profile as _profile
+
+    _profile.enable_from_env()
     path = os.environ.get(ENV_VAR)
     if not path or _env_sink is not None:
         return _env_sink
@@ -87,29 +100,29 @@ def enable_from_env() -> "JsonlTraceSink | None":
     return _env_sink
 
 
-def __getattr__(name):
-    if name in _NEXT_SLICE:
-        raise AttributeError(
-            f"sparkdl_tpu_torch.obs.{name} is not ported yet: it comes with the replica "
-            "plane in the next slice (ROADMAP item 10b)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "ENV_SAMPLE",
     "ENV_SLOW_MS",
     "ENV_VAR",
+    "FitProfiler",
+    "FleetCollector",
     "FlightRecorder",
     "JsonlTraceSink",
+    "ObsServer",
     "SLO",
     "SLOEngine",
     "Span",
+    "StackProfiler",
     "TimeSeriesRecorder",
     "Tracer",
     "availability_slo",
     "current_span",
+    "diagnose",
+    "diagnose_paths",
     "enable_from_env",
+    "fit_profiler",
     "fleet_rollout_slos",
+    "profile_for",
     "prometheus_text",
     "record_event",
     "rollout_slos",

@@ -2,9 +2,7 @@
 even when the process dies without a word.
 
 Port of ``sparkdl_tpu.obs.blackbox`` (host code: a copy with the package
-renamed; the sampling profiler's stacks, which the JAX package's dumps
-carry when its profiler is armed, come with ``obs/profile.py`` in the next
-slice). While armed, a recorder keeps bounded in-memory rings of recent
+renamed). While armed, a recorder keeps bounded in-memory rings of recent
 spans, breadcrumb events and metric snapshots, and **persists them
 continuously**: an atomic write-tmp-then-rename of ``blackbox-<pid>.json``
 every ``interval_s``, so even SIGKILL (which no handler can observe)
@@ -146,6 +144,17 @@ class FlightRecorder:
             "metric_samples": samples,
             "metrics_now": self._registry.snapshot(),
         }
+        # when the env-armed sampling profiler is running, the dump
+        # carries its folded stacks too: an SLO page then shows WHERE
+        # the fleet was spending time, not just that it stalled
+        try:
+            from sparkdl_tpu_torch.obs import profile as _profile
+
+            prof = _profile.profiler()
+            if prof is not None:
+                payload["profile"] = prof.snapshot()
+        except Exception:  # never turn a dump into a crash
+            pass
         if exc is not None:
             payload["exception"] = {
                 "type": type(exc).__name__,

@@ -1,9 +1,9 @@
 """Declarative SLOs evaluated as multi-window burn rates.
 
 Port of ``sparkdl_tpu.obs.slo`` (host code: a copy with the package
-renamed). ``rollout_slos``, ``fleet_rollout_slos`` and ``tenant_slos`` come
-along as plain data: the series they watch are the replica plane's router
-and fleet collector's, which the next slice ports (ROADMAP item 10b).
+renamed). ``fleet_rollout_slos`` and ``tenant_slos`` watch the series of
+the replica plane's router and fleet collector; ``rollout_slos`` comes along
+as plain data for the rollout controller (ROADMAP item 10c).
 
 An SLO here is "objective fraction of good samples/requests over time"
 — e.g. *99% of p99-latency samples under 250 ms*, *99.9% of requests

@@ -9,13 +9,13 @@
   compiles and loads, and ``check_device``;
 - ``preempt``: the :func:`preemption_scope` whose token a fit loop polls at
   step boundaries;
-- ``inject``: deterministic fault plans fired at the fit loops' and the
-  serving plane's sites.
+- ``inject``: deterministic fault plans fired at the fit loops', the
+  serving plane's and the replica plane's sites, and the ``act=`` rules
+  the faulty network interprets.
 
 Retries and breaker flips are events of the current trace span, and the
 flight recorder (:mod:`sparkdl_tpu_torch.obs.blackbox`) dumps on a breaker's
-trip, a preemption and a watchdog hard timeout. The replica plane's fault
-sites and its ``act=`` rules come with that plane (ROADMAP item 10b).
+trip, a preemption and a watchdog hard timeout.
 """
 
 from sparkdl_tpu_torch.resilience.errors import (

@@ -9,11 +9,14 @@ shares and deadlines, and ``serving.*`` metrics in
 :mod:`sparkdl_tpu_torch.utils.metrics`; :class:`ModelServer` is the front
 door.
 
-The replica plane (``ReplicaSupervisor``, ``ReplicaSpec``, ``Router``,
-``Autoscaler``, ``RolloutController``, ``ResultCache``: the wire, transport,
-router, supervisor, rollout, autoscale, result cache and faultnet modules)
-is not ported yet: asking for one of its names raises ``AttributeError``
-naming ROADMAP item 10b.
+The replica plane runs each ``ModelServer`` in a process of its own
+behind a router: :class:`ReplicaSupervisor` spawns and restarts
+:class:`ReplicaSpec` replicas, the :class:`Router` places requests on them
+over the typed wire (TCP or a shared-memory ring), :class:`ResultCache`
+answers repeats and :class:`Autoscaler` sizes the fleet. Its names load
+lazily, on first use. ``RolloutController`` (the deploy-safety controller
+over the supervisor's versions) is not ported yet: asking for it raises
+``AttributeError`` naming ROADMAP item 10c.
 """
 
 from sparkdl_tpu_torch.serving.admission import AdmissionQueue, Request, TenantPolicy
@@ -22,6 +25,9 @@ from sparkdl_tpu_torch.serving.cache import ProgramCache
 from sparkdl_tpu_torch.serving.decode import ClientGone, DecodeEndpoint, DecodeRequest
 from sparkdl_tpu_torch.serving.errors import (
     DeadlineExceeded,
+    NoLiveReplicas,
+    RemoteReplicaError,
+    ReplicaDraining,
     ServerClosed,
     ServerOverloaded,
     ServingError,
@@ -37,7 +43,10 @@ __all__ = [
     "DecodeRequest",
     "MicroBatcher",
     "ModelServer",
+    "NoLiveReplicas",
     "ProgramCache",
+    "RemoteReplicaError",
+    "ReplicaDraining",
     "Request",
     "ServerClosed",
     "ServerOverloaded",
@@ -47,15 +56,24 @@ __all__ = [
     "TenantThrottled",
 ]
 
-#: the replica plane's names, not ported yet
-_REPLICA_PLANE = ("ReplicaSupervisor", "ReplicaSpec", "Router", "Autoscaler",
-                  "RolloutController", "ResultCache", "NoLiveReplicas",
-                  "RemoteReplicaError", "ReplicaDraining")
+#: the replica plane's classes, by the module that defines them: they pull
+#: in subprocess and socket machinery, so they load only when asked for
+_REPLICA_PLANE = {
+    "Autoscaler": "sparkdl_tpu_torch.serving.autoscale",
+    "ReplicaSpec": "sparkdl_tpu_torch.serving.replica",
+    "ReplicaSupervisor": "sparkdl_tpu_torch.serving.supervisor",
+    "ResultCache": "sparkdl_tpu_torch.serving.result_cache",
+    "Router": "sparkdl_tpu_torch.serving.router",
+}
 
 
 def __getattr__(name):
     if name in _REPLICA_PLANE:
+        import importlib
+
+        return getattr(importlib.import_module(_REPLICA_PLANE[name]), name)
+    if name == "RolloutController":
         raise AttributeError(
-            f"sparkdl_tpu_torch.serving.{name} belongs to the replica plane, which is not "
-            "ported yet (ROADMAP item 10b)")
+            "sparkdl_tpu_torch.serving.RolloutController is not ported yet "
+            "(ROADMAP item 10c)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -67,6 +67,7 @@ from sparkdl_tpu_torch.serving.admission import AdmissionQueue, Request, TenantP
 from sparkdl_tpu_torch.serving.cache import ProgramCache
 from sparkdl_tpu_torch.serving.errors import DeadlineExceeded, ServerClosed
 from sparkdl_tpu_torch.transformers.utils import _serial_inference, pad_to_batch, shape_bucket
+from sparkdl_tpu_torch.utils.device import resolve_device
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 logger = logging.getLogger(__name__)
@@ -170,7 +171,9 @@ class ServingConfig:
 
 class MicroBatcher:
     """One online endpoint: an admission queue, a worker and the warm
-    programs of one model ``forward(batch) -> batch`` on ``device``.
+    programs of one model ``forward(batch) -> batch`` on ``device``
+    (``None`` is the card, which raises without one; pass ``"cpu"`` for the
+    CPU).
 
     ``forward`` takes a tensor of ``(n, *item_shape)`` on ``device`` and
     returns one. With ``params`` (a pytree of tensors on ``device``) it is
@@ -194,12 +197,12 @@ class MicroBatcher:
         fingerprint: Optional[str] = None,
         prologue: Optional[Callable[[Any], Any]] = None,
         params: Any = None,
-        device="cpu",
+        device=None,
     ):
         self.model_id = model_id
         self._config = config
         self._cache = cache
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         # every internal forward takes (params, batch); an endpoint without
         # params passes the empty tuple. The weights go in contiguous (a copy
         # only of those that are not): a package compiled on the card for a
@@ -251,9 +254,13 @@ class MicroBatcher:
         # the one-shot slot block on the host: a request holds its slot from
         # admission until its row is returned (across its block's time in
         # the window), so the gauge reads "requests resident on the card".
-        # Worker-owned; the gauge is the only read from other threads
+        # Worker-owned; the gauge is the only read from other threads. Its
+        # carries never reach the card (a one-shot slot holds no state; the
+        # pool is bookkeeping of which rows are taken), so it lives on the
+        # host whatever the endpoint's device
         self._pool = SlotPool(config.max_batch,
-                              occupied_gauge=metrics.gauge("batcher.slot_occupancy"))
+                              occupied_gauge=metrics.gauge("batcher.slot_occupancy"),
+                              device="cpu")
         # pad accounting: rows asked for against rows computed
         self._m_rows_real = metrics.counter("batcher.rows_real")
         self._m_rows_computed = metrics.counter("batcher.rows_computed")

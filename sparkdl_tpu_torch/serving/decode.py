@@ -37,8 +37,9 @@ before each emitted frame. With tracing on, a ``decode.request`` span per
 stream (its ``slot_acquired`` event, its ``steps`` at the end) and a
 ``decode.steps`` span per fused step group carrying its members' span ids,
 the batcher's fan-in; the step and first-token histograms carry trace ids
-as exemplars. The replica plane's stream frames come with that plane
-(ROADMAP item 10b).
+as exemplars. A replica wraps each emitted frame into the wire's stream
+frame (:func:`sparkdl_tpu_torch.serving.wire.send_stream`), and the router
+stitches them back in order (``Router.route_stream``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from sparkdl_tpu_torch.serving.batcher import (
     to_host,
 )
 from sparkdl_tpu_torch.serving.errors import DeadlineExceeded, ServerClosed
+from sparkdl_tpu_torch.utils.device import resolve_device
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 logger = logging.getLogger(__name__)
@@ -98,6 +100,8 @@ class DecodeRequest(Request):
 class DecodeEndpoint:
     """One autoregressive endpoint: an admission queue, a slot pool on
     ``device`` and one worker running the fused step over occupied slots.
+    ``device=None`` is the card, which raises without one; pass ``"cpu"``
+    for the CPU.
 
     ``compile=False`` runs ``step_fn`` eagerly (deterministic: what the
     fault tests use); ``compile=True`` resolves one program for the pool
@@ -118,7 +122,7 @@ class DecodeEndpoint:
         compile: bool = True,
         fingerprint: Optional[str] = None,
         tenant_policy: Optional[TenantPolicy] = None,
-        device="cpu",
+        device=None,
     ):
         if max_steps < 1:
             raise ValueError(f"max_steps must be >= 1, got {max_steps}")
@@ -135,7 +139,7 @@ class DecodeEndpoint:
         self._m_step = metrics.histogram("decode.step_ms")
         self._m_tokens = metrics.counter("decode.tokens")
         self._pool = SlotPool(n_slots, occupied_gauge=metrics.gauge("decode.slots_occupied"),
-                              device=device)
+                              device=resolve_device(device))
         self._queue = AdmissionQueue(
             queue_capacity,
             depth_gauge=metrics.gauge(f"serving.queue_depth.{model_id}"),
@@ -158,10 +162,13 @@ class DecodeEndpoint:
     # ------------------------------------------------------------------
     def submit(self, prompt, emit: Optional[Callable[[dict], Any]] = None,
                max_steps: Optional[int] = None, deadline_ms: Optional[float] = None,
-               tenant: Optional[str] = None) -> DecodeRequest:
+               tenant: Optional[str] = None,
+               trace: Optional[Tuple[int, int]] = None) -> DecodeRequest:
         """Admit one decode stream; returns the request (its ``future``
         resolves with the stacked tokens). Sheds with the one-shot plane's
-        typed errors; ``max_steps`` is clamped to the endpoint's cap."""
+        typed errors; ``max_steps`` is clamped to the endpoint's cap.
+        ``trace``, a remote ``(trace_id, span_id)`` from the wire, parents
+        the request's span."""
         if self._closed or self._draining:
             raise ServerClosed(f"decode endpoint {self.model_id!r} is "
                                f"{'draining' if self._draining else 'closed'}")
@@ -173,8 +180,8 @@ class DecodeEndpoint:
                             tenant=tenant, enqueued_at=time.monotonic(), emit=emit,
                             max_steps=steps)
         if tracer.enabled:
-            req.span = tracer.start_span("decode.request", model_id=self.model_id,
-                                         max_steps=steps)
+            req.span = tracer.start_span("decode.request", remote=trace,
+                                         model_id=self.model_id, max_steps=steps)
             req.future.add_done_callback(_end_request_span(req.span))
         metrics.counter("decode.requests").add(1)
         self._m_requests.add(1)

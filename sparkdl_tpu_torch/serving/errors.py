@@ -5,10 +5,9 @@ Port of ``sparkdl_tpu.serving.errors``. A caller tells a *shed* request
 and a *closed* endpoint (stop sending) from a model failure by type. Each
 also carries its :mod:`sparkdl_tpu_torch.resilience` class, so a
 ``RetryPolicy`` in front of a server backs off on shed requests and fails
-fast on expired or closed ones.
-
-The replica plane's errors (``ReplicaDraining``, ``NoLiveReplicas``,
-``RemoteReplicaError``) come with it (ROADMAP item 10b).
+fast on expired or closed ones. The replica plane's errors
+(``ReplicaDraining``, ``NoLiveReplicas``, ``RemoteReplicaError``) cross the
+wire by class name (:func:`sparkdl_tpu_torch.serving.wire.decode_error`).
 """
 
 from __future__ import annotations
@@ -45,3 +44,26 @@ class DeadlineExceeded(ServingError, _DeadlineExpired):
 class ServerClosed(ServingError, PermanentError):
     """The endpoint was closed: submissions are rejected, and requests still
     queued at close fail with this error. (Permanent.)"""
+
+
+class ReplicaDraining(ServingError, TransientError):
+    """The replica is draining after SIGTERM: it finishes in-flight work but
+    admits nothing new. The router treats it as a connection-level failure
+    and re-routes to a live replica. (Transient.)"""
+
+
+class NoLiveReplicas(ServingError, TransientError):
+    """The router has no live replica to place the request on: every replica
+    is dead, draining or evicted. The supervisor is restarting them; back
+    off and retry. (Transient.)"""
+
+
+class RemoteReplicaError(ServingError, PermanentError):
+    """A replica reported a failure class the wire does not recognise.
+    Permanent on purpose: the router must not blind-retry a failure it
+    cannot classify (it may be a model error that fails alike everywhere).
+    Connection-shaped classes (``ConnectionError``, ``TimeoutError``,
+    ``FrameCorrupt``) are in the wire's error registry and decode to their
+    own retryable types, so they never land here. Every ``ServingError``
+    subclass inherits exactly one of ``TransientError`` and
+    ``PermanentError``."""

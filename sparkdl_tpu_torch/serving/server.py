@@ -14,10 +14,9 @@ with ``device="cpu"``::
     server.status()                      # a /healthz-style snapshot
 
 ``metrics_text()`` renders the process's metrics in the Prometheus text
-format (:func:`sparkdl_tpu_torch.obs.export.prometheus_text`).
-``start_telemetry`` (the HTTP introspection server, its time series and SLO
-engine) needs ``ObsServer``, which comes with the replica plane in the next
-slice, and raises until then.
+format (:func:`sparkdl_tpu_torch.obs.export.prometheus_text`);
+``start_telemetry()`` serves them, with ``/healthz``, ``/slo`` and
+``/debug/*``, through :class:`~sparkdl_tpu_torch.obs.server.ObsServer`.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ class ModelServer:
         self._default: Optional[str] = None
         self._started_at = time.monotonic()
         self._closed = False
+        self._telemetry: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------------
     # registration
@@ -191,6 +191,13 @@ class ModelServer:
             raise KeyError(f"no endpoint {model_id!r}; registered: "
                            f"{sorted(self._endpoints)}") from None
 
+    def fingerprints(self) -> Dict[str, str]:
+        """Endpoint id -> durable fingerprint, for every endpoint that has
+        one: what a replica advertises in its ready line (the version half
+        of the router's result-cache keys); an endpoint without one is
+        absent (uncacheable)."""
+        return {mid: ep.fingerprint for mid, ep in self._endpoints.items() if ep.fingerprint}
+
     def submit(self, value, model_id: Optional[str] = None,
                deadline_ms: Optional[float] = None, tenant: Optional[str] = None) -> Future:
         """Admit one item for ``model_id`` (optional when the server hosts
@@ -212,12 +219,15 @@ class ModelServer:
     def submit_decode(self, prompt, model_id: Optional[str] = None,
                       emit: Optional[Callable[[dict], Any]] = None,
                       max_steps: Optional[int] = None, deadline_ms: Optional[float] = None,
-                      tenant: Optional[str] = None) -> DecodeRequest:
+                      tenant: Optional[str] = None,
+                      trace: Optional[Tuple[int, int]] = None) -> DecodeRequest:
         """Admit one decode stream; ``emit`` receives the stream's frames as
         tokens land (None: collect them all). The request's ``future``
-        resolves with the stacked tokens."""
+        resolves with the stacked tokens. ``trace`` is a remote parent span
+        from the wire."""
         return self._decode_endpoint(model_id).submit(
-            prompt, emit=emit, max_steps=max_steps, deadline_ms=deadline_ms, tenant=tenant)
+            prompt, emit=emit, max_steps=max_steps, deadline_ms=deadline_ms, tenant=tenant,
+            trace=trace)
 
     def decode(self, prompt, model_id: Optional[str] = None, max_steps: Optional[int] = None,
                deadline_ms: Optional[float] = None, tenant: Optional[str] = None,
@@ -286,15 +296,77 @@ class ModelServer:
 
         return prometheus_text(metrics, prefix="serving." if serving_only else None)
 
-    def start_telemetry(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ModelServer.start_telemetry serves /metrics, /healthz and /slo through "
-            "ObsServer, which is not ported yet: it comes with the replica plane in the "
-            "next slice (ROADMAP item 10b); metrics_text() and "
-            "sparkdl_tpu_torch.obs.SLOEngine work without it")
+    def start_telemetry(
+        self,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        sample_interval_s: float = 1.0,
+        slo_interval_s: float = 5.0,
+        latency_threshold_ms: float = 250.0,
+        latency_objective: float = 0.99,
+        error_objective: float = 0.999,
+        extra_slos: Optional[Sequence] = None,
+        **slo_overrides,
+    ):
+        """Start this server's telemetry plane; returns its
+        :class:`~sparkdl_tpu_torch.obs.server.ObsServer` (``.url`` is the
+        scrape target; ``port=0`` picks a free port).
+
+        Wires a :class:`~sparkdl_tpu_torch.obs.timeseries.TimeSeriesRecorder`
+        sampling the registry every ``sample_interval_s``; an
+        :class:`~sparkdl_tpu_torch.obs.slo.SLOEngine` with each endpoint's
+        latency and error-rate objectives
+        (:func:`~sparkdl_tpu_torch.obs.slo.serving_slos`, tuned by the
+        keywords and ``slo_overrides``) and any ``extra_slos``; a span sink
+        behind ``/debug/spans`` (spans flow while tracing is on); and
+        ``/healthz`` backed by :meth:`status`, 200 while healthy and 503 when
+        not. :meth:`close` tears it down. A second call returns the running
+        server."""
+        if self._telemetry is not None:
+            return self._telemetry["server"]
+        from sparkdl_tpu_torch.obs import (
+            JsonlTraceSink,
+            ObsServer,
+            SLOEngine,
+            TimeSeriesRecorder,
+            serving_slos,
+            tracer,
+        )
+
+        recorder = TimeSeriesRecorder(interval_s=sample_interval_s).start()
+        engine = SLOEngine(recorder)
+        for mid in self._endpoints:
+            engine.add(*serving_slos(
+                mid, latency_threshold_ms=latency_threshold_ms,
+                latency_objective=latency_objective, error_objective=error_objective,
+                **slo_overrides))
+        if extra_slos:
+            engine.add(*extra_slos)
+        engine.start(interval_s=slo_interval_s)
+        sink = JsonlTraceSink(capacity=1024)
+        tracer.add_sink(sink)
+        server = ObsServer(port=port, host=host, recorder=recorder, slo_engine=engine,
+                           span_sink=sink, health_fn=self.status).start()
+        self._telemetry = {"server": server, "recorder": recorder, "engine": engine,
+                           "sink": sink}
+        return server
+
+    @property
+    def telemetry(self) -> Optional[Dict[str, Any]]:
+        """The live plane (``server``, ``recorder``, ``engine``, ``sink``),
+        or None before :meth:`start_telemetry`."""
+        return self._telemetry
 
     def close(self) -> None:
         self._closed = True
+        if self._telemetry is not None:
+            plane, self._telemetry = self._telemetry, None
+            from sparkdl_tpu_torch.obs import tracer
+
+            plane["engine"].stop()
+            plane["recorder"].stop()
+            plane["server"].close()
+            tracer.remove_sink(plane["sink"])
         for ep in self._endpoints.values():
             ep.close()
 

@@ -4,12 +4,10 @@ A trimmed copy of ``sparkdl_tpu.utils.metrics``: the counters and timers the
 hot loop advances (``sparkdl.load``, ``sparkdl.forward``, ``sparkdl.serve``,
 ``sparkdl.images_processed``, ``sparkdl.rows_processed``,
 ``sparkdl.batches_run``), so ``metrics.images_per_sec()`` reports the
-sustained rate of the current process; and the always-on part of
-``sparkdl_tpu.obs.hooks``' fit profiler, :func:`fit_step` (the
-``estimator.step`` timer and the ``estimator.steps`` counter) and
-:func:`fit_checkpoint` (the ``estimator.checkpoint`` timer and the
-``estimator.checkpoint_ms`` histogram of each save's dispatch), with
-:func:`record_commit` for the background write behind it
+sustained rate of the current process; the fit profiler
+(:mod:`sparkdl_tpu_torch.obs.hooks`) keeps the ``estimator.*`` step and
+checkpoint series, and :func:`record_commit` the background write behind
+each save
 (``estimator.checkpoint_commit``, ``estimator.checkpoint_commit_ms``,
 ``estimator.checkpoint_bytes``); the estimators time a resume into
 ``estimator.restore``, and the streaming loader its loads into
@@ -34,7 +32,7 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 class Counter:
@@ -276,35 +274,6 @@ class MetricsRegistry:
 
 #: the process-wide registry
 metrics = MetricsRegistry()
-
-
-@contextmanager
-def fit_step(sync: Optional[Callable[[], None]] = None):
-    """Time one optimizer step into the ``estimator.step`` timer and count
-    it in ``estimator.steps``. ``sync`` (the card's ``synchronize``) runs
-    before the clock stops, so each entry is the step's device time, not
-    its enqueue. Nothing is recorded for a step that raised."""
-    start = time.perf_counter()
-    yield
-    if sync is not None:
-        sync()
-    metrics.timer("estimator.step").add_seconds(time.perf_counter() - start)
-    metrics.counter("estimator.steps").add(1)
-
-
-@contextmanager
-def fit_checkpoint():
-    """Time one checkpoint save's dispatch (the host snapshot of the
-    payload) into the ``estimator.checkpoint`` timer and the
-    ``estimator.checkpoint_ms`` histogram; the write behind it is
-    :func:`record_commit`'s."""
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        elapsed = time.perf_counter() - start
-        metrics.timer("estimator.checkpoint").add_seconds(elapsed)
-        metrics.histogram("estimator.checkpoint_ms").observe(elapsed * 1e3)
 
 
 def record_commit(seconds: float, nbytes: int) -> None:

@@ -9,8 +9,8 @@ carries. The streams are held to the closed form of the JAX package's
 pre-step ``acc`` and adds 1, so a prompt summing to ``s`` streams ``s, s+1,
 ...``) and to that JAX endpoint's own streams. A compiled step runs through
 the engine with its compile swapped for ``torch.export`` alone
-(``ExportOnly`` of ``tests/torch_fixtures/engine_fixtures.py``). The replica plane's wire,
-router and kill-matrix cases wait for it (ROADMAP item 10b).
+(``ExportOnly`` of ``tests/torch_fixtures/engine_fixtures.py``). The wire,
+router and kill-matrix cases are in ``tests/test_torch_decode_wire.py``.
 """
 
 import os
@@ -68,7 +68,7 @@ def sum_init(prompt):
 
 
 def make_endpoint(**kw):
-    defaults = dict(max_steps=16, n_slots=4, compile=False, step_s=0.0)
+    defaults = dict(max_steps=16, n_slots=4, compile=False, step_s=0.0, device="cpu")
     defaults.update(kw)
     step_s = defaults.pop("step_s")
     return DecodeEndpoint("dec", counting_step(step_s), sum_init, **defaults)
@@ -87,7 +87,7 @@ def jax_server():
 
 class TestSlotPool:
     def test_acquire_binds_shape_release_zeroes(self):
-        pool = SlotPool(3)
+        pool = SlotPool(3, device="cpu")
         s0 = pool.acquire("r0", np.asarray([5.0, 1.0], np.float32))
         assert s0 is not None and s0.index == 0
         assert pool.carry_shape == (2,)
@@ -101,13 +101,13 @@ class TestSlotPool:
         assert pool.n_free == 3
 
     def test_mismatched_carry_shape_rejected(self):
-        pool = SlotPool(2)
+        pool = SlotPool(2, device="cpu")
         pool.acquire("r0", np.zeros(2, np.float32))
         with pytest.raises(ValueError, match="one pool serves one"):
             pool.acquire("r1", np.zeros(3, np.float32))
 
     def test_release_all_returns_occupants(self):
-        pool = SlotPool(2)
+        pool = SlotPool(2, device="cpu")
         pool.acquire("a", np.zeros(2, np.float32))
         pool.acquire("b", np.zeros(2, np.float32))
         evicted = pool.release_all()
@@ -118,7 +118,7 @@ class TestSlotPool:
         )
 
     def test_freed_slot_is_reused_mid_flight(self):
-        pool = SlotPool(2)
+        pool = SlotPool(2, device="cpu")
         a = pool.acquire("a", np.ones(2, np.float32))
         pool.acquire("b", np.ones(2, np.float32))
         assert pool.acquire("c", np.ones(2, np.float32)) is None
@@ -128,7 +128,7 @@ class TestSlotPool:
         np.testing.assert_array_equal(pool.carries()[c.index], 7.0)
 
     def test_mask_tracks_occupancy_by_index(self):
-        pool = SlotPool(3)
+        pool = SlotPool(3, device="cpu")
         a = pool.acquire("a", np.zeros(2, np.float32))
         pool.acquire("b", np.zeros(2, np.float32))
         np.testing.assert_array_equal(
@@ -172,7 +172,7 @@ class TestDecodeEndpoint:
         ep = DecodeEndpoint(
             "dec", counting_step(), sum_init, max_steps=50,
             eos_fn=lambda tok, step: float(tok) >= 4.0,
-            n_slots=2, compile=False,
+            n_slots=2, compile=False, device="cpu",
         )
         try:
             out = ep.decode([2.0], timeout=10)
@@ -302,7 +302,7 @@ class TestDecodeEndpoint:
 
         ep = DecodeEndpoint(
             "dec", exploding_step, sum_init, max_steps=50,
-            n_slots=4, compile=False,
+            n_slots=4, compile=False, device="cpu",
         )
         try:
             reqs = [ep.submit([float(i)], max_steps=50) for i in range(3)]

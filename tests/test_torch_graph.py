@@ -173,7 +173,7 @@ def test_from_checkpoint(tmp_path):
 def test_from_keras_and_from_saved_model_raise():
     # from_keras is ported (the from_keras tests below); from_saved_model
     # still raises: the port has no TensorFlow
-    with pytest.raises(NotImplementedError, match="6b"):
+    with pytest.raises(NotImplementedError, match="needs TensorFlow"):
         TorchFunction.from_saved_model("saved_model_dir")
 
 

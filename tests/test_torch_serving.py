@@ -26,10 +26,12 @@ breaker. Compiled endpoints there run through the engine with its compile
 swapped for ``ExportOnly`` (``tests/torch_fixtures/engine_fixtures.py``).
 """
 
+import json
 import os
 import sys
 import threading
 import time
+import urllib.request
 
 import keras
 import numpy as np
@@ -59,6 +61,7 @@ from sparkdl_tpu_torch.resilience.inject import (
 from sparkdl_tpu_torch.resilience.policy import RetryPolicy
 from sparkdl_tpu_torch.serving import (
     DeadlineExceeded,
+    DecodeEndpoint,
     ModelServer,
     ServerClosed,
     ServerOverloaded,
@@ -309,13 +312,51 @@ def test_the_card_is_the_default_device(monkeypatch):
         ModelServer()
 
 
-def test_replica_plane_names_wait_for_item_10b():
-    import sparkdl_tpu_torch.serving as serving
+def test_batcher_decode_and_slot_pool_default_to_the_card(monkeypatch):
+    # each of the three raises without a card unless told device="cpu"
+    from sparkdl_tpu_torch.engine.slots import SlotPool
 
-    with pytest.raises(AttributeError, match="10b"):
-        serving.ReplicaSupervisor  # noqa: B018
-    with pytest.raises(NotImplementedError, match="10b"):
-        make_server().start_telemetry()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builders = [
+        lambda **kw: MicroBatcher("b", lambda x: x, ServingConfig(max_batch=4), ProgramCache(2),
+                                  item_shape=(4,), compile=False, **kw),
+        lambda **kw: DecodeEndpoint("d", lambda c: (c + 1.0, c[:, 0].clone()),
+                                    lambda p: np.zeros(2, np.float32), max_steps=4,
+                                    compile=False, **kw),
+        lambda **kw: SlotPool(3, **kw),
+    ]
+    for build in builders:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        made = build(device="cpu")
+        pool = made if isinstance(made, SlotPool) else made._pool
+        assert pool.device == torch.device("cpu")
+        if not isinstance(made, SlotPool):
+            made.close()
+
+
+def test_replica_plane_names_wait_for_item_10b():
+    # the replica plane is ported: its names import, only the rollout
+    # controller still raises naming its item, and start_telemetry serves
+    import sparkdl_tpu_torch.serving as serving
+    from sparkdl_tpu_torch.serving.replica import ReplicaSpec
+    from sparkdl_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+    assert serving.ReplicaSupervisor is ReplicaSupervisor
+    assert serving.ReplicaSpec is ReplicaSpec
+    for name in ("Router", "ResultCache", "Autoscaler", "ReplicaDraining",
+                 "NoLiveReplicas", "RemoteReplicaError"):
+        assert isinstance(getattr(serving, name), type)
+    with pytest.raises(AttributeError, match="10c"):
+        serving.RolloutController  # noqa: B018
+    server = make_server()
+    try:
+        obs = server.start_telemetry()
+        assert server.start_telemetry() is obs
+        with urllib.request.urlopen(obs.url + "/healthz", timeout=10) as resp:
+            assert json.loads(resp.read())["healthy"] is True
+    finally:
+        server.close()
 
 
 # ----------------------------------------------------------------------
@@ -600,7 +641,7 @@ def test_take_flush_early_cuts_linger_on_frozen_clock():
 def test_lone_request_resolves_without_serving_full_linger():
     batcher = MicroBatcher("flush", lambda x: x * 2.0,
                            ServingConfig(max_batch=16, max_wait_ms=3_600_000.0),
-                           ProgramCache(4), item_shape=(4,), compile=False)
+                           ProgramCache(4), item_shape=(4,), compile=False, device="cpu")
     try:
         fut = batcher.submit(np.full((4,), 3.0, np.float32))
         np.testing.assert_allclose(fut.result(timeout=10.0), 6.0)

@@ -274,6 +274,19 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.streaming.sources",
         "sparkdl_tpu_torch.streaming.commit",
         "sparkdl_tpu_torch.streaming.runner",
+        "sparkdl_tpu_torch.obs.server",
+        "sparkdl_tpu_torch.obs.hooks",
+        "sparkdl_tpu_torch.obs.fleet",
+        "sparkdl_tpu_torch.obs.diag",
+        "sparkdl_tpu_torch.obs.profile",
+        "sparkdl_tpu_torch.serving.wire",
+        "sparkdl_tpu_torch.serving.transport",
+        "sparkdl_tpu_torch.serving.faultnet",
+        "sparkdl_tpu_torch.serving.result_cache",
+        "sparkdl_tpu_torch.serving.replica",
+        "sparkdl_tpu_torch.serving.router",
+        "sparkdl_tpu_torch.serving.supervisor",
+        "sparkdl_tpu_torch.serving.autoscale",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -285,7 +298,11 @@ def test_port_sources_import_no_jax():
                    "graph/utils.py", "param/converters.py", "transformers/tf_image.py",
                    "transformers/tf_tensor.py", "utils/hdf5.py", "models/keras_model.py",
                    "transformers/keras_image.py", "transformers/keras_tensor.py",
-                   "sql/functions.py", "graph/tensorframes_udf.py",
+                   "sql/functions.py", "graph/tensorframes_udf.py", "obs/server.py",
+                   "obs/hooks.py", "obs/fleet.py", "obs/diag.py", "obs/profile.py",
+                   "serving/wire.py", "serving/transport.py", "serving/faultnet.py",
+                   "serving/result_cache.py", "serving/replica.py", "serving/router.py",
+                   "serving/supervisor.py", "serving/autoscale.py",
                    "udf/keras_image_model.py", "parallel/keras_train.py",
                    "estimators/keras_image_file_estimator.py", "estimators/checkpointing.py",
                    "estimators/optimizers.py", "resilience/__init__.py", "resilience/errors.py",
@@ -311,6 +328,41 @@ def test_port_sources_import_no_jax():
             offenders += [f"{path.name}: {n}" for n in names if _imports_jax_package(n)]
     assert len(files) > 10
     assert offenders == []
+
+
+REPLICA_MODULES_FACTORY = """
+import sys
+
+import torch
+
+from sparkdl_tpu_torch.serving import ModelServer
+
+
+def make():
+    server = ModelServer(device="cpu")
+
+    def forward(x):
+        # answered once the replica serves: everything it loads is loaded
+        roots = ("jax", "jaxlib", "flax", "keras", "tensorflow", "orbax", "optax",
+                 "h5py", "sparkdl_tpu")
+        n = sum(1 for m in list(sys.modules)
+                if any(m == r or m.startswith(r + ".") for r in roots))
+        return torch.full_like(x, float(n))
+
+    server.register("modules", forward, item_shape=(1,), compile=False)
+    return server
+"""
+
+
+def test_a_replica_process_loads_no_jax(tmp_path):
+    from sparkdl_tpu_torch.serving import ReplicaSpec, ReplicaSupervisor
+
+    (tmp_path / "modules_factory.py").write_text(REPLICA_MODULES_FACTORY)
+    spec = ReplicaSpec(factory="modules_factory:make", pythonpath=(str(tmp_path),))
+    with ReplicaSupervisor(spec, replicas=1, monitor_interval_s=0.05) as sup:
+        assert sup.wait_live(1, 120), sup.status()
+        got = sup.router.route(np.zeros(1, np.float32), model_id="modules", timeout_s=30.0)
+    assert np.asarray(got).tolist() == [0.0]
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
