@@ -243,7 +243,8 @@ prints no result):
    against the UDF's SQL rows and the plain forward at ``SLICE_TOL``, no
    attention launch. (d) ``SPARKDL_RAGGED=0`` on the ViT endpoint at
    ``max_batch=4``: the ladder compiles three programs, 32 requests from 4
-   threads held as in (a); then 16 decode streams of 4-16 steps admitted
+   threads held as in (a), and 3 requests at once (tried until one batch
+   pads: bucket 4 with a pad row) held the same; then 16 decode streams of 4-16 steps admitted
    mid-flight into 8 slots of a torch step compiled through the engine,
    each equal to its closed form. (e) The InceptionV3 UDF endpoint's
    compiled slot-block program called straight through
@@ -295,6 +296,28 @@ prints no result):
    fleet collector's merged series, ``/slo``. (f) 64 images on the other
    wire lane (shm or tcp) through a second router. ``diagnose_paths`` over
    the router's and the replicas' span files attributes (b)'s latency.
+17. rollout and parallelism. (a) Inside phase 16's supervisor, before it
+   closes: ``RolloutController`` deploys v2 (one replica of the bf16 ViT-B/16
+   with seed-3 weights) beside the two v1 replicas, shifts the router's
+   weights through 25%, 50%, 100% with 3 s bakes on phase 16 (e)'s SLO
+   engine (``rollout_slos("v2")``) while 8 client threads keep sending,
+   promotes and drains v1; then v3 (seed-2 weights) rolls back on an
+   ``inject`` rule at ``rollout.bake``. Every answer within the bf16 bound of
+   one seed's float32 rows, those sent after the promotion and after the
+   rollback v2's, none lost; the spawn, shift, promotion, detection and
+   rollback seconds, the ``rollout.*`` metrics. (b) In a child process (no
+   process that touched CUDA forks), an NCCL process group of one on the
+   card (``runner.initialize()``): the bf16 ViT-B/16 fit of phase 5's
+   weights without the group and with it (DP), with
+   ``shardingRules=VIT_TP_RULES, meshShape=(1, 1)`` and with
+   ``attn_impl=pad_tokens_for_sp(mesh, impl="ulysses-flash")`` (#2-#4 12 a
+   step, through Ulysses' all-to-alls for the last): each fit's losses and
+   weights equal to the fit without the group bit for bit, the Ulysses-flash stage's transform (#1 12 a batch) against
+   the flash stage of the same weights, ``ring`` and ``ulysses`` at one rank
+   against ``full_attention`` (float32, ``F32_TOL``), and a
+   ``CrossValidator(partitionDevices=True)`` sweep with one slice against the
+   unpartitioned one; each fit's step ms. The child prints its launch counts,
+   which join the kernel records (``phase17_launches``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -3212,6 +3235,7 @@ P14_THREADS = 16        # ... from this many threads
 P14_UDF_REQUESTS = 128  # (c)
 P14_UDF_THREADS = 8
 P14_PADDED_REQUESTS = 32  # (d), from 4 threads
+P14_PAD_TRIES = 5       # (d): rounds of 3 requests at once, until a batch pads
 P14_STREAMS = 16        # (d): decode streams ...
 P14_SLOTS = 8           # ... into this many slots
 P14_FINGERPRINT = "chip-smoke:vit-b16:flax-seed2:bf16"
@@ -3561,11 +3585,24 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
             batches0 = metrics.counter("serving.batches").value
             reset()
             got, lat, wall = serve_from_threads(padded, images[:P14_PADDED_REQUESTS], 4)
+            # three requests at once fill bucket 4 with a pad row (tried
+            # until a batch padded: the threads' batches may all fit a bucket)
+            for _ in range(P14_PAD_TRIES):
+                futures = [padded.submit(x) for x in images[:3]]
+                check_bf16_rows("(d) rows of a padded batch",
+                                np.stack([f.result(timeout=600) for f in futures]), want[:3])
+                pad_rows = (metrics.counter("batcher.rows_computed").value
+                            - metrics.counter("batcher.rows_real").value)
+                if pad_rows:
+                    break
+            else:
+                raise AssertionError(f"(d): no batch padded in {P14_PAD_TRIES} tries")
             counts = read()
             batches = metrics.counter("serving.batches").value - batches0
             padded.close()
         log(serving_line("  (d) padded, 4 threads", P14_PADDED_REQUESTS, lat, wall, card)
-            + f"; {batches:.0f} batches; launches {counts}")
+            + f"; {batches:.0f} batches (with the padded ones), {pad_rows:.0f} pad rows; "
+            f"launches {counts}")
         check_bf16_rows("(d) padded rows", got, want[:P14_PADDED_REQUESTS])
         if list(counts.values()) != [blocks * batches, 0, 0, 0]:
             raise AssertionError(f"(d) launches {counts}, expected {blocks} x {batches} "
@@ -3954,6 +3991,18 @@ def vit_replica_server():
     phase 14 (d)'s torch decode step in 8 slots (``dec``). Eager, because a
     fresh process's first program load costs tens of seconds. Before it
     returns, one request through the server must launch #1 once a block."""
+    return vit_replica(seed=2)
+
+
+def vit_replica_server_v2():
+    """Phase 17 (a)'s second version (``chip_smoke:vit_replica_server_v2``):
+    :func:`vit_replica_server` with the weights of another seed."""
+    return vit_replica(seed=P17_V2_SEED)
+
+
+def vit_replica(seed: int):
+    """The replica server of :func:`vit_replica_server`, its ViT-B/16
+    weights drawn from ``seed``."""
     import torch
 
     from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
@@ -3962,7 +4011,7 @@ def vit_replica_server():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    module = bf16_vit(flax_layout_vit_params(seed=2, classes=N_CLASSES))
+    module = bf16_vit(flax_layout_vit_params(seed=seed, classes=N_CLASSES))
     server = ModelServer(ServingConfig(max_batch=32, max_wait_ms=2.0))
 
     def forward(x):
@@ -4228,6 +4277,11 @@ def replica_plane(card: str, images, want, serving_a: str) -> None:
             log(serving_line(f"replicas (f): the {other} lane ({used} before), "
                              f"{P16_THREADS} threads", P16_OTHER_LANE, lat, wall, card)
                 + f"; wire.shm.fallback {metrics.counter('wire.shm.fallback').value:.0f}")
+
+            # phase 17 (a): a second version rolled out over this fleet and
+            # promoted, then a third rolled back by an injected fault
+            rollout(card, sup, spec, root, images[:P17_ROLLOUT_IMAGES],
+                    want[:P17_ROLLOUT_IMAGES])
         finally:
             sup.close()
             tracer.disable()
@@ -4242,6 +4296,451 @@ def replica_plane(card: str, images, want, serving_a: str) -> None:
             for name, v in attribution["phases"].items())
         + f" ms; coverage of p50 {attribution['coverage_p50']:.3f} ({card})")
     log(f"replicas: phase 16 in {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the rollout controller over phase 16's fleet, and parallelism
+# ---------------------------------------------------------------------------
+P17_V2_SEED = 3
+P17_ROLLOUT_IMAGES = 64    # (a): phase 14's first images, cycled by ...
+P17_ROLLOUT_THREADS = 8    # ... this many client threads
+P17_STAGES = (0.25, 0.5, 1.0)
+P17_BAKE_S = 3.0
+P17_LATENCY_MS = 5000.0    # the canary's p99 objective: a smoke, not a load bound
+P17_TIMEOUT_S = 600.0
+P17_CHILD_TIMEOUT_S = 420.0
+P17_CV_ROWS = 48
+
+
+class RolloutTraffic:
+    """Client threads that route phase 14's images round and round while a
+    rollout moves the fleet. Each answer is held to the rows of one of the
+    versions' weights (the float32 plain forward of each seed, at the bf16
+    bound of :func:`check_bf16_rows`) and recorded with the time its request
+    left; a failed request is counted lost."""
+
+    def __init__(self, router, images, wants):
+        import threading
+
+        self.router = router
+        self.images = images
+        self.wants = wants
+        self.answers = []   # (sent at, weights' label, max abs error)
+        self.lost = []
+        self.worst = {label: 0.0 for label in wants}
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._client, args=(t,), daemon=True)
+                         for t in range(P17_ROLLOUT_THREADS)]
+
+    def _client(self, t: int) -> None:
+        i = t
+        while not self._stop.is_set():
+            k = i % len(self.images)
+            sent = time.monotonic()
+            try:
+                row = np.asarray(self.router.route(self.images[k], model_id="vit",
+                                                   timeout_s=120.0), np.float32)
+            except Exception as exc:  # noqa: BLE001 - counted, then failed on
+                with self._lock:
+                    self.lost.append(repr(exc))
+                i += P17_ROLLOUT_THREADS
+                continue
+            errs = {label: float(np.abs(row - want[k]).max())
+                    for label, want in self.wants.items()}
+            label = min(errs, key=errs.get)
+            bound = CNN_BF16_MAX_REL * float(np.abs(self.wants[label]).max())
+            with self._lock:
+                if not np.isfinite(row).all() or errs[label] > bound:
+                    self.lost.append(f"image {k}: no version's rows ({errs})")
+                self.answers.append((sent, label, errs[label]))
+                self.worst[label] = max(self.worst[label], errs[label])
+            i += P17_ROLLOUT_THREADS
+
+    def start(self) -> "RolloutTraffic":
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=180)
+
+    def served(self, after: float = float("-inf"), before: float = float("inf")):
+        """Answers per weights' label for requests sent in [after, before)."""
+        with self._lock:
+            out = {}
+            for sent, label, _ in self.answers:
+                if after <= sent < before:
+                    out[label] = out.get(label, 0) + 1
+            return out
+
+
+def rollout_seconds(events, first: str, last: str) -> float:
+    """Seconds from the first ``first`` event to the first ``last`` event."""
+    at = {}
+    for e in events:
+        at.setdefault(e["state"], e["at"])
+    return at[last] - at[first]
+
+
+def rollout(card: str, sup, spec, root: str, images, want) -> None:
+    """Phase 17 (a), inside phase 16's supervisor: ``RolloutController``
+    deploys version v2 (the bf16 ViT-B/16 replica with seed-3 weights,
+    :func:`vit_replica_server_v2`) as one replica next to the two v1
+    replicas, shifts the router's weights through ``P17_STAGES`` while
+    client threads keep sending, bakes each stage on the SLO engine of
+    phase 16 (e) with ``rollout_slos("v2")``, promotes (``set_primary``,
+    v1 drained); then a v3 (seed-2 weights again) whose first bake meets an
+    ``inject`` rule at ``rollout.bake`` rolls back to v2. Every answer is
+    one version's rows; requests sent after the promotion are v2's, and so
+    are those sent after the rollback; no request is lost."""
+    import os
+
+    from sparkdl_tpu_torch.obs import blackbox
+    from sparkdl_tpu_torch.obs.slo import rollout_slos
+    from sparkdl_tpu_torch.resilience import inject
+    from sparkdl_tpu_torch.serving import ReplicaSpec, RolloutController
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    spec_v2 = ReplicaSpec(factory="chip_smoke:vit_replica_server_v2", pythonpath=(root,))
+    want_v2 = vit_plain_f32(flax_layout_vit_params(seed=P17_V2_SEED, classes=N_CLASSES),
+                            images)
+    engine = sup.slo_engine
+    engine.add(*rollout_slos("v2", latency_threshold_ms=P17_LATENCY_MS))
+    engine.add(*rollout_slos("v3", latency_threshold_ms=P17_LATENCY_MS))
+    dumps = tempfile.mkdtemp(prefix="chip-smoke-blackbox-")
+    with scoped_env(SPARKDL_BLACKBOX_DIR=dumps):
+        recorder = blackbox.enable_from_env()
+    traffic = RolloutTraffic(sup.router, images, {"seed 2": want, "seed 3": want_v2}).start()
+    try:
+        # promote v2
+        ctl = RolloutController(sup, engine, "v2", spec_v2, replicas=1, stages=P17_STAGES,
+                                bake_s=P17_BAKE_S, interval_s=0.2,
+                                spawn_timeout_s=P16_SPAWN_TIMEOUT_S).start()
+        state = ctl.wait(timeout_s=P17_TIMEOUT_S)
+        ctl.close()
+        report = ctl.report()
+        events = ctl.events()
+        if state != "done" or report["verdict"] != "promoted":
+            raise AssertionError(f"(a) the v2 rollout ended {state}: {report}")
+        if set(report["old_exits"].values()) != {0} or sup.primary_version != "v2" \
+                or sup.live_count("v1") != 0 or sup.live_count("v2") != 1:
+            raise AssertionError(f"(a) after the promotion: {report['old_exits']}, "
+                                 f"{sup.status()}")
+        done_at = events[-1]["at"]
+        during = traffic.served(before=done_at)
+        spawn_s = rollout_seconds(events, "spawning", "shifting")
+        shift_s = rollout_seconds(events, "shifting", "promoting")
+        promote_s = rollout_seconds(events, "promoting", "done")
+        # requests sent after the promotion: v2's rows only
+        time.sleep(2.0)
+        after = traffic.served(after=done_at)
+        if set(after) != {"seed 3"}:
+            raise AssertionError(f"(a) after the promotion the answers were {after}")
+        log(f"rollout (a): v1 (2 replicas) -> v2 (1 replica, seed {P17_V2_SEED}) through "
+            f"stages {P17_STAGES}, bake {P17_BAKE_S} s each: spawn {spawn_s:.2f} s, shifts and "
+            f"bakes {shift_s:.2f} s, promotion with v1's drain {promote_s:.2f} s (exits "
+            f"{report['old_exits']}); answers while it ran {during}, after it {after} ({card})")
+
+        # roll v3 back: the first bake meets an injected fault
+        plan = inject.FaultPlan().add("rollout.bake", error="transient", at=1)
+        with inject.active_plan(plan):
+            ctl3 = RolloutController(sup, engine, "v3", spec, replicas=1, stages=(0.5, 1.0),
+                                     bake_s=P17_BAKE_S, interval_s=0.2,
+                                     spawn_timeout_s=P16_SPAWN_TIMEOUT_S).start()
+            state3 = ctl3.wait(timeout_s=P17_TIMEOUT_S)
+            ctl3.close()
+        report3 = ctl3.report()
+        events3 = ctl3.events()
+        if state3 != "rolled_back" or "baking" not in (report3["reason"] or ""):
+            raise AssertionError(f"(a) the v3 rollout ended {state3}: {report3}")
+        if sup.primary_version != "v2" or sup.live_count("v3") != 0 \
+                or sup.live_count("v2") != 1:
+            raise AssertionError(f"(a) after the rollback: {sup.status()}")
+        back_at = events3[-1]["at"]
+        rollback_s = rollout_seconds(events3, "rolling_back", "rolled_back")
+        time.sleep(2.0)
+        traffic.stop()
+        after3 = traffic.served(after=back_at)
+        if set(after3) != {"seed 3"}:
+            raise AssertionError(f"(a) after the rollback the answers were {after3}")
+        if traffic.lost:
+            raise AssertionError(f"(a) {len(traffic.lost)} requests lost: {traffic.lost[:3]}")
+        dump = [f for f in os.listdir(dumps) if f.endswith(".json")]
+        log(f"rollout (a): v2 -> v3 (seed 2) rolled back by a fault at rollout.bake: "
+            f"detection {report3['detection_s']:.2f} s after the shift to "
+            f"{report3['stages'][0]}, rollback (weights back, v3 drained) {rollback_s:.2f} s; "
+            f"answers after it {after3}; {len(traffic.answers)} requests in all, "
+            f"{len(traffic.lost)} lost; rows within {traffic.worst} of their version; "
+            f"flight-recorder dumps {len(dump)} ({card})")
+        log("  rollout metrics: " + ", ".join(
+            f"{name}={metrics.snapshot(name).get(name, 0):.0f}" for name in (
+                "rollout.state", "rollout.weight", "rollout.shifts", "rollout.rollbacks",
+                "rollout.promotions")))
+        log(f"rollout: phase 17 (a) in {time.perf_counter() - t_phase:.1f} s ({card})")
+    finally:
+        traffic.stop()
+        if recorder is not None:
+            recorder.stop()
+            recorder.disarm()
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 17 (b): :func:`parallel_child` in a fresh process (no process
+    that touched CUDA forks), which brings up an NCCL group of one on the
+    card. Its log lines are passed on; it fails the script by exiting
+    non-zero. Returns the launches of #1-#4 it counted."""
+    import os
+
+    t0 = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.parallel_child())"],
+        cwd=root, env=env, stdout=subprocess.PIPE, text=True, timeout=P17_CHILD_TIMEOUT_S)
+    launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("PHASE17_LAUNCHES "):
+            launches = json.loads(line.split(" ", 1)[1])
+        else:
+            log(line)
+    if proc.returncode != 0 or launches is None:
+        raise AssertionError(f"phase 17 (b): the parallel child exited {proc.returncode}")
+    log(f"parallel: phase 17 (b) in {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches} ({card})")
+    return launches
+
+
+def parallel_child() -> int:
+    """Phase 17 (b), in a process of its own: the parallel layer in an NCCL
+    process group of one on the card (``runner.initialize()``), through the
+    same collectives and kernels as a larger group. Raises on any failure.
+
+    1. a bf16 ViT-B/16 ``TorchImageFileEstimator`` fit at full width (phase
+       5's weights and images, batch 32, 2 epochs of 2 steps, flash) without
+       a group, then the same fit with the group up (DP: the all-reduce of
+       every gradient), held to it;
+    2. the same fit with ``shardingRules=VIT_TP_RULES, meshShape=(1, 1)``
+       (DTensor column and row parallel layers, qkv split by head group),
+       held to the DP fit;
+    3. the fit and a transform with ``attn_impl=pad_tokens_for_sp(mesh,
+       impl="ulysses-flash")``: the all-to-alls around the port's flash
+       kernels, #2-#4 in the fit and #1 in the transform, each 12 a step
+       or a batch; held to the DP flash fit and to the flash transform of
+       the same weights;
+    4. ``make_sp_attention`` ``ring`` and ``ulysses`` at one rank against
+       ``full_attention`` on the card, float32 at ``VIT_SHAPE``;
+    5. ``CrossValidator(partitionDevices=True)`` over ``LogisticRegression``
+       with one slice (``parallelism=1``): its ``avgMetrics`` equal the
+       unpartitioned sweep's.
+
+    Each fit in 1-3 equals the fit without the group bit for bit (losses
+    and weights): at one rank the collectives copy, and every fit computes
+    the same sums in the same order (the card's readings, PERF.md).
+    Prints ``PHASE17_LAUNCHES {...}``: the launches of each kernel in 1-3."""
+    compiler = host_build_env()
+    import torch
+
+    if not import_package():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sparkdl_tpu_torch.estimators import TorchImageFileEstimator
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        FLASH_FWD,
+        FLASH_FWD_LSE,
+    )
+    from sparkdl_tpu_torch.parallel import runner
+    from sparkdl_tpu_torch.parallel.context import (
+        full_attention,
+        make_sp_attention,
+        pad_tokens_for_sp,
+    )
+    from sparkdl_tpu_torch.parallel.tp import VIT_TP_RULES
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    log(f"parallel (b): child process, {compiler}")
+    kernels = (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)
+
+    def counts():
+        return {k.symbol + ("+lse" if k is FLASH_FWD_LSE else ""): k.launches for k in kernels}
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    total = {key: 0 for key in counts()}
+
+    def add(got):
+        for key, n in got.items():
+            total[key] += n
+
+    train_params = flax_layout_vit_params(seed=2, classes=N_CLASSES)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-parallel-") as tmp:
+        rng = np.random.default_rng(1)
+        for i in range(N_IMAGES):
+            np.save(Path(tmp) / f"img_{i:03d}.npy",
+                    rng.random((224, 224, 3), dtype=np.float32))
+        uris = sorted(str(p) for p in Path(tmp).glob("img_*.npy"))
+        df = training_df(uris)
+        steps = 2 * (N_IMAGES // BATCH)
+
+        def fit(attn_impl="flash", **kw):
+            est = train_estimator(ViT(variant="ViT-B/16", num_classes=N_CLASSES,
+                                      attn_impl=attn_impl, dtype=torch.bfloat16),
+                                  train_params, device="cuda", **kw)
+            reset()
+            metrics.reset()
+            t0 = time.perf_counter()
+            fitted = est.fit(df)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = counts()
+            losses = np.array(fitted._training_losses)
+            if len(losses) != steps or not np.isfinite(losses).all():
+                raise AssertionError(f"bad losses {losses}")
+            # the fit profiler's steps end in the card's synchronize
+            step_ms = 1e3 * metrics.timer("estimator.step").seconds / \
+                metrics.counter("estimator.steps").value
+            return fitted, losses, got, f"{seconds:.2f} s, {step_ms:.3f} ms a step"
+
+        def weights_apart(a, b) -> float:
+            """The largest difference of two fits' weights, relative to the
+            largest weight of the tensor."""
+            sa, sb = a.module.state_dict(), b.module.state_dict()
+            return max(float((sa[n] - sb[n]).abs().max() / sa[n].abs().max().clamp_min(1e-12))
+                       for n in sa)
+
+        def same_fit(label, a, a_losses, b, b_losses):
+            """Fit ``a`` equals fit ``b`` bit for bit: losses and weights."""
+            np.testing.assert_array_equal(a_losses, b_losses, err_msg=f"{label} fit's losses")
+            apart = weights_apart(a, b)
+            if apart != 0.0:
+                raise AssertionError(f"the {label} fit's weights are {apart:.3e} apart")
+
+        from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
+
+        blocks = VIT_VARIANTS["ViT-B/16"][2]  # one launch of each kernel a block
+        fit()  # a first fit pays the process's warm-up: not the one compared
+        alone, alone_losses, _, alone_s = fit()
+        device = runner.initialize()
+        log(f"parallel (b): a process group of one: rank {runner.process_index()} of "
+            f"{runner.process_count()} on {device}, backend "
+            f"{torch.distributed.get_backend()}")
+        try:
+            # 1. DP: the same fit with the group up
+            dp, dp_losses, dp_counts, dp_s = fit()
+            add(dp_counts)
+            expected = blocks * steps
+            if list(dp_counts.values()) != [0, expected, expected, expected]:
+                raise AssertionError(f"DP fit launches {dp_counts}")
+            log(f"parallel (b) 1: bf16 ViT-B/16 fit, {steps} steps at batch {BATCH}: DP in the "
+                f"group {dp_s}, without {alone_s}; losses {dp_losses.tolist()} vs "
+                f"{alone_losses.tolist()}; weights apart {weights_apart(dp, alone):.3e} "
+                f"(relative); launches {dp_counts}")
+            same_fit("DP", dp, dp_losses, alone, alone_losses)
+
+            # 2. DP x TP on a (1, 1) mesh
+            tp, tp_losses, tp_counts, tp_s = fit(shardingRules=VIT_TP_RULES, meshShape=(1, 1))
+            add(tp_counts)
+            if list(tp_counts.values()) != [0, expected, expected, expected]:
+                raise AssertionError(f"TP fit launches {tp_counts}")
+            log(f"parallel (b) 2: the fit with VIT_TP_RULES, meshShape (1, 1): {tp_s}; "
+                f"losses {tp_losses.tolist()}; weights apart from DP "
+                f"{weights_apart(tp, dp):.3e}; launches {tp_counts}")
+            same_fit("TP", tp, tp_losses, dp, dp_losses)
+
+            # 3. Ulysses-flash: the all-to-alls around the flash kernels
+            mesh = runner.make_global_mesh(("seq",))
+            sp = pad_tokens_for_sp(mesh, "seq", impl="ulysses-flash")
+            uly, uly_losses, uly_counts, uly_s = fit(attn_impl=sp)
+            add(uly_counts)
+            if list(uly_counts.values()) != [0, expected, expected, expected]:
+                raise AssertionError(f"Ulysses-flash fit launches {uly_counts}")
+            log(f"parallel (b) 3: the fit with attn_impl=pad_tokens_for_sp(impl="
+                f"'ulysses-flash'): {uly_s}; losses {uly_losses.tolist()}; weights "
+                f"apart from the flash fit {weights_apart(uly, dp):.3e}; launches {uly_counts}")
+            same_fit("Ulysses-flash", uly, uly_losses, dp, dp_losses)
+            flash_stage = type(uly)(inputCol="uri", outputCol="features", imageLoader=load_npy,
+                                    module=ViT(variant="ViT-B/16", num_classes=N_CLASSES,
+                                               attn_impl="flash", dtype=torch.bfloat16),
+                                    state_dict=uly.module.state_dict(), device="cuda")
+            reset()
+            t0 = time.perf_counter()
+            uly_rows = rows_array(uly.transform(df).collect())
+            transform_s = time.perf_counter() - t0
+            tr_counts = counts()
+            add(tr_counts)
+            from sparkdl_tpu_torch.transformers.utils import DEFAULT_BATCH_SIZE
+
+            batches = -(-N_IMAGES // DEFAULT_BATCH_SIZE)
+            if list(tr_counts.values()) != [blocks * batches, 0, 0, 0]:
+                raise AssertionError(f"Ulysses-flash transform launches {tr_counts}")
+            flash_rows = rows_array(flash_stage.transform(df).collect())
+            if uly_rows.shape != (N_IMAGES, N_CLASSES) or not np.isfinite(uly_rows).all():
+                raise AssertionError(f"bad Ulysses-flash rows {uly_rows.shape}")
+            np.testing.assert_allclose(uly_rows, flash_rows, **BF16_SLICE_TOL)
+            log(f"parallel (b) 3: its transform of {N_IMAGES} images {transform_s:.2f} s, "
+                f"launches {tr_counts}; rows against the flash stage's of the same weights "
+                f"max_abs_err={np.abs(uly_rows - flash_rows).max():.3e}")
+
+            # 4. ring and Ulysses at one rank against dense attention
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            q, k, v = torch.randn((3,) + VIT_SHAPE, generator=gen, device="cuda").unbind(0)
+            want = full_attention(q, k, v)
+            for impl in ("ring", "ulysses"):
+                fn = make_sp_attention(mesh, "seq", impl=impl)
+                got = fn(q, k, v)
+                err = float((got - want).abs().max())
+                torch.testing.assert_close(got, want, **F32_TOL)
+                ms = time_ms(lambda fn=fn: fn(q, k, v), iters=5)
+                log(f"parallel (b) 4: {impl} at one rank, {VIT_SHAPE} float32: "
+                    f"max_abs_err={err:.3e} against full_attention; {ms:.3f} ms "
+                    f"(full_attention {time_ms(lambda: full_attention(q, k, v), iters=5):.3f} ms)")
+        finally:
+            runner.shutdown()
+
+    # 5. the trial-parallel sweep over one slice of the one card
+    cv_launches = counts()
+    metrics_of = {}
+    for partition in (False, True):
+        metrics_of[partition] = cv_sweep(partition)
+    if metrics_of[True] != metrics_of[False]:
+        raise AssertionError(f"partitioned sweep {metrics_of[True]} vs {metrics_of[False]}")
+    if counts() != cv_launches:
+        raise AssertionError("the LR sweep launched an attention kernel")
+    log(f"parallel (b) 5: CrossValidator(partitionDevices=True, parallelism=1) over "
+        f"LogisticRegression: avgMetrics {metrics_of[True]}, equal to the unpartitioned sweep's")
+    print("PHASE17_LAUNCHES " + json.dumps(total), flush=True)
+    return 0
+
+
+def cv_sweep(partition: bool) -> list:
+    """A 2-point ``LogisticRegression`` sweep on the card over
+    ``P17_CV_ROWS`` seeded vectors, 2 folds, one trial thread."""
+    from sparkdl_tpu_torch.ml.classification import LogisticRegression
+    from sparkdl_tpu_torch.ml.evaluation import MulticlassClassificationEvaluator
+    from sparkdl_tpu_torch.ml.linalg import DenseVector
+    from sparkdl_tpu_torch.ml.tuning import CrossValidator, ParamGridBuilder
+    from sparkdl_tpu_torch.sql.session import TorchSession
+
+    rng = np.random.RandomState(17)
+    x = rng.randn(P17_CV_ROWS, 8)
+    rows = [{"features": DenseVector(v), "label": float(v[0] + v[1] > 0)} for v in x]
+    df = TorchSession.builder.getOrCreate().createDataFrame(rows)
+    lr = LogisticRegression(maxIter=20, stepSize=0.1)
+    grid = ParamGridBuilder().addGrid(lr.regParam, [0.0, 0.5]).build()
+    cv = CrossValidator(estimator=lr, estimatorParamMaps=grid,
+                        evaluator=MulticlassClassificationEvaluator(metricName="accuracy"),
+                        numFolds=2, parallelism=1, partitionDevices=partition, seed=3)
+    return [float(m) for m in cv.fit(df).avgMetrics]
 
 
 def import_package() -> bool:
@@ -4826,6 +5325,15 @@ def main() -> int:
     records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params,
                                              then=then)
     records[0]["launches"] += streamed[0]
+
+    # phase 17 (b): parallelism in an NCCL group of one, in a child process:
+    # the DP, DP x TP and Ulysses-flash ViT fits (#2-#4) and the
+    # Ulysses-flash transform (#1), counted there
+    parallel = parallel_phase(card)
+    for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
+                                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        record["launches"] += parallel[key]
+        record["phase17_launches"] = parallel[key]
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

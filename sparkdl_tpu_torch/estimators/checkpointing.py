@@ -403,12 +403,17 @@ def restore_latest(ckpt_dir: str, namespace: str, max_epoch: int,
     """Load the latest committed epoch up to ``max_epoch`` through
     ``load(payload)``, which copies it into the live state; returns that
     epoch, or 0 when there is none. Timed into ``estimator.restore``. A
-    payload that does not fit the state raises, naming its directory."""
+    payload that does not fit the state raises, naming its directory.
+
+    Inside a process group every rank must resume from the same epoch, or
+    the ranks would run different numbers of collective steps: a
+    ``checkpointDir`` that is not storage every rank sees raises here."""
     with metrics.timer("estimator.restore").time():
         epochs = committed_epochs(ckpt_dir, namespace, max_epoch=max_epoch)
+        latest = epochs[-1] if epochs else 0
+        _same_epoch_everywhere(latest)
         if not epochs:
             return 0
-        latest = epochs[-1]
         payload = restore_epoch(ckpt_dir, namespace, latest)
         try:
             load(payload)
@@ -424,6 +429,21 @@ def restore_latest(ckpt_dir: str, namespace: str, max_epoch: int,
             latest, max_epoch,
         )
     return latest
+
+
+def _same_epoch_everywhere(latest: int) -> None:
+    from sparkdl_tpu_torch.parallel import runner
+
+    if not runner.is_distributed():
+        return
+    import torch.distributed as dist
+
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, int(latest))
+    if len(set(seen)) != 1:
+        raise RuntimeError(
+            f"hosts disagree on the latest checkpoint epoch ({sorted(set(seen))}); "
+            "checkpointDir must be shared storage visible to every process")
 
 
 def _close_behind(ckptr: AsyncCheckpointer, exc: BaseException) -> None:
@@ -452,6 +472,7 @@ def fit_epochs(
     payload: Optional[Callable[[Any], Dict[str, Any]]] = None,
     estimator: str = "estimator",
     steps_per_epoch: Optional[int] = None,
+    writer: bool = True,
 ) -> Tuple[Any, List[float]]:
     """The estimators' epoch loop, from ``start_epoch`` to ``epochs``.
 
@@ -468,13 +489,15 @@ def fit_epochs(
     sites ``estimator.step``, ``estimator.epoch`` and
     ``estimator.checkpoint_saved``, inside a
     :class:`~sparkdl_tpu_torch.obs.hooks.FitProfiler` named ``estimator``
-    (the fit, step and checkpoint spans, each epoch's event). Returns the
-    state and every step's loss."""
+    (the fit, step and checkpoint spans, each epoch's event). Inside a
+    process group every rank builds each epoch's payload (gathering a
+    sharded state is a collective) and only the ``writer`` (rank 0) saves
+    it. Returns the state and every step's loss."""
     for _ in range(start_epoch):
         rng.permutation(n)
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
     step_losses: List[float] = []
-    ckptr = AsyncCheckpointer() if ckpt_dir else None
+    ckptr = AsyncCheckpointer() if ckpt_dir and writer else None
     try:
         with preemption_scope() as ptoken, fit_profiler(
                 estimator, epochs=epochs, steps_per_epoch=steps_per_epoch) as prof:
@@ -494,9 +517,11 @@ def fit_epochs(
                 step_losses += torch.stack(losses).tolist()
                 prof.epoch(epoch + 1, step_losses[-1])
                 logger.info("epoch %d/%d loss=%.4f", epoch + 1, epochs, step_losses[-1])
-                if ckptr is not None:
+                if ckpt_dir:
                     with prof.checkpoint(epoch=epoch + 1):
-                        save_epoch(ckptr, ckpt_dir, namespace, epoch + 1, payload(state))
+                        snapshot = payload(state)
+                        if ckptr is not None:
+                            save_epoch(ckptr, ckpt_dir, namespace, epoch + 1, snapshot)
                     inject.fire("estimator.checkpoint_saved")
     except BaseException as exc:
         if ckptr is not None:

@@ -1,21 +1,22 @@
 """The estimators' data plane: load the images, build an epoch's batches.
 
-A copy of ``sparkdl_tpu.estimators.data`` for one host: collect (URI,
-label) rows, load the images through the user's ``imageLoader`` in a thread
-pool, and batch each epoch's permutation with the cyclic-pad policy of
+A copy of ``sparkdl_tpu.estimators.data``: collect (URI, label) rows, keep
+this rank's strided shard of them inside a process group
+(:func:`~sparkdl_tpu_torch.parallel.runner.host_shard_indices`), load the
+images through the user's ``imageLoader`` in a thread pool, and batch each
+epoch's permutation with the cyclic-pad policy of
 ``in_memory_epoch_dataset``, batch for batch; ``labels_to_array`` is the
 Keras estimator's label policy. :class:`StreamingShardLoader` keeps only the
 URIs in memory and loads each batch as the epoch reaches it, with the same
 batches, on the :mod:`sparkdl_tpu_torch.data` pipeline as the JAX loader
-is. The multi-host shard (``runner``) is not ported yet (ROADMAP.md item
-12).
+is.
 """
 
 from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,39 +28,57 @@ LOAD_WORKERS = 16
 PREFETCH = 2
 
 
+def collect_host_shard_rows(
+    dataset,
+    input_col: str,
+    label_col: str,
+    shard: Optional[Tuple[int, int]] = None,
+) -> Tuple[List[str], List[Any], int]:
+    """Collect the (URI, label) rows and keep this rank's strided shard,
+    without loading any image. Returns ``(uris, labels, n_global)``.
+
+    ``shard=(index, count)`` names the shard; by default it is this rank's
+    of the process group (:func:`~sparkdl_tpu_torch.parallel.runner
+    .host_shard_indices`), every row outside one. Fails, on every rank alike,
+    when there are fewer rows than shards, so no rank waits in a collective
+    for one that crashed."""
+    from sparkdl_tpu_torch.parallel import runner
+
+    rows = dataset.select(input_col, label_col).collect()
+    if not rows:
+        raise ValueError("fit() received an empty dataset")
+    n_global = len(rows)
+    index, count = shard if shard is not None else (runner.process_index(),
+                                                    runner.process_count())
+    if count > 1:
+        if n_global < count:
+            raise ValueError(
+                f"fit() needs at least one row per host: got {n_global} "
+                f"rows across {count} processes"
+            )
+        rows = [rows[i] for i in runner.host_shard_indices(n_global, index, count)]
+    return [r[input_col] for r in rows], [r[label_col] for r in rows], n_global
+
+
 def load_host_shard(
     dataset,
     input_col: str,
     label_col: str,
     loader: Callable[[str], Any],
-) -> Tuple[np.ndarray, List[Any]]:
-    """Collect every (URI, label) row and load the images via ``loader`` in
-    a thread pool, timed into ``sparkdl.load``. Returns ``(x, labels)``:
-    ``x`` stacked float32, ``labels`` the raw label values (the caller owns
-    the dtype policy)."""
-    rows = dataset.collect()
-    if not rows:
-        raise ValueError("fit() received an empty dataset")
-    uris = [r[input_col] for r in rows]
+    shard: Optional[Tuple[int, int]] = None,
+) -> Tuple[np.ndarray, List[Any], int]:
+    """:func:`collect_host_shard_rows`, then the shard's images loaded via
+    ``loader`` in a thread pool, timed into ``sparkdl.load``. Returns ``(x,
+    labels, n_global)``: ``x`` stacked float32, ``labels`` the raw label
+    values (the caller owns the dtype policy), ``n_global`` the row count
+    before the shard."""
+    uris, labels, n_global = collect_host_shard_rows(dataset, input_col, label_col, shard)
     with metrics.timer("sparkdl.load").time(), ThreadPoolExecutor(max_workers=LOAD_WORKERS) as pool:
         images = list(
             pool.map(lambda u: np.asarray(loader(u), dtype=np.float32), uris)
         )
         x = np.stack(images)
-    return x, [r[label_col] for r in rows]
-
-
-def collect_host_shard_rows(
-    dataset,
-    input_col: str,
-    label_col: str,
-) -> Tuple[List[str], List[Any]]:
-    """Collect the (URI, label) rows without loading any image. Returns
-    ``(uris, labels)``; one host keeps every row."""
-    rows = dataset.select(input_col, label_col).collect()
-    if not rows:
-        raise ValueError("fit() received an empty dataset")
-    return [r[input_col] for r in rows], [r[label_col] for r in rows]
+    return x, labels, n_global
 
 
 def labels_to_array(labels: List[Any]) -> np.ndarray:
@@ -72,17 +91,22 @@ def labels_to_array(labels: List[Any]) -> np.ndarray:
 
 
 def epoch_index_batches(
-    order: np.ndarray, batch_size: int
+    order: np.ndarray, batch_size: int, steps: Optional[int] = None
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """One epoch's composition: ``order`` cut into ``ceil(n / batch_size)``
-    batches of row indices, the last one padded by cycling from the start
-    of ``order`` (``np.resize``), each with its weights: 1 for a real row,
-    0 for a pad row."""
+    batches of row indices, the last padded by cycling from the start of
+    ``order`` (``np.resize``), each with its weights: 1 for a real row, 0
+    for a pad row. ``steps`` past that count (every rank of a group steps
+    alike) adds all-pad batches, each cycled from the start again, as
+    ``Dataset.batch(pad="cyclic", min_batches=steps)`` composes them."""
     n = len(order)
-    steps = -(-n // batch_size)
-    idx = np.resize(np.asarray(order, np.int64), steps * batch_size)
-    w = (np.arange(steps * batch_size) < n).astype(np.float32)
-    yield from zip(idx.reshape(steps, batch_size), w.reshape(steps, batch_size))
+    natural = -(-n // batch_size)
+    order = np.asarray(order, np.int64)
+    idx = np.resize(order, natural * batch_size)
+    w = (np.arange(natural * batch_size) < n).astype(np.float32)
+    yield from zip(idx.reshape(natural, batch_size), w.reshape(natural, batch_size))
+    for _ in range(natural, steps or 0):
+        yield np.resize(order, batch_size), np.zeros(batch_size, np.float32)
 
 
 def epoch_batches(
@@ -91,12 +115,13 @@ def epoch_batches(
     y: np.ndarray,
     batch_size: int,
     weighted: bool = True,
+    steps: Optional[int] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """One epoch of ``{"x", "y", "w"}`` batches over the rows of
     :func:`epoch_index_batches`. ``weighted=False`` leaves ``"w"`` out (a
     loss without a per-sample form trains the pad rows at full weight, as in
     the JAX package)."""
-    for rows, weights in epoch_index_batches(order, batch_size):
+    for rows, weights in epoch_index_batches(order, batch_size, steps):
         batch = {"x": x[rows], "y": y[rows]}
         if weighted:
             batch["w"] = weights
@@ -165,13 +190,15 @@ class StreamingShardLoader:
         return Dataset(loaded, length=steps, name="load").prefetch(
             PREFETCH, name="sparkdl-stream")
 
-    def epoch(self, order: np.ndarray) -> Iterator[Dict[str, np.ndarray]]:
+    def epoch(self, order: np.ndarray,
+              steps: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
         """Yield the epoch's ``ceil(len(order) / batch_size)`` batches
-        following ``order``. A loader's error is raised here, at the batch
-        it failed on; a pipeline that ends short of that count raises too.
-        Closing the generator early (an abandoned epoch, a preemption)
-        cancels the producer and joins its thread."""
-        steps = -(-len(order) // self.batch_size)
+        following ``order`` (or ``steps``, at least that many). A loader's
+        error is raised here, at the batch it failed on; a pipeline that ends
+        short of that count raises too. Closing the generator early (an
+        abandoned epoch, a preemption) cancels the producer and joins its
+        thread."""
+        steps = max(-(-len(order) // self.batch_size), steps or 0)
         produced = 0
         it = iter(self.dataset(order, steps))
         try:

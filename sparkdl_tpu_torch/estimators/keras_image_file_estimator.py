@@ -1,7 +1,7 @@
 """``KerasImageFileEstimator``: fine-tune a saved Keras model over image files.
 
-Port of ``sparkdl_tpu.estimators.keras_image_file_estimator`` for one card.
-The same params (``imageLoader``, ``modelFile``, ``kerasOptimizer``,
+Port of ``sparkdl_tpu.estimators.keras_image_file_estimator``. The same
+params (``imageLoader``, ``modelFile``, ``kerasOptimizer``,
 ``kerasLoss``, ``kerasFitParams``, ``checkpointDir``), plus ``device``, and
 the same flow: collect (URI, label) rows, load the images through the
 user's ``imageLoader``, train the model of ``modelFile`` one optimizer step
@@ -13,7 +13,15 @@ on the tuned ``.keras`` file. Without Keras: the file is read and built by
 the tuned weights written back with ``write_keras_file``.
 
 One card: ``batch_size`` is used as given (the JAX package rounds it to its
-device mesh). ``kerasFitParams["streaming"]`` keeps only the URIs in memory
+device mesh). Inside a process group
+(:func:`sparkdl_tpu_torch.parallel.runner.initialize`, one rank per card)
+the fit is data-parallel, as the JAX estimator's distributed branch: each
+rank loads its strided shard of the rows, the global batch is rounded down
+to a multiple of the ranks, every rank runs the steps of the largest
+shard, the step's all-reduce makes each update the global mean (batch
+norm normalizing with each rank's own batch, its moving statistics
+averaged), and only rank 0 writes checkpoints.
+``kerasFitParams["streaming"]`` keeps only the URIs in memory
 and loads each batch as the epoch reaches it
 (:class:`~sparkdl_tpu_torch.estimators.data.StreamingShardLoader`), with
 the in-memory fit's batches. ``checkpointDir`` saves every epoch (the
@@ -147,34 +155,45 @@ class KerasImageFileEstimator(
 
     def _fit(self, dataset):
         self._validateParams()
+        from sparkdl_tpu_torch.parallel import runner
+
         fit_params = dict(self.getKerasFitParams() or {})
         device = resolve_device(self.getDevice())
+        mesh, world, rank = None, runner.process_count(), runner.process_index()
+        if runner.is_initialized():
+            device = runner.current_device()
+            mesh = runner.make_global_mesh(("data",))
         # streaming=True: only the URIs in memory, each batch loaded as the
         # epoch reaches it; the batches are the in-memory path's
         streaming = bool(fit_params.get("streaming", False))
         if streaming:
-            uris, labels = collect_host_shard_rows(
+            uris, labels, n_global = collect_host_shard_rows(
                 dataset, self.getInputCol(), self.getLabelCol())
             x, n = None, len(uris)
         else:
-            x, labels = load_host_shard(
+            x, labels, n_global = load_host_shard(
                 dataset, self.getInputCol(), self.getLabelCol(), self.getImageLoader())
             n = x.shape[0]
         y = labels_to_array(labels)
         epochs = int(fit_params.get("epochs", 1))
-        # one card: no mesh to round the batch to
         batch_size = max(int(fit_params.get("batch_size", 32)), 1)
+        if mesh is not None:
+            # the global batch splits evenly over the ranks
+            batch_size = max(batch_size - batch_size % world, world) // world
         seed = int(fit_params.get("seed", 0))
 
         config, weights = read_keras_file(self.getModelFile())
         module = KerasModel(config, weights).to(device)
+        if runner.is_distributed():
+            # every rank starts from rank 0's weights
+            runner.replicate(module.state_dict())
         loss_spec = self.getKerasLoss()
         per_sample_loss = get_per_sample_loss_fn(loss_spec)
         weighted = per_sample_loss is not None
         loss_fn = per_sample_loss if weighted else get_loss_fn(loss_spec)
         tx = get_optimizer(self.getKerasOptimizer(), fit_params.get("learning_rate"))
         state = init_keras_train_state(module, tx, seed=seed)
-        step_fn = make_keras_train_step(loss_fn, weighted=weighted)
+        step_fn = make_keras_train_step(loss_fn, weighted=weighted, mesh=mesh)
 
         ckpt_dir = self.getOrDefault(self.checkpointDir)
         namespace = self._ckpt_namespace() if ckpt_dir else None
@@ -184,27 +203,32 @@ class KerasImageFileEstimator(
             ckpt_dir, namespace, epochs,
             lambda payload: self._ckpt_restore(state, payload)) if ckpt_dir else 0
 
-        if not weighted and n % batch_size:
+        # every rank runs the same number of steps: the largest shard's
+        max_local_rows = -(-n_global // world)
+        steps = max(1, -(-max_local_rows // batch_size))
+        if not weighted and max_local_rows % batch_size:
             logger.warning(
                 "custom loss without a per-sample form: ragged batches "
                 "(%d rows, batch %d) train duplicate-padded rows at full "
                 "weight, slightly over-weighting them; use a named loss for "
                 "exact zero-weight padding",
-                n,
+                max_local_rows,
                 batch_size,
             )
         if streaming:
-            batches = StreamingShardLoader(
-                uris, y, self.getImageLoader(), batch_size, weighted).epoch
+            loader = StreamingShardLoader(uris, y, self.getImageLoader(), batch_size, weighted)
+
+            def batches(order):
+                return loader.epoch(order, steps)
         else:
             def batches(order):
-                return epoch_batches(order, x, y, batch_size, weighted)
-        # the JAX package's draw for process 0 of one
-        rng = np.random.RandomState((seed * 7919 + 0) % 2**32)
+                return epoch_batches(order, x, y, batch_size, weighted, steps)
+        # the JAX package's draw for this rank
+        rng = np.random.RandomState((seed * 7919 + rank) % 2**32)
         state, step_losses = checkpointing.fit_epochs(
             state, step_fn, batches, n, rng, start_epoch, epochs, device,
             ckpt_dir, namespace, self._ckpt_payload, estimator="KerasImageFileEstimator",
-            steps_per_epoch=max(1, -(-n // batch_size)))
+            steps_per_epoch=steps, writer=rank == 0)
         last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)
@@ -216,7 +240,7 @@ class KerasImageFileEstimator(
             outputCol=self.getOutputCol(),
             modelFile=tuned_path,
             imageLoader=self.getImageLoader(),
-            device=self.getDevice(),
+            device=self.getDevice() if mesh is None else str(device),
         )
         transformer._training_loss = last_loss
         transformer._training_losses = step_losses

@@ -29,9 +29,18 @@ JAX estimator fits ``ViT(dtype=jnp.bfloat16)``: float32 parameters and
 optimizer state, the forward in bfloat16, the per-sample losses and their
 weighted mean in float32.
 
-Not ported yet (ROADMAP.md): ``shardingRules`` / ``meshShape`` (the DP x TP
-step, item 12) and several hosts or cards. Setting one of those params
-raises.
+Inside a process group (:func:`sparkdl_tpu_torch.parallel.runner.initialize`,
+one rank per card) the fit is data-parallel, as the JAX estimator's over a
+global mesh: each rank loads its strided shard of the rows, the global
+batch is ``batch_size`` rounded down to a multiple of the ranks (at least
+one row each), and the step's all-reduce makes every update the exact
+global weighted mean. ``shardingRules`` (e.g.
+:data:`~sparkdl_tpu_torch.parallel.tp.VIT_TP_RULES`) makes the step DP x TP
+over a ``("data", "model")`` mesh of the group's ranks, shaped by
+``meshShape`` (default: two data rows when the ranks divide by two); the
+ranks of one data row load the same rows. Checkpoints, ``initialVariables``
+and the fitted stage keep the unsharded layout. Only rank 0 writes
+checkpoints; every rank resumes from the same epoch or the fit raises.
 """
 
 from __future__ import annotations
@@ -289,22 +298,17 @@ class TorchImageFileEstimator(
     )
     shardingRules = Param(
         "undefined", "shardingRules",
-        "tensor-parallel rules; not ported yet, must be None",
+        "tensor-parallel rules (e.g. parallel.tp.VIT_TP_RULES): the DP x TP "
+        "step over the process group's ranks",
     )
     meshShape = Param(
         "undefined", "meshShape",
-        "(dp, tp) device split; not ported yet, must be None",
+        "(dp, tp) split of the process group's ranks for shardingRules",
     )
     checkpointDir = Param(
         "undefined", "checkpointDir",
         "checkpoint directory for save/resume (None disables checkpointing)",
     )
-
-    #: params that must stay None, and the ROADMAP.md item that ports them
-    _NOT_PORTED = {
-        "shardingRules": "queue 1 item 12 (parallelism: the DP x TP step)",
-        "meshShape": "queue 1 item 12 (parallelism: the DP x TP step)",
-    }
 
     @keyword_only
     def __init__(
@@ -356,12 +360,13 @@ class TorchImageFileEstimator(
         kwargs = self._input_kwargs
         return self._set(**kwargs)
 
-    def _load_shard(self, dataset):
-        x, labels = load_host_shard(
+    def _load_shard(self, dataset, shard=None):
+        x, labels, n_global = load_host_shard(
             dataset,
             self.getInputCol(),
             self.getLabelCol(),
             self.getImageLoader(),
+            shard=shard,
         )
         raw = np.asarray(labels)
         if not np.issubdtype(raw.dtype, np.integer):
@@ -372,7 +377,7 @@ class TorchImageFileEstimator(
                     f"values (dtype {raw.dtype}); this estimator trains "
                     "with integer class labels"
                 )
-        return x, raw.astype(np.int32)
+        return x, raw.astype(np.int32), n_global
 
     def _per_sample_loss(self):
         """``(module, batch) -> (batch,)`` per-sample losses, in float32
@@ -397,62 +402,129 @@ class TorchImageFileEstimator(
             )
         return lambda module, batch: per(batch["y"], module(batch["x"]).float())
 
+    def _mesh_shape(self, world: int):
+        """(dp, tp) of the DP x TP mesh over ``world`` ranks: ``meshShape``
+        (which must cover them all), else two data rows when they divide by
+        two (the JAX estimator's default)."""
+        shape = self.getOrDefault(self.meshShape)
+        if shape is not None:
+            dp, tp = (int(v) for v in shape)
+            if dp * tp != world:
+                raise ValueError(
+                    f"meshShape {tuple(shape)} needs {dp * tp} devices, have {world}")
+            return dp, tp
+        dp = 2 if world % 2 == 0 and world > 1 else 1
+        return dp, world // dp
+
     def _fit(self, dataset):
         for p in (self.inputCol, self.outputCol, self.labelCol,
                   self.imageLoader, self.module):
             if not self.isDefined(p):
                 raise ValueError(f"Required param not set: {p.name}")
-        for name, item in self._NOT_PORTED.items():
-            if self.getOrDefault(name) is not None:
-                raise NotImplementedError(
-                    f"{name} is not ported to sparkdl_tpu_torch yet "
-                    f"(ROADMAP.md {item}); leave it None"
-                )
+        from sparkdl_tpu_torch.parallel import runner
 
-        device = self.device
         fit_params = dict(self.getOrDefault(self.fitParams) or {})
         epochs = int(fit_params.get("epochs", 1))
         batch_size = max(int(fit_params.get("batch_size", 32)), 1)
         lr = fit_params.get("learning_rate")
         seed = int(fit_params.get("seed", 0))
+        rules = self.getOrDefault(self.shardingRules)
 
-        x, y = self._load_shard(dataset)
+        # one card, or data-parallel (and with rules DP x TP) over the
+        # process group's ranks, one card each
+        grouped = runner.is_initialized()
+        if rules is not None and not grouped:
+            raise ValueError(
+                "shardingRules shards the step over the ranks of a process group "
+                "(one card each): call sparkdl_tpu_torch.parallel.runner.initialize() "
+                "first, a group of one included")
+        device = self.device
+        mesh, tp = None, 1
+        shard = (0, 1)
+        if grouped:
+            device = runner.current_device()
+            if device.type != self.device.type:
+                raise ValueError(f"the estimator asks for {self.device}, the process group "
+                                 f"runs on {device}")
+            world = runner.process_count()
+            if rules is not None:
+                dp, tp = self._mesh_shape(world)
+                mesh = runner.make_global_mesh(("data", "model"), (dp, tp))
+            else:
+                dp = world
+                mesh = runner.make_global_mesh(("data",))
+            # the ranks of one data row hold the same rows
+            shard = (runner.process_index() // tp, dp)
+            # the global batch splits evenly over the mesh (the JAX
+            # estimator's rounding); each data row takes its share
+            batch_size = max(batch_size - batch_size % world, world) // dp
+
+        x, y, n_global = self._load_shard(dataset, shard)
         tx = get_optimizer(self.getOrDefault(self.optimizer), lr)
         per_sample = self._per_sample_loss()
 
         # a torch module holds its parameters: train a copy, so fit never
         # changes the caller's module (the counterpart of the JAX fit's
         # defensive copy of initialVariables)
-        model = copy.deepcopy(self.getOrDefault(self.module))
+        template = self.getOrDefault(self.module)
+        model = copy.deepcopy(template)
         variables = self.getOrDefault(self.initialVariables)
         if variables is None:
             init_parameters(model, seed)
         else:
             model.load_state_dict(_as_state_dict(variables), strict=True)
         model.to(device).train()
-        state = init_train_state(model, tx)
-        step_fn = make_train_step(per_sample)
+        if runner.is_distributed():
+            # every rank starts from rank 0's weights
+            runner.replicate(model.state_dict())
+        if rules is not None:
+            from sparkdl_tpu_torch.parallel import tp as tensor_parallel
+
+            specs = tensor_parallel.param_path_specs(model, rules, model_axis="model")
+            state = tensor_parallel.init_tp_train_state(model, tx, mesh, specs)
+            step_fn = tensor_parallel.make_tp_train_step(per_sample, mesh, specs)
+
+            def payload(state):
+                return tensor_parallel.gather_payload(state, specs)
+
+            def restore(loaded):
+                tensor_parallel.restore_payload(state, loaded, specs)
+        else:
+            state = init_train_state(model, tx)
+            step_fn = make_train_step(per_sample, mesh=mesh)
+            payload = self._ckpt_payload
+
+            def restore(loaded):
+                self._ckpt_restore(state, loaded)
 
         ckpt_dir = self.getOrDefault(self.checkpointDir)
         # once per fit: the digest sums every initialVariables leaf
         namespace = self._ckpt_namespace() if ckpt_dir else None
         start_epoch = checkpointing.restore_latest(
-            ckpt_dir, namespace, epochs,
-            lambda payload: self._ckpt_restore(state, payload)) if ckpt_dir else 0
+            ckpt_dir, namespace, epochs, restore) if ckpt_dir else 0
+
+        # every rank runs the same number of steps: the largest shard's
+        steps = max(1, -(-(-(-n_global // shard[1])) // batch_size))
 
         def batches(order):
             # pad rows carry zero weight, so each update is the exact mean
             # over the real rows
-            return epoch_batches(order, x, y, batch_size)
+            return epoch_batches(order, x, y, batch_size, steps=steps)
 
+        # each data row draws its own permutations (one row: the seed's)
+        rng = np.random.RandomState(
+            (seed * 7919 + shard[0]) % 2**32 if shard[1] > 1 else seed % 2**32)
         state, step_losses = checkpointing.fit_epochs(
-            state, step_fn, batches, x.shape[0], np.random.RandomState(seed % 2**32),
-            start_epoch, epochs, device, ckpt_dir, namespace, self._ckpt_payload,
-            estimator="TorchImageFileEstimator",
-            steps_per_epoch=max(1, -(-x.shape[0] // batch_size)))
+            state, step_fn, batches, x.shape[0], rng,
+            start_epoch, epochs, device, ckpt_dir, namespace, payload,
+            estimator="TorchImageFileEstimator", steps_per_epoch=steps,
+            writer=runner.process_index() == 0)
         last_loss = step_losses[-1] if step_losses else None
 
         state.opt_state.zero_grad(set_to_none=True)
+        if rules is not None:
+            # the fitted stage in the unsharded layout, on this rank's card
+            model = tensor_parallel.unsharded_copy(template, model, specs).to(device)
         model.eval()
         transformer = TorchImageFileTransformer(
             inputCol=self.getInputCol(),

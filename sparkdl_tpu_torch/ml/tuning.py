@@ -11,8 +11,16 @@ param map on the whole frame. A grid over a ``Pipeline`` stage's params
 reaches the stage (``Pipeline.copy`` passes the map on), so a grid over
 ``DeepImageFeaturizer.modelName`` picks the backbone.
 
-``partitionDevices=True`` (one card per trial thread) is not ported: it
-raises before any fit (ROADMAP item 12).
+``partitionDevices=True`` is the JAX package's trial parallelism across
+device slices: the local cards are split into ``parallelism`` equal slices
+(:func:`~sparkdl_tpu_torch.parallel.trainer.partition_devices`, which
+raises before any fit when they do not divide) and each trial thread is
+bound to one (:func:`~sparkdl_tpu_torch.parallel.trainer.bind_device_slice`),
+so every ``device=None`` its fits resolve is its own card. One process
+drives one card, so a slice is one card: ``parallelism`` equals the number
+of cards, or it raises. The binding happens at ``parallelism=1`` too (one
+slice of every card), where the JAX package binds nothing; with one card
+that is the same card.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from queue import Queue
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -126,7 +135,9 @@ class CrossValidator(Estimator):
                         TypeConverters.toInt)
     partitionDevices = Param(
         "undefined", "partitionDevices",
-        "bind each trial thread to cards of its own (not ported: ROADMAP item 12)",
+        "split the local cards into `parallelism` disjoint slices and bind one to "
+        "each trial thread, so concurrent trials train on separate cards; the "
+        "cards must divide evenly",
         TypeConverters.toBoolean,
     )
     seed = Param("undefined", "seed", "random seed")
@@ -171,16 +182,22 @@ class CrossValidator(Estimator):
         return self.getOrDefault(self.evaluator)
 
     def _fit(self, dataset) -> CrossValidatorModel:
-        if self.getOrDefault(self.partitionDevices):
-            raise NotImplementedError(
-                "CrossValidator(partitionDevices=True), one card per trial "
-                "thread, is not ported yet (ROADMAP item 12)"
-            )
         est = self.getEstimator()
         param_maps = self.getEstimatorParamMaps()
         evaluator = self.getEvaluator()
         n_folds = self.getOrDefault(self.numFolds)
         parallelism = max(1, self.getOrDefault(self.parallelism))
+        slices = None
+        if self.getOrDefault(self.partitionDevices):
+            from sparkdl_tpu_torch.parallel.trainer import bind_device_slice, partition_devices
+
+            # checked before any fit: the cards must split evenly
+            slices = partition_devices(parallelism)
+        slice_queue: Optional[Queue] = None
+
+        def bind_slice():
+            if slice_queue is not None:
+                bind_device_slice(slice_queue.get_nowait())
 
         folds = dataset.randomSplit([1.0] * n_folds, seed=self.getOrDefault(self.seed))
         metrics = np.zeros((len(param_maps),), dtype=np.float64)
@@ -198,7 +215,13 @@ class CrossValidator(Estimator):
                 with lock:
                     metrics[index] += metric
 
-            with ThreadPoolExecutor(max_workers=parallelism) as pool:
+            if slices is not None:
+                # a fresh queue per fold: each pool makes fresh worker
+                # threads, and every one binds its own slice
+                slice_queue = Queue()
+                for s in slices:
+                    slice_queue.put(s)
+            with ThreadPoolExecutor(max_workers=parallelism, initializer=bind_slice) as pool:
                 list(pool.map(consume_one, range(len(param_maps))))
 
         metrics /= n_folds

@@ -3,7 +3,7 @@
 Port of ``sparkdl_tpu.obs.slo`` (host code: a copy with the package
 renamed). ``fleet_rollout_slos`` and ``tenant_slos`` watch the series of
 the replica plane's router and fleet collector; ``rollout_slos`` comes along
-as plain data for the rollout controller (ROADMAP item 10c).
+as plain data for the rollout controller (``serving/rollout.py``).
 
 An SLO here is "objective fraction of good samples/requests over time"
 — e.g. *99% of p99-latency samples under 250 ms*, *99.9% of requests

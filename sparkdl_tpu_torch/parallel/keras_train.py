@@ -1,6 +1,6 @@
-"""The single-device training step of a Keras model.
+"""The training step of a Keras model, on one card or data-parallel.
 
-Port of ``sparkdl_tpu.parallel.keras_train`` for one device. The JAX step
+Port of ``sparkdl_tpu.parallel.keras_train``. The JAX step
 is a pure function of the model's trainable and non-trainable variables
 (``stateless_call(..., training=True)`` returns the new batch-norm
 statistics); here the :class:`~sparkdl_tpu_torch.models.keras_model.KerasModel`
@@ -12,7 +12,15 @@ Dropout draws its masks from the state's own ``torch.Generator``, seeded by
 the fit, the counterpart of the Keras ``SeedGenerator`` state that the JAX
 step carries among the non-trainable variables: its state is checkpointed
 with the weights, so a resumed fit draws the masks an uninterrupted one
-draws. The data-parallel step over several cards is ROADMAP.md item 12.
+draws.
+
+Given a mesh (a ``DeviceMesh`` of the process group, one card per rank),
+the step is data-parallel, as the JAX step over its ``data`` axis: each
+rank's batch norm normalizes with its own batch's statistics, the
+gradients (and the loss) are summed, for the exact global weighted mean,
+or averaged, and after the update each floating-point buffer (batch norm's
+moving statistics) is averaged over the ranks, as the JAX step's ``pmean``
+of the non-trainable variables; other buffers pass through.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from sparkdl_tpu_torch.parallel.trainer import OptimizerFactory
+import torch.distributed as dist
+
+from sparkdl_tpu_torch.parallel.trainer import OptimizerFactory, all_reduce_grads, axis_group
 
 Batch = Dict[str, torch.Tensor]
 
@@ -55,6 +65,8 @@ def init_keras_train_state(module: torch.nn.Module, tx: OptimizerFactory,
 def make_keras_train_step(
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     weighted: bool = False,
+    mesh=None,
+    data_axis: str = "data",
 ) -> Callable[[KerasTrainState, Batch], tuple]:
     """Build ``step(state, batch) -> (state, loss)`` over ``batch = {"x",
     "y"[, "w"]}``.
@@ -67,8 +79,10 @@ def make_keras_train_step(
     Otherwise ``loss_fn`` returns the mean loss. Dropout masks come from
     ``state.generator`` (JAX's draws cannot be matched). The loss
     comes back as a device tensor: reading it synchronises, so callers read
-    it rarely.
+    it rarely. ``mesh`` makes the step data-parallel (module docstring);
+    ``batch`` is then this rank's rows.
     """
+    group = axis_group(mesh, data_axis)
 
     def step(state: KerasTrainState, batch: Batch):
         module = state.module
@@ -77,11 +91,29 @@ def make_keras_train_step(
         outputs = module(batch["x"], generator=state.generator)
         if weighted:
             w = batch["w"]
-            loss = (loss_fn(batch["y"], outputs) * w).sum() / w.sum()
+            w_total = w.sum()
+            if mesh is not None:
+                w_total = w_total.detach().clone()
+                dist.all_reduce(w_total, group=group)
+            loss = (loss_fn(batch["y"], outputs) * w).sum() / w_total
         else:
             loss = loss_fn(batch["y"], outputs)
         loss.backward()
+        if mesh is not None:
+            trainable = [p for p in module.parameters() if p.requires_grad]
+            loss = all_reduce_grads(trainable, loss, group, average=not weighted)
         state.opt_state.step()
+        if mesh is not None:
+            stats = [b for b in module.buffers() if b.is_floating_point()]
+            if stats:
+                flat = torch.cat([b.reshape(-1).float() for b in stats])
+                dist.all_reduce(flat, group=group)
+                flat /= dist.get_world_size(group)
+                offset = 0
+                with torch.no_grad():
+                    for b in stats:
+                        b.copy_(flat[offset:offset + b.numel()].view_as(b))
+                        offset += b.numel()
         state.step += 1
         return state, loss.detach()
 

@@ -78,6 +78,10 @@ KNOWN_SITES = {
     # the router's result-cache lookup, before fingerprint resolution: an
     # error here must degrade to the miss path, never to a request error
     "cache": ("cache.lookup",),
+    # blue/green rollout transitions (RolloutController): shift fires
+    # before each weight change, bake before each canary evaluation,
+    # rollback as a rollback begins (which must never stop it)
+    "rollout": ("rollout.shift", "rollout.bake", "rollout.rollback"),
 }
 
 

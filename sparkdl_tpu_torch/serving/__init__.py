@@ -13,10 +13,10 @@ The replica plane runs each ``ModelServer`` in a process of its own
 behind a router: :class:`ReplicaSupervisor` spawns and restarts
 :class:`ReplicaSpec` replicas, the :class:`Router` places requests on them
 over the typed wire (TCP or a shared-memory ring), :class:`ResultCache`
-answers repeats and :class:`Autoscaler` sizes the fleet. Its names load
-lazily, on first use. ``RolloutController`` (the deploy-safety controller
-over the supervisor's versions) is not ported yet: asking for it raises
-``AttributeError`` naming ROADMAP item 10c.
+answers repeats, :class:`Autoscaler` sizes the fleet and
+:class:`RolloutController` moves traffic from one version of the fleet to
+the next behind a canary SLO, or rolls it back. Its names load lazily, on
+first use.
 """
 
 from sparkdl_tpu_torch.serving.admission import AdmissionQueue, Request, TenantPolicy
@@ -63,6 +63,7 @@ _REPLICA_PLANE = {
     "ReplicaSpec": "sparkdl_tpu_torch.serving.replica",
     "ReplicaSupervisor": "sparkdl_tpu_torch.serving.supervisor",
     "ResultCache": "sparkdl_tpu_torch.serving.result_cache",
+    "RolloutController": "sparkdl_tpu_torch.serving.rollout",
     "Router": "sparkdl_tpu_torch.serving.router",
 }
 
@@ -72,8 +73,4 @@ def __getattr__(name):
         import importlib
 
         return getattr(importlib.import_module(_REPLICA_PLANE[name]), name)
-    if name == "RolloutController":
-        raise AttributeError(
-            "sparkdl_tpu_torch.serving.RolloutController is not ported yet "
-            "(ROADMAP item 10c)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

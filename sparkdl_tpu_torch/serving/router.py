@@ -89,6 +89,11 @@ ENV_RETRY_BURST = "SPARKDL_RETRY_BUDGET_BURST"    # bucket capacity
 _HEDGE_WINDOW = 256
 
 
+#: seconds a backend whose address refused a connection is passed over
+#: while another can take the request
+_REFUSED_HOLD_S = 1.0
+
+
 class _RetryBudget:
     """Token bucket capping fleet-wide retry *amplification*: every
     admitted request earns ``ratio`` tokens (capped at ``burst``), and
@@ -160,6 +165,9 @@ class _Backend:
         self.version = str(version)
         self.inflight = 0
         self.removed = False
+        #: the router's clock until which placements pass this backend
+        #: over: its address refused a connection (nothing listens there)
+        self.refused_until = float("-inf")
         # an injected transport (the sim's virtual replica) skips the
         # socket handshake entirely; live fleets use the lane factory
         self.transport = transport if transport is not None else (
@@ -484,6 +492,12 @@ class Router:
             ]
             if not candidates:
                 return None
+            # a backend that refused a connection lately has no process
+            # behind it (the supervisor removes it once it sees the death):
+            # placing there would only spend the retry budget
+            now = self._clock()
+            fresh = [b for b in candidates if b.refused_until <= now]
+            candidates = fresh or candidates
             by_version: Dict[str, list] = {}
             for b in candidates:
                 by_version.setdefault(b.version, []).append(b)
@@ -666,8 +680,10 @@ class Router:
                 max(0.05, deadline - t0),
                 trace=(span.context() if span is not None else None),
             )
-        except Exception:
+        except Exception as exc:
             vm.errors.add(1)
+            if isinstance(exc, ConnectionRefusedError):
+                backend.refused_until = self._clock() + _REFUSED_HOLD_S
             raise
         finally:
             self._unpick(backend)

@@ -496,10 +496,14 @@ class _Coalescer:
 
     @staticmethod
     def _fail(batch: List[_Slot], exc: BaseException) -> None:
+        # a refused connection keeps its type: the router passes a backend
+        # that refuses over for a while
+        kind = ConnectionRefusedError if isinstance(exc, ConnectionRefusedError) \
+            else ConnectionError
         for slot in batch:
             # a fresh instance per waiter: exceptions are mutable and
             # these are raised concurrently in N caller threads
-            slot.exc = ConnectionError(f"coalesced tcp lane failed: {exc}")
+            slot.exc = kind(f"coalesced tcp lane failed: {exc}")
             slot.done.set()
 
     def _drop_sock(self) -> None:

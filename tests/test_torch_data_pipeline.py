@@ -439,8 +439,20 @@ def test_the_device_placer_takes_the_card_unless_told_cpu(monkeypatch):
         default_device_placer()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         next(iter(Dataset.from_items([np.zeros(2)]).prefetch_to_device()))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the mesh branch: several cards are placed by the ranks of a process
+    # group, each its own rows; without a group of as many ranks it raises
+    with pytest.raises(ValueError, match="process group of 2"):
         default_device_placer(["cuda:0", "cuda:1"])
+    from sparkdl_tpu_torch.parallel import runner
+
+    runner.initialize(device="cpu")
+    try:
+        mesh_placer = default_device_placer(mesh=runner.make_global_mesh())
+        assert mesh_placer.shard == (0, 1)
+        placed = mesh_placer({"x": np.arange(6, dtype=np.float32).reshape(3, 2)})
+        np.testing.assert_array_equal(placed["x"].numpy(), np.arange(6).reshape(3, 2))
+    finally:
+        runner.shutdown()
     placer = default_device_placer(["cpu"])
     assert isinstance(placer, DevicePlacer) and placer.device == torch.device("cpu")
     # strings pass through; numbers become tensors

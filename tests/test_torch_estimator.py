@@ -455,12 +455,46 @@ def test_fit_takes_a_torch_state_dict_and_param_maps(flax_params, train_df):
     assert fitted[0]._training_losses == pytest.approx(fitted[1]._training_losses)
 
 
+@pytest.fixture()
+def group_of_one():
+    """A gloo process group of this process alone, left after the test."""
+    from sparkdl_tpu_torch.parallel import runner
+
+    runner.initialize(device="cpu")
+    try:
+        yield runner
+    finally:
+        runner.shutdown()
+
+
 @pytest.mark.parametrize("param,value", [
     ("shardingRules", [(".*", None)]), ("meshShape", (1, 1)),
 ])
-def test_unported_options_raise(flax_params, train_df, param, value):
-    with pytest.raises(NotImplementedError, match=f"{param} is not ported.*ROADMAP"):
-        _estimator(flax_params, **{param: value}).fit(train_df)
+def test_unported_options_raise(flax_params, train_df, fitted, group_of_one, param, value):
+    # the parameters are ported: inside a group of one, rules that leave
+    # every weight replicated (the DP x TP step on a (1, 1) mesh) and a
+    # mesh shape without rules (ignored, as the JAX estimator ignores it)
+    # fit as the one-card fit does
+    got = _estimator(flax_params, **{param: value}).fit(train_df)
+    want = fitted[0]
+    np.testing.assert_allclose(got._training_losses, want._training_losses, rtol=1e-6)
+    for name, t in want.module.state_dict().items():
+        np.testing.assert_allclose(got.module.state_dict()[name].numpy(), t.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_a_mesh_shape_needs_as_many_ranks(flax_params, train_df, group_of_one):
+    from sparkdl_tpu_torch.parallel.tp import VIT_TP_RULES
+
+    with pytest.raises(ValueError, match=r"meshShape \(1, 2\) needs 2 devices, have 1"):
+        _estimator(flax_params, shardingRules=VIT_TP_RULES, meshShape=(1, 2)).fit(train_df)
+
+
+def test_sharding_rules_need_a_process_group(flax_params, train_df):
+    from sparkdl_tpu_torch.parallel.tp import VIT_TP_RULES
+
+    with pytest.raises(ValueError, match="process group"):
+        _estimator(flax_params, shardingRules=VIT_TP_RULES).fit(train_df)
 
 
 def test_non_integral_labels_raise(flax_params, uris):

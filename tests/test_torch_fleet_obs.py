@@ -16,8 +16,8 @@ signal.
   round trip against an ObsServer.
 - **federated canary**: a canary whose failures the router's retries mask
   (the router's ``rollout.v2.*`` stays ok) still pages on its OWN scraped
-  series. The rollout controller's default watch over that series comes
-  with the controller (ROADMAP item 10c).
+  series. The rollout controller's default watch over that series is
+  held in ``test_torch_rollout.py``.
 """
 
 import threading

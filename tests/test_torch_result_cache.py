@@ -7,7 +7,7 @@ single-flight + negative cache), the router wiring (hit path, the
 unfingerprinted-is-uncacheable rule, fail-open under an injected
 ``cache.lookup`` fault), and the ``/debug/cache`` ObsServer pane
 (including the 400-not-500 malformed-param contract). The rollout-flip
-invalidation proof comes with the rollout controller (ROADMAP item 10c).
+invalidation proof is in ``test_torch_rollout.py``.
 Its keys are held to the JAX package's in ``test_torch_replica_parity.py``.
 """
 

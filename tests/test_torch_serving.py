@@ -336,10 +336,11 @@ def test_batcher_decode_and_slot_pool_default_to_the_card(monkeypatch):
 
 
 def test_replica_plane_names_wait_for_item_10b():
-    # the replica plane is ported: its names import, only the rollout
-    # controller still raises naming its item, and start_telemetry serves
+    # the replica plane is ported: its names import, the rollout
+    # controller among them, and start_telemetry serves
     import sparkdl_tpu_torch.serving as serving
     from sparkdl_tpu_torch.serving.replica import ReplicaSpec
+    from sparkdl_tpu_torch.serving.rollout import RolloutController
     from sparkdl_tpu_torch.serving.supervisor import ReplicaSupervisor
 
     assert serving.ReplicaSupervisor is ReplicaSupervisor
@@ -347,8 +348,9 @@ def test_replica_plane_names_wait_for_item_10b():
     for name in ("Router", "ResultCache", "Autoscaler", "ReplicaDraining",
                  "NoLiveReplicas", "RemoteReplicaError"):
         assert isinstance(getattr(serving, name), type)
-    with pytest.raises(AttributeError, match="10c"):
-        serving.RolloutController  # noqa: B018
+    assert serving.RolloutController is RolloutController
+    with pytest.raises(AttributeError, match="no attribute"):
+        serving.NotAServingName  # noqa: B018
     server = make_server()
     try:
         obs = server.start_telemetry()

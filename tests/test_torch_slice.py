@@ -287,13 +287,22 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.serving.router",
         "sparkdl_tpu_torch.serving.supervisor",
         "sparkdl_tpu_torch.serving.autoscale",
+        "sparkdl_tpu_torch.serving.rollout",
+        "sparkdl_tpu_torch.parallel",
+        "sparkdl_tpu_torch.parallel.runner",
+        "sparkdl_tpu_torch.parallel.context",
+        "sparkdl_tpu_torch.parallel.tp",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
 
 
 def test_port_sources_import_no_jax():
-    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the package, the script, and the rank functions the parallel tests
+    # spawn without JAX
+    files = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "tests" / "torch_fixtures" / name
+        for name in ("dist_launch.py", "dist_child.py", "parallel_workers.py")]
     for module in ("graph/function.py", "graph/pieces.py", "graph/builder.py",
                    "graph/utils.py", "param/converters.py", "transformers/tf_image.py",
                    "transformers/tf_tensor.py", "utils/hdf5.py", "models/keras_model.py",
@@ -314,7 +323,9 @@ def test_port_sources_import_no_jax():
                    "obs/trace.py", "obs/export.py", "obs/timeseries.py", "obs/slo.py",
                    "obs/blackbox.py", "data/__init__.py", "data/dataset.py",
                    "data/prefetch.py", "data/device.py", "streaming/__init__.py",
-                   "streaming/sources.py", "streaming/commit.py", "streaming/runner.py"):
+                   "streaming/sources.py", "streaming/commit.py", "streaming/runner.py",
+                   "serving/rollout.py", "parallel/__init__.py", "parallel/runner.py",
+                   "parallel/trainer.py", "parallel/context.py", "parallel/tp.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:

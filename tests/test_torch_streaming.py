@@ -192,8 +192,11 @@ def test_collect_host_shard_rows_keeps_only_uris(files):
     df = session.createDataFrame(
         [{"uri": u, "label": i % 3, "extra": "x"} for i, u in enumerate(files[:5])],
         numPartitions=2)
-    uris, labels = collect_host_shard_rows(df, "uri", "label")
-    assert uris == files[:5] and labels == [0, 1, 2, 0, 1]
+    uris, labels, n_global = collect_host_shard_rows(df, "uri", "label")
+    assert uris == files[:5] and labels == [0, 1, 2, 0, 1] and n_global == 5
+    # the strided shard of rank 1 of 2, as the JAX package's host shard
+    uris, labels, n_global = collect_host_shard_rows(df, "uri", "label", shard=(1, 2))
+    assert uris == files[1:5:2] and labels == [1, 0] and n_global == 5
     with pytest.raises(ValueError, match="empty dataset"):
         collect_host_shard_rows(session.createDataFrame([{"uri": "a", "label": 0}])
                                 .filter(lambda r: False), "uri", "label")

@@ -169,6 +169,35 @@ def plain_service(counter=None):
 
 
 class TestRouter:
+    def test_a_refused_backend_is_passed_over(self):
+        # a replica whose process died refuses connections until the
+        # supervisor removes it; the placements that follow pass it over,
+        # so a kill under load does not spend the retry budget on it
+        served = []
+        svc = plain_service(served)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            dead_port = s.getsockname()[1]
+        clock = {"t": 0.0}
+        with Router(retry_budget_ratio=0.0, retry_budget_burst=1.0,
+                    clock=lambda: clock["t"]) as router:
+            # at idle, least-inflight placement breaks the tie in
+            # registration order: the dead backend first
+            router.add("dead", "127.0.0.1", dead_port, lanes=("tcp",))
+            router.add("live", "127.0.0.1", svc.port)
+            try:
+                for _ in range(8):
+                    out = router.route(np.ones(4, np.float32), model_id="ep0")
+                    np.testing.assert_allclose(np.asarray(out), 2.0)
+                assert len(served) == 8
+                # the one retry went to the first request; after the hold
+                # the dead backend is tried again, and the budget is spent
+                clock["t"] += 2.0
+                with pytest.raises(ConnectionRefusedError):
+                    router.route(np.ones(4, np.float32), model_id="ep0")
+            finally:
+                svc.close()
+
     def test_routes_and_returns_result(self):
         svc = plain_service()
         with Router() as router:

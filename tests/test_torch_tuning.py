@@ -5,7 +5,10 @@
   the same folds (``randomSplit([1.0] * numFolds, seed)``), the same
   ``avgMetrics`` and the same best index as the JAX package's; the save and
   load of ``CrossValidator`` and ``CrossValidatorModel``;
-  ``partitionDevices=True`` refused before any fit (ROADMAP item 12);
+  ``partitionDevices=True``: one card and ``parallelism=2`` refused before
+  any fit with the JAX package's uneven-split error; over two explicit CPU
+  devices each trial thread is bound to its own slice, with the
+  ``avgMetrics`` of ``partitionDevices=False``;
 - ``ParamGridBuilder``, ``Estimator.fitMultiple`` driven from threads,
   ``DataFrame.union``, and the model caches' ``LRUCache`` under threads;
 - a grid over a ``Pipeline`` stage's param: ``Pipeline.copy`` passes the
@@ -149,7 +152,13 @@ def test_cross_validator_model_save_and_load(frames, tmp_path):
         [r["prediction"] for r in model.transform(port_df).collect()]
 
 
-def test_partition_devices_is_refused_before_any_fit(frames):
+def test_partition_devices_is_refused_before_any_fit(frames, monkeypatch):
+    # one card does not split into two slices: the JAX package's error,
+    # raised before any fit
+    from sparkdl_tpu_torch.parallel import trainer
+
+    monkeypatch.setattr(trainer, "local_devices", lambda: [torch.device("cuda", 0)])
+
     class NoFit(LogisticRegression):
         def _fit(self, dataset):
             raise AssertionError("fitted")
@@ -159,8 +168,40 @@ def test_partition_devices_is_refused_before_any_fit(frames):
     cv = CrossValidator(estimator=lr, estimatorParamMaps=[{lr.maxIter: 1}],
                         evaluator=MulticlassClassificationEvaluator(), numFolds=2,
                         parallelism=2, partitionDevices=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(ValueError, match="1 devices do not partition into 2 equal slices"):
         cv.fit(port_df)
+
+
+def test_partition_devices_binds_each_trial_thread_to_its_slice(frames, monkeypatch):
+    from sparkdl_tpu_torch.parallel import trainer
+
+    cpus = [torch.device("cpu"), torch.device("cpu")]
+    monkeypatch.setattr(trainer, "local_devices", lambda: list(cpus))
+    seen = []
+
+    class Spy(LogisticRegression):
+        def _fit(self, dataset):
+            seen.append((threading.current_thread() is threading.main_thread(),
+                         trainer.current_device_slice()))
+            return super()._fit(dataset)
+
+    port_df, _ = frames
+
+    def run(partition):
+        cv = _cv(Spy(maxIter=30, stepSize=0.1, device="cpu"), ParamGridBuilder, CrossValidator,
+                 MulticlassClassificationEvaluator, parallelism=2)
+        cv.setParams(partitionDevices=partition)
+        return cv.fit(port_df).avgMetrics
+
+    plain = run(False)
+    assert all(slice_ is None for _, slice_ in seen)
+    seen.clear()
+    assert run(True) == plain
+    # every trial in a pool thread trained on a one-card slice; the final
+    # refit in the caller's thread is unbound, as in the JAX package
+    trials = [slice_ for main, slice_ in seen if not main]
+    assert len(trials) == 3 * 4 and all(s == [torch.device("cpu")] for s in trials)
+    assert [s for main, s in seen if main] == [None]
 
 
 def test_param_grid_builder_matches_jax():
