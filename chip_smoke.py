@@ -318,6 +318,33 @@ prints no result):
    ``CrossValidator(partitionDevices=True)`` sweep with one slice against the
    unpartitioned one; each fit's step ms. The child prints its launch counts,
    which join the kernel records (``phase17_launches``).
+18. SQL and continuous SQL, inside phase 14 after phase 16, on phase 14's
+   256 images: phase 5's weights as an eager bf16 flash ViT-B/16 endpoint
+   ``vit_top`` on a new ``ModelServer`` (``compile=False``: one scalar a
+   row, the largest logit), registered before any query binds, and a
+   registered UDF ``vit_top`` that scores through it (its function in
+   ``session.sql``, its ``_serving_endpoint`` hook in a continuous query).
+   (a) ``SELECT id, label, vit_top(image) AS s FROM frames`` into a view,
+   then one query: a JOIN with a 4-row labels view over a derived table
+   ranked by ``ROW_NUMBER() OVER (PARTITION BY label ORDER BY s DESC)``,
+   ``WHERE rk <= 16``, ``GROUP BY``, ``HAVING``, ``ORDER BY``: keys and
+   counts exact, each label's max, mean and least of its top 16 within the
+   bf16 bound (3% of the largest value) of numpy's over the float32 plain
+   forward. (b) ``session.sqlStream`` of ``count``, ``max`` and ``p95`` of
+   ``vit_top(image)`` over ``GROUP BY WINDOW(ts, '2s'), label`` on a
+   ``QueueSource`` of the images (ts = 50 ms x i) and 2 late records,
+   traced: each closed window once with exact counts, ``top`` and ``p95``
+   within the bf16 bound of numpy's, the late rows in the side output and
+   ``csql.late_rows``, the ``csql.query``, ``csql.window_close`` and
+   ``csql.recover`` spans; records/s and ``csql.emit_latency_ms`` p50/p99.
+   #1 launches 12 a served block in (a) and (b); ``serving.compiles`` does
+   not move. (c) Worker processes (``P18_WORKER``, fresh interpreters) run
+   the query over a ``FileTailSource`` of image indices into 64 images on
+   the card: uninterrupted (its windows against numpy's), killed at
+   ``streaming.window_commit`` and restarted (the replayed epoch's lines
+   equal its payload bit for bit, every window once, within the bf16 bound
+   of the uninterrupted run), killed at ``csql.plan`` (nothing left behind).
+   (a)'s and (b)'s launches join the kernel records (``phase18_launches``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -4743,6 +4770,370 @@ def cv_sweep(partition: bool) -> list:
     return [float(m) for m in cv.fit(df).avgMetrics]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the SQL dialect and continuous SQL
+# ---------------------------------------------------------------------------
+P18_LABELS = 4            # label = i % 4, joined to a 4-row labels view
+P18_TOP_K = 16            # (a): ROW_NUMBER() <= this many rows of each label
+P18_TS_MS = 50.0          # (b), (c): record i's event time is i x this
+P18_WINDOW = "2s"         # ... in tumbling windows of 40 records
+P18_LATE_AFTER = {100: 100.0, 200: 3000.0}  # (b): after record i, one with this stale time
+P18_STREAM_BATCH = 32     # (b): the query's micro-batch
+P18_WORKER_IMAGES = 64    # (c): phase 14's first images, held on the card ...
+P18_WORKER_RECORDS = 128  # ... indexed by this many records (idx = i % 64)
+P18_WORKER_BATCH = 16     # (c): the worker's micro-batch (and poll and queue)
+P18_KILL_AT = 3           # (c): the streaming.window_commit call the worker dies at
+P18_QUERY = ("SELECT label, count(*) AS n, max(vit_top({arg})) AS top, "
+             "p95(vit_top({arg})) AS p95 FROM frames "
+             f"GROUP BY WINDOW(ts, '{P18_WINDOW}'), label")
+P18_BOUNDED = (
+    "SELECT l.name AS name, count(*) AS n, max(r.s) AS top, avg(r.s) AS mean_top, "
+    "min(r.s) AS kth, max(r.rk) AS last_rank "
+    "FROM (SELECT id, label, s, ROW_NUMBER() OVER (PARTITION BY label ORDER BY s DESC) "
+    "AS rk FROM scored) r JOIN labels l ON r.label = l.label "
+    f"WHERE r.rk <= {P18_TOP_K} GROUP BY l.name HAVING count(*) >= {P18_TOP_K} "
+    "ORDER BY name")
+P18_WORKER = """
+import json, os, sys
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+{prelude}
+from sparkdl_tpu_torch.ops.flash_attention import FLASH_FWD
+from sparkdl_tpu_torch.sql import TorchSession
+from sparkdl_tpu_torch.streaming import FileTailSource, JsonlSink, StreamConfig
+from sparkdl_tpu_torch.utils.metrics import metrics
+FLASH_FWD.build()
+workdir = {workdir!r}
+images = torch.from_numpy(np.load(os.path.join(workdir, "images.npy"))).to(cs.P14_DEVICE)
+module = cs.bf16_vit(cs.flax_layout_vit_params(seed=2, classes=cs.N_CLASSES))
+session = TorchSession.builder.getOrCreate()
+server = cs.vit_top_endpoint(session, module, gather=images)
+session.readStream("frames", FileTailSource(os.path.join(workdir, "in.jsonl"),
+                                            event_time_field="ts"))
+query = session.sqlStream(
+    cs.P18_QUERY.format(arg="idx"), JsonlSink(os.path.join(workdir, "out.jsonl")),
+    os.path.join(workdir, "log"), late_sink=JsonlSink(os.path.join(workdir, "late.jsonl")),
+    server=server,
+    config=StreamConfig(max_batch=cs.P18_WORKER_BATCH, max_wait_ms=500.0,
+                        poll_batch=cs.P18_WORKER_BATCH, poll_interval_ms=2.0,
+                        queue_capacity=cs.P18_WORKER_BATCH))
+summary = query.run(idle_timeout_s=1.0)
+query.close()
+server.close()
+print(json.dumps({{"summary": summary, "launches": FLASH_FWD.launches,
+                   "batches": metrics.counter("serving.batches").value}}))
+"""
+
+
+def vit_top_endpoint(session, module, gather=None):
+    """Phase 18's endpoint: ``module`` (the eager bf16 flash ViT-B/16)
+    served as ``vit_top`` on a new ``ModelServer``, one scalar a row, the
+    largest logit; registered before any query binds, eagerly
+    (``compile=False``: the phase compiles nothing). With ``gather``, a
+    tensor of images on the card, an item is an index into it. The UDF
+    ``vit_top`` in ``session`` scores through the endpoint on both paths:
+    its function submits each value of a partition (``session.sql``), and
+    its ``_serving_endpoint`` hook routes a continuous query's scoring."""
+    import torch
+
+    from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+    from sparkdl_tpu_torch.sql.functions import UserDefinedFunction
+
+    def forward(batch):
+        with torch.inference_mode():
+            x = gather[batch.long()] if gather is not None else batch
+            return module(x).float().amax(dim=-1)
+
+    item_shape = () if gather is not None else (P14_IMAGE, P14_IMAGE, 3)
+    server = ModelServer(config=ServingConfig(max_batch=32, max_wait_ms=2.0),
+                         device=P14_DEVICE)
+    server.register("vit_top", forward, item_shape=item_shape, compile=False)
+
+    def score(values):
+        futures = [server.submit(np.asarray(v, np.float32), model_id="vit_top")
+                   for v in values]
+        return [float(f.result(timeout=600)) for f in futures]
+
+    udf = UserDefinedFunction(score, name="vit_top", vectorized=True)
+    udf._serving_endpoint = {"model_id": "vit_top", "forward": forward,
+                             "item_shape": item_shape, "dtype": np.float32,
+                             "fingerprint": None}
+    session.udf.register("vit_top", udf)._serving_endpoint = udf._serving_endpoint
+    return server
+
+
+def window_aggregates(rows) -> dict:
+    """Emitted window rows by (window_start, label): (n, top, p95)."""
+    return {(r["window_start"], r["label"]): (r["n"], r["top"], r["p95"]) for r in rows}
+
+
+def expected_windows(scores, labels, ts) -> dict:
+    """numpy's window aggregates of ``scores`` (float32 plain forward) over
+    the windows a watermark at the largest event time has closed: per
+    (window_start, label), the count, max and linear 95th percentile."""
+    from sparkdl_tpu_torch.sql.window_state import parse_duration_ms
+
+    size = parse_duration_ms(P18_WINDOW)
+    out: dict = {}
+    closed_before = np.floor(max(ts) / size) * size
+    for start in np.arange(0.0, closed_before, size):
+        for label in sorted(set(labels)):
+            sel = [s for s, lab, t in zip(scores, labels, ts)
+                   if lab == label and start <= t < start + size]
+            out[(float(start), label)] = (len(sel), float(np.max(sel)),
+                                          float(np.percentile(sel, 95.0)))
+    return out
+
+
+def check_windows(label: str, got: dict, want: dict, bound: float) -> float:
+    """Every window of ``want`` emitted once in ``got`` with its exact
+    count; top and p95 within ``bound``. Returns the largest error."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: windows {sorted(got)} against {sorted(want)}")
+    err = 0.0
+    for key, (n, top, p95) in want.items():
+        g = got[key]
+        if g[0] != n:
+            raise AssertionError(f"{label}: window {key} counted {g[0]} rows, not {n}")
+        err = max(err, abs(g[1] - top), abs(g[2] - p95))
+    log(f"  {label}: {len(want)} windows once each, counts exact; top and p95 max_abs_err "
+        f"{err:.4e} (bound {bound:.4e})")
+    if not np.isfinite(err) or err > bound:
+        raise AssertionError(f"{label}: aggregates off by {err}")
+    return err
+
+
+def continuous_sql(card: str, counted, train_params, images, want) -> int:
+    """Phase 18: the SQL dialect and continuous SQL over an eager bf16 flash
+    ViT-B/16 endpoint (``vit_top``, phase 5's weights). (a) ``session.sql``
+    scores phase 14's 256 images into a view, then one query joins a labels
+    view, ranks each label's rows with ``ROW_NUMBER()``, groups, filters with
+    HAVING and orders. (b) A standing query over a ``QueueSource`` of the
+    same images (2 late records among them), traced. (c) Exactly once on
+    the card: worker processes over a ``FileTailSource``, uninterrupted,
+    killed at ``streaming.window_commit`` and restarted, killed at
+    ``csql.plan``. Aggregates within the bf16 bound of numpy's over the
+    float32 plain forward. Returns #1's launches of (a) and (b)."""
+    import os
+
+    from sparkdl_tpu_torch.models.vit import VIT_VARIANTS
+    from sparkdl_tpu_torch.obs import JsonlTraceSink, tracer
+    from sparkdl_tpu_torch.sql import TorchSession
+    from sparkdl_tpu_torch.streaming import CommitLog, JsonlSink, QueueSource, StreamConfig
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    reset, read = counted
+    blocks = VIT_VARIANTS[P14_VARIANT][2]
+    launches = 0
+    scores = want.max(axis=1)  # the float32 plain forward's largest logits
+    bound = CNN_BF16_MAX_REL * float(np.abs(scores).max())
+    labels = [i % P18_LABELS for i in range(len(images))]
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    server = vit_top_endpoint(session, bf16_vit(train_params))
+    compiles = metrics.counter("serving.compiles").value
+    engine_compiles = metrics.timer("engine.compile").entries
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-csql-") as tmp:
+        tmp = Path(tmp)
+
+        # (a) the bounded dialect: score into a view, then join, rank, group
+        session.createDataFrame([{"id": i, "label": labels[i], "image": images[i]}
+                                 for i in range(len(images))]).createOrReplaceTempView("frames")
+        session.createDataFrame([(k, f"class_{k}") for k in range(P18_LABELS)],
+                                ["label", "name"]).createOrReplaceTempView("labels")
+        batches0 = metrics.counter("serving.batches").value
+        reset()
+        t0 = time.perf_counter()
+        scored = session.sql("SELECT id, label, vit_top(image) AS s FROM frames")
+        scored_rows = scored.collect()
+        score_s = time.perf_counter() - t0
+        counts = read()
+        served = metrics.counter("serving.batches").value - batches0
+        scored.createOrReplaceTempView("scored")
+        t0 = time.perf_counter()
+        rows = session.sql(P18_BOUNDED).collect()
+        query_s = time.perf_counter() - t0
+        if list(counts.values()) != [blocks * served, 0, 0, 0]:
+            raise AssertionError(f"(a) launches {counts}, expected {blocks} x {served} blocks")
+        launches += counts["flash_attention_fwd"]
+        if sorted(r["id"] for r in scored_rows) != list(range(len(images))):
+            raise AssertionError("(a) the scored view lost or repeated rows")
+        check_bf16_rows("(a) vit_top(image) scores",
+                        np.array([r["s"] for r in sorted(scored_rows, key=lambda r: r["id"])]),
+                        scores)
+        err = 0.0
+        for k, r in enumerate(rows):
+            top = np.sort(scores[np.arange(len(images)) % P18_LABELS == k])[::-1][:P18_TOP_K]
+            if (r["name"], r["n"], r["last_rank"]) != (f"class_{k}", P18_TOP_K, P18_TOP_K):
+                raise AssertionError(f"(a) row {k}: {r}")
+            err = max(err, abs(r["top"] - top.max()), abs(r["mean_top"] - top.mean()),
+                      abs(r["kth"] - top.min()))
+        if len(rows) != P18_LABELS or not np.isfinite(err) or err > bound:
+            raise AssertionError(f"(a) {len(rows)} groups, aggregates off by {err}")
+        log(f"csql (a): session.sql scored {len(scored_rows)} images through vit_top "
+            f"({served:.0f} served blocks, launches {counts}) in {score_s:.3f} s = "
+            f"{len(scored_rows) / score_s:.1f} rows/s; the JOIN / ROW_NUMBER() / GROUP BY / "
+            f"HAVING / ORDER BY query {1e3 * query_s:.1f} ms: {P18_LABELS} groups of "
+            f"{P18_TOP_K}, keys and counts exact, max/avg/min of each label's top "
+            f"{P18_TOP_K} max_abs_err {err:.4e} against numpy over the float32 plain forward "
+            f"(bound {bound:.4e}) ({card})")
+        for view in ("frames", "scored", "labels"):
+            session.catalog.dropTempView(view)
+
+        # (b) a standing windowed query over the same images, traced
+        src = QueueSource()
+        late_ts = []
+        for i, image in enumerate(images):
+            src.put({"image": image, "label": labels[i], "ts": i * P18_TS_MS})
+            if i in P18_LATE_AFTER:
+                late_ts.append(P18_LATE_AFTER[i])
+                src.put({"image": images[len(late_ts) - 1], "label": 0,
+                         "ts": P18_LATE_AFTER[i]})
+        src.end()
+        session.readStream("frames", src)
+        late0 = metrics.counter("csql.late_rows").value
+        batches0 = metrics.counter("serving.batches").value
+        spans = JsonlTraceSink(capacity=1 << 16)
+        tracer.enable(spans)
+        try:
+            query = session.sqlStream(
+                P18_QUERY.format(arg="image"), JsonlSink(str(tmp / "windows.jsonl")),
+                str(tmp / "log"), late_sink=JsonlSink(str(tmp / "late.jsonl")), server=server,
+                config=StreamConfig(max_batch=P18_STREAM_BATCH, max_wait_ms=5.0,
+                                    poll_batch=64, poll_interval_ms=2.0))
+            reset()
+            t0 = time.perf_counter()
+            try:
+                summary = query.run()
+            finally:
+                query.close()
+            wall = time.perf_counter() - t0
+            counts = read()
+        finally:
+            tracer.disable()
+            session.catalog.dropStreamTable("frames")
+        served = metrics.counter("serving.batches").value - batches0
+        if summary["stop_reason"] != "source_finished":
+            raise AssertionError(f"(b) stopped by {summary['stop_reason']}")
+        if list(counts.values()) != [blocks * served, 0, 0, 0]:
+            raise AssertionError(f"(b) launches {counts}, expected {blocks} x {served} blocks")
+        launches += counts["flash_attention_fwd"]
+        emitted = sink_rows(tmp / "windows.jsonl")
+        got = window_aggregates(emitted)
+        if len(got) != len(emitted):
+            raise AssertionError("(b) a window was emitted twice")
+        ts = [i * P18_TS_MS for i in range(len(images))]
+        check_windows("(b) emitted windows", got, expected_windows(scores, labels, ts), bound)
+        late = sink_rows(tmp / "late.jsonl")
+        late_rows = metrics.counter("csql.late_rows").value - late0
+        if sorted(r["event_time_ms"] for r in late) != sorted(late_ts) or \
+                late_rows != len(late_ts) or summary["late_rows"] != len(late_ts):
+            raise AssertionError(f"(b) late rows: side output {len(late)}, csql.late_rows "
+                                 f"{late_rows}, summary {summary['late_rows']}")
+        names = {sp["name"] for sp in spans.spans()}
+        missing = {"csql.query", "csql.window_close", "csql.recover"} - names
+        if missing or spans.dropped:
+            raise AssertionError(f"(b) spans missing {missing} (dropped {spans.dropped})")
+        lat = metrics.snapshot("csql.emit_latency_ms")
+        n_in = len(images) + len(late_ts)
+        log(f"csql (b): standing query over {n_in} records ({len(late_ts)} late) in "
+            f"{wall:.3f} s = {n_in / wall:.1f} records/s, {summary['epochs']} epochs, "
+            f"{served:.0f} served blocks, csql.emit_latency_ms p50 "
+            f"{lat['csql.emit_latency_ms.p50']:.2f} ms, p99 {lat['csql.emit_latency_ms.p99']:.2f} "
+            f"ms; late rows {len(late)} in the side output and csql.late_rows; launches "
+            f"{counts}; spans {len(spans.spans())} ({card})")
+        server.close()
+        if metrics.counter("serving.compiles").value != compiles or \
+                metrics.timer("engine.compile").entries != engine_compiles:
+            raise AssertionError("(a)/(b) compiled a program")
+
+        # (c) exactly once on the card: worker processes, killed and restarted
+        np.save(tmp / "images.npy", np.ascontiguousarray(images[:P18_WORKER_IMAGES]))
+        records = [{"idx": i % P18_WORKER_IMAGES, "label": i % P18_LABELS,
+                    "ts": i * P18_TS_MS} for i in range(P18_WORKER_RECORDS)]
+
+        def workdir(name):
+            path = tmp / name
+            path.mkdir()
+            os.link(tmp / "images.npy", path / "images.npy")
+            with open(path / "in.jsonl", "w") as fh:
+                fh.writelines(json.dumps(r) + "\n" for r in records)
+            return path
+
+        def worker(path, plan=None):
+            env = dict(os.environ)
+            env.pop("SPARKDL_FAULT_PLAN", None)
+            if plan is not None:
+                env["SPARKDL_FAULT_PLAN"] = json.dumps(plan)
+            code = P18_WORKER.format(root=str(Path(__file__).resolve().parent),
+                                     prelude=P14_CHILD_PRELUDE, workdir=str(path))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                                  text=True, timeout=600)
+            return proc, time.perf_counter() - t0
+
+        def worker_result(label, proc):
+            if proc.returncode != 0:
+                raise AssertionError(f"(c) the {label} worker failed:\n{proc.stderr[-3000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            if out["launches"] != blocks * out["batches"]:
+                raise AssertionError(f"(c) the {label} worker launched {out['launches']} for "
+                                     f"{out['batches']} blocks")
+            return out
+
+        t_c = time.perf_counter()
+        clean_dir, killed_dir, plan_dir = workdir("clean"), workdir("killed"), workdir("plan")
+        proc, clean_s = worker(clean_dir)
+        clean_out = worker_result("uninterrupted", proc)
+        clean_rows = sink_rows(clean_dir / "out.jsonl")
+        clean = window_aggregates(clean_rows)
+        if len(clean) != len(clean_rows):
+            raise AssertionError("(c) the uninterrupted run emitted a window twice")
+        idx = [r["idx"] for r in records]
+        check_windows("(c) uninterrupted worker", clean,
+                      expected_windows(scores[idx], [r["label"] for r in records],
+                                       [r["ts"] for r in records]), bound)
+        proc, killed_s = worker(killed_dir, [{"site": "streaming.window_commit", "kill": True,
+                                              "at": P18_KILL_AT}])
+        if proc.returncode != 9:
+            raise AssertionError(f"(c) the killed worker exited {proc.returncode}, not 9:\n"
+                                 f"{proc.stderr[-3000:]}")
+        commit_log = CommitLog(str(killed_dir / "log"))
+        pending = commit_log.pending()
+        payloads = {e: commit_log.payload(e)["closed"] for e in pending}
+        if not pending or not any(payloads.values()):
+            raise AssertionError(f"(c) the kill left pending epochs {pending} with no windows")
+        proc, restart_s = worker(killed_dir)
+        restarted = worker_result("restarted", proc)["summary"]
+        if restarted["replayed"] != len(pending) or commit_log.pending():
+            raise AssertionError(f"(c) the restart replayed {restarted['replayed']} of "
+                                 f"{len(pending)} pending epochs")
+        rows = sink_rows(killed_dir / "out.jsonl")
+        for epoch, recs in payloads.items():
+            lines = [{k: v for k, v in r.items() if k != "epoch"} for r in rows
+                     if r["epoch"] == epoch]
+            if json.dumps(lines) != json.dumps(recs):
+                raise AssertionError(f"(c) replayed epoch {epoch} differs from its payload")
+        resumed = window_aggregates(rows)
+        if len(resumed) != len(rows):
+            raise AssertionError("(c) the restarted run emitted a window twice")
+        check_windows("(c) killed and restarted worker", resumed, clean, bound)
+        proc, plan_s = worker(plan_dir, [{"site": "csql.plan", "kill": True, "at": 1}])
+        if proc.returncode != 9:
+            raise AssertionError(f"(c) the worker killed at csql.plan exited {proc.returncode}")
+        left = sorted(p.name for p in plan_dir.iterdir())
+        if left != ["images.npy", "in.jsonl"]:
+            raise AssertionError(f"(c) the kill at csql.plan left {left}")
+        log(f"csql (c): worker processes over {len(records)} FileTailSource records: "
+            f"uninterrupted {clean_s:.1f} s ({clean_out['launches']} launches, "
+            f"{clean_out['batches']:.0f} blocks), killed at streaming.window_commit "
+            f"{P18_KILL_AT} (exit 9) {killed_s:.1f} s, restarted {restart_s:.1f} s replaying "
+            f"epochs {sorted(payloads)} bit for bit from their payloads; killed at csql.plan "
+            f"(exit 9) {plan_s:.1f} s, nothing left behind; (c) in all "
+            f"{time.perf_counter() - t_c:.1f} s ({card})")
+    return launches
+
+
 def import_package() -> bool:
     """Phase 1's first check: the port's package imports from beside this
     script. Says so plainly, naming the package and the directory, if not."""
@@ -5315,16 +5706,20 @@ def main() -> int:
     # while phase 14's ViT endpoint is still open
     # phase 16: the replica plane, two replica processes behind the router
     # (#1's launches checked in the replicas, not counted here)
-    streamed = []
+    # phase 18: the SQL dialect and continuous SQL through an eager bf16 ViT-B/16
+    # endpoint (#1), on phase 14's images and their float32 plain rows
+    streamed, csql = [], []
 
     def then(server, images, want, serving_a):
         streamed.append(streaming_inference(card, (reset_counts, counts), train_params,
                                             server, images, want))
         replica_plane(card, images, want, serving_a)
+        csql.append(continuous_sql(card, (reset_counts, counts), train_params, images, want))
 
     records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params,
                                              then=then)
-    records[0]["launches"] += streamed[0]
+    records[0]["launches"] += streamed[0] + csql[0]
+    records[0]["phase18_launches"] = csql[0]
 
     # phase 17 (b): parallelism in an NCCL group of one, in a child process:
     # the DP, DP x TP and Ulysses-flash ViT fits (#2-#4) and the

@@ -59,8 +59,12 @@ KNOWN_SITES = {
     # before each file read, before each mapped item
     "data": ("data.source", "data.map"),
     # before each poll, between an epoch's payload and its sink write,
-    # between the sink write and the commit marker
-    "streaming": ("streaming.poll", "streaming.sink", "streaming.commit"),
+    # between the sink write and the commit marker; window_commit fires in
+    # a continuous query between the window results' sink write and the
+    # commit marker (a kill there must replay the closed windows from the
+    # payload, not re-aggregate them)
+    "streaming": ("streaming.poll", "streaming.sink", "streaming.commit",
+                  "streaming.window_commit"),
     "supervisor": (
         # in the supervisor's process
         "supervisor.spawn", "supervisor.health", "supervisor.restart",
@@ -82,6 +86,9 @@ KNOWN_SITES = {
     # before each weight change, bake before each canary evaluation,
     # rollback as a rollback begins (which must never stop it)
     "rollout": ("rollout.shift", "rollout.bake", "rollout.rollback"),
+    # as a standing query's text is parsed into its plan: a kill there
+    # must leave no partial state (no catalog claim, no checkpoint files)
+    "csql": ("csql.plan",),
 }
 
 

@@ -102,6 +102,10 @@ class LongType(DataType):
     pass
 
 
+class FloatType(DataType):
+    pass
+
+
 class DoubleType(DataType):
     pass
 

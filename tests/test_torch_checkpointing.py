@@ -372,7 +372,7 @@ def test_fault_plan_preempts_through_the_scope():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"site": "csql.plan", "preempt": True, "at": 1}, "unknown fault site"),
+    ({"site": "nosuch.site", "preempt": True, "at": 1}, "unknown fault site"),
     ({"site": "estimator.step", "at": 1}, "exactly one action"),
     ({"site": "estimator.step", "preempt": True, "error": ValueError, "at": 1},
      "exactly one action"),

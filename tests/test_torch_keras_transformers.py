@@ -8,7 +8,7 @@ on an in-memory model, mixed sizes refused without a fixed input size;
 ``makeGraphUDF`` with one output and with several) and
 ``tests/test_persistence.py`` (a saved stage carries its model file), each
 run through ``sparkdl_tpu`` and ``sparkdl_tpu_torch`` on the same files and
-inputs, plus ``session.sql`` outside the ported subset.
+inputs.
 """
 
 import os
@@ -306,18 +306,3 @@ def test_make_graph_udf_several_outputs(session, tpu_session):
     got, want = session.sql(query).collect(), tpu_session.sql(query).collect()
     assert [(r.st.total, r.st.peak) for r in got] == \
         [(r.st.total, r.st.peak) for r in want] == [(6.0, 5.0), (4.0, 2.0)]
-
-
-# -- session.sql outside its subset ---------------------------------------------------
-
-@pytest.mark.parametrize("query", [
-    "SELECT v FROM vectors WHERE v IS NOT NULL",
-    "SELECT count(*) FROM vectors",
-    "SELECT v + 1 AS w FROM vectors",
-    "SELECT v FROM vectors ORDER BY v",
-    "SELECT a.v FROM vectors a JOIN vectors b ON a.v = b.v",
-])
-def test_sql_outside_the_subset_raises(session, query):
-    session.createDataFrame([([1.0],)], ["v"]).createOrReplaceTempView("vectors")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        session.sql(query)

@@ -239,6 +239,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.transformers.keras_image",
         "sparkdl_tpu_torch.transformers.keras_tensor",
         "sparkdl_tpu_torch.sql.functions",
+        "sparkdl_tpu_torch.sql.session",
+        "sparkdl_tpu_torch.sql.dataframe",
+        "sparkdl_tpu_torch.sql.window_state",
+        "sparkdl_tpu_torch.sql.continuous",
         "sparkdl_tpu_torch.graph.tensorframes_udf",
         "sparkdl_tpu_torch.udf.keras_image_model",
         "sparkdl_tpu_torch.parallel.keras_train",
@@ -297,6 +301,38 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert [m for m in loaded if _imports_jax_package(m)] == []
 
 
+def test_every_port_module_imports_first():
+    """Each module of the port imports as the first of the package a
+    process loads, whatever the order, so no import cycle is closed by
+    which module a caller happens to import first (the op library
+    registers once per process, so ``ops`` stays loaded)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sparkdl_tpu_torch as p\n"
+        "import sparkdl_tpu_torch.ops.flash_attention\n"
+        "keep = {'sparkdl_tpu_torch.ops', 'sparkdl_tpu_torch.ops.flash_attention',\n"
+        "        'sparkdl_tpu_torch.ops.cuda_build'}\n"
+        "failed = []\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'sparkdl_tpu_torch.'):\n"
+        "    for name in [n for n in sys.modules\n"
+        "                 if n.startswith('sparkdl_tpu_torch.') and n not in keep]:\n"
+        "        del sys.modules[name]\n"
+        "    try:\n"
+        "        importlib.import_module(m.name)\n"
+        "    except ImportError as exc:\n"
+        "        failed.append(f'{m.name}: {exc}')\n"
+        "print('\\n'.join(failed))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "", proc.stdout
+
+
 def test_port_sources_import_no_jax():
     # the package, the script, and the rank functions the parallel tests
     # spawn without JAX
@@ -307,7 +343,9 @@ def test_port_sources_import_no_jax():
                    "graph/utils.py", "param/converters.py", "transformers/tf_image.py",
                    "transformers/tf_tensor.py", "utils/hdf5.py", "models/keras_model.py",
                    "transformers/keras_image.py", "transformers/keras_tensor.py",
-                   "sql/functions.py", "graph/tensorframes_udf.py", "obs/server.py",
+                   "sql/functions.py", "sql/session.py", "sql/dataframe.py",
+                   "sql/window_state.py", "sql/continuous.py",
+                   "graph/tensorframes_udf.py", "obs/server.py",
                    "obs/hooks.py", "obs/fleet.py", "obs/diag.py", "obs/profile.py",
                    "serving/wire.py", "serving/transport.py", "serving/faultnet.py",
                    "serving/result_cache.py", "serving/replica.py", "serving/router.py",
