@@ -3231,10 +3231,200 @@ def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) ->
     return vit_launches
 
 
+P19_ROUNDS = 5           # images/s rounds, each taking every mode and both packs
+P19_DECODE_CALLS = 50    # decode_image_batch calls timed per chunk and pack
+
+
+def pack_rows_for_bytes():
+    """Phase 19 (b)'s rows: ``(label, rows, decode_image_batch kwargs)`` for
+    uniform uint8 (the uint8 pack, in stored order and flipped), uniform
+    float32 and one-channel uint8 at source size, and mixed sizes through
+    the device resize."""
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+
+    rng = np.random.RandomState(19)
+    u8 = [imageArrayToStruct(rng.randint(0, 256, (299, 299, 3)).astype(np.uint8))
+          for _ in range(CNN_BATCH)]
+    f32 = [imageArrayToStruct((rng.rand(299, 299, 3) * 255).astype(np.float32))
+           for _ in range(8)]
+    gray = [imageArrayToStruct(rng.randint(0, 256, (299, 299)).astype(np.uint8))
+            for _ in range(8)]
+    mixed = [r["image"] for r in cnn_image_rows(CNN_IMAGES, seed=0)[-CNN_BATCH:]]
+    size = (299, 299)
+    return [
+        ("uniform uint8 299x299, uint8 pack", u8, dict(prefer_uint8=True)),
+        ("uniform uint8 299x299, uint8 pack, BGR->RGB", u8,
+         dict(prefer_uint8=True, to_rgb=True)),
+        ("uniform uint8 299x299, float32 pack", u8, {}),
+        ("uniform float32 299x299", f32, {}),
+        ("one-channel uint8 299x299, uint8 pack", gray,
+         dict(prefer_uint8=True, n_channels=1)),
+        ("uniform uint8 299x299 to one channel (luminance)", u8, dict(n_channels=1)),
+        ("mixed 96x96 and 240x320, device resize to 299x299", mixed,
+         dict(target_hw=size, always_resize=True)),
+    ]
+
+
+def batch_packer(card: str, counted, config, weights) -> None:
+    """Phase 19: the C++ batch packer (``sparkdl_tpu_torch/native``) behind
+    the featurizer's decode.
+
+    (a) the packer builds from the checkout's ``native/batchpack.cpp`` and
+        loads; the phase fails without it (no numpy stand-in on the card);
+    (b) on phase 19's rows the packer's batch equals the numpy pack's
+        (``SPARKDL_NO_NATIVE=1``) bit for bit: dtype, shape and bytes;
+    (c) the ``sparkdl.decode`` timer per image, ``decode_image_batch`` alone
+        on chunks of 32, with the packer and without it;
+    (d) ``DeepImageFeaturizer(InceptionV3)`` in bf16 over phase 13 (e)'s
+        frames (4 partitions and 1) at ``SPARKDL_DISPATCH_DEPTH`` 0-3 and
+        serial, with the packer and without it: the same feature bytes, the
+        packer called, no attention kernel launched, and images/s over
+        ``P19_ROUNDS`` rounds that take the modes and the packs in turn."""
+    from sparkdl_tpu_torch import DeepImageFeaturizer, native
+    from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
+    from sparkdl_tpu_torch.models.registry import get_keras_application_model
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.utils import decode_image_batch
+    from sparkdl_tpu_torch.utils.metrics import metrics
+
+    reset, read = counted
+    # (a)
+    t0 = time.perf_counter()
+    if not native.is_available():
+        raise AssertionError("the native batch packer did not build or load on this machine")
+    import os
+
+    log(f"batch packer: {Path(native._library_path()).name} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (CXX={native._compiler()!r}); CPUs: "
+        f"{len(os.sched_getaffinity(0))} to this process of os.cpu_count() {os.cpu_count()}")
+    packs = (("the packer", {}), ("numpy", {"SPARKDL_NO_NATIVE": "1"}))
+
+    # (b)
+    byte_cases = pack_rows_for_bytes()
+    for label, rows, kw in byte_cases:
+        got = decode_image_batch(rows, device=P13_DEVICE, **kw)
+        with scoped_env(SPARKDL_NO_NATIVE="1"):
+            want = decode_image_batch(rows, device=P13_DEVICE, **kw)
+        if (got.dtype, got.shape) != (want.dtype, want.shape) or \
+                got.tobytes() != want.tobytes():
+            raise AssertionError(f"batch packer: {label}: other bytes than the numpy pack")
+        log(f"batch packer: {label}: {got.dtype} {got.shape}, bit for bit the numpy pack's")
+
+    # (c)
+    chunks = [("phase 13 (e)'s uniform 96x96 uint8", dict(prefer_uint8=True),
+               [r["image"] for r in cnn_image_rows(CNN_IMAGES, seed=0)[:CNN_BATCH]]),
+              ("299x299 uint8", dict(prefer_uint8=True), byte_cases[0][1]),
+              ("299x299 float32 pack of uint8 rows", {}, byte_cases[0][1])]
+    for label, kw, rows in chunks:
+        per_image = {}
+        for pack, env in packs:
+            with scoped_env(**env):
+                decode_image_batch(rows, device=P13_DEVICE, **kw)
+                before = metrics.snapshot().get("sparkdl.decode.seconds", 0.0)
+                for _ in range(P19_DECODE_CALLS):
+                    decode_image_batch(rows, device=P13_DEVICE, **kw)
+                after = metrics.snapshot().get("sparkdl.decode.seconds", 0.0)
+            per_image[pack] = (after - before) * 1e3 / (P19_DECODE_CALLS * len(rows))
+        # the pack call alone: on the calling thread (the default at source
+        # size), on a resize's threads for its output's size, and on the
+        # library's own rule (one a row up to hardware_concurrency, the JAX
+        # package's)
+        u8 = bool(kw.get("prefer_uint8"))
+        pack = native.pack_image_rows_u8 if u8 else native.pack_image_rows
+        hw = (int(rows[0]["height"]), int(rows[0]["width"]))
+        sized = native.threads_for(len(rows), len(rows) * hw[0] * hw[1] * 3 * (1 if u8 else 4))
+        call_ms = {}
+        for n_threads in (None, sized, 0):
+            pack(rows, hw, 3, n_threads=n_threads)
+            t0 = time.perf_counter()
+            for _ in range(P19_DECODE_CALLS):
+                pack(rows, hw, 3, n_threads=n_threads)
+            call_ms[n_threads] = (time.perf_counter() - t0) * 1e3 / P19_DECODE_CALLS
+        log(f"batch packer: sparkdl.decode per image, {label}, chunks of {len(rows)} "
+            f"({card}): {per_image['the packer']:.5f} ms with the packer, "
+            f"{per_image['numpy']:.5f} ms with numpy "
+            f"({per_image['numpy'] / per_image['the packer']:.2f}x); the pack call "
+            f"{call_ms[None]:.4f} ms on the calling thread, {call_ms[sized]:.4f} ms on "
+            f"{sized} (a resize's count for this output), {call_ms[0]:.4f} ms on one a "
+            f"row up to hardware_concurrency")
+
+    # (d)
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    state = get_keras_application_model("InceptionV3").state_dict_from_flax(
+        port_keras_weights(keras_layers_view(config, weights)))
+    featurizer = DeepImageFeaturizer(
+        inputCol="image", outputCol="features", modelName="InceptionV3",
+        modelWeights=state, computeDtype="bfloat16", batchSize=CNN_BATCH,
+        device=P13_DEVICE)
+    image_rows = cnn_image_rows(CNN_IMAGES, seed=0)
+    frames = {f"{parts} partition(s)": session.createDataFrame(image_rows, numPartitions=parts)
+              for parts in (4, 1)}
+    modes = [("serial" if env == "SPARKDL_SERIAL_INFERENCE" else f"depth {value}",
+              {env: value}) for env, value in DISPATCH_MODES]
+    calls = []
+    packers = {name: getattr(native, name) for name in ("pack_image_rows", "pack_image_rows_u8")}
+    first = {}
+    try:
+        for name, fn in packers.items():
+            setattr(native, name,
+                    lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
+        for mode, env in modes:
+            for pack, pack_env in packs:
+                with scoped_env(**env, **pack_env):
+                    for label, df in frames.items():
+                        reset()
+                        rows = vectors(featurizer.transform(df).collect(), "features")
+                        launches = read()
+                        if any(launches.values()):
+                            raise AssertionError(f"the featurizer launched attention "
+                                                 f"kernels: {launches}")
+                        if label not in first:
+                            first[label] = rows
+                        elif not np.array_equal(rows, first[label]):
+                            raise AssertionError(f"batch packer: {label} at {mode} with "
+                                                 f"{pack}: other feature bytes")
+    finally:
+        for name, fn in packers.items():
+            setattr(native, name, fn)
+    if not {"pack_image_rows", "pack_image_rows_u8"} <= set(calls):
+        raise AssertionError(f"the featurizer did not reach both packs: {sorted(set(calls))}")
+    log(f"batch packer: DeepImageFeaturizer(InceptionV3, bf16) gives the same features "
+        f"at depths 0-3 and serial with the packer and with numpy, for {len(frames)} "
+        f"frames; packer calls {len(calls)} ({calls.count('pack_image_rows_u8')} uint8)")
+
+    walls = {(mode, pack, label): [] for mode, _ in modes for pack, _ in packs
+             for label in frames}
+    decode_s = dict.fromkeys(walls, 0.0)
+    for _ in range(P19_ROUNDS):
+        for mode, env in modes:
+            for pack, pack_env in packs:
+                with scoped_env(**env, **pack_env):
+                    for label, df in frames.items():
+                        before = metrics.snapshot().get("sparkdl.decode.seconds", 0.0)
+                        t0 = time.perf_counter()
+                        featurizer.transform(df).collect()
+                        walls[mode, pack, label].append(time.perf_counter() - t0)
+                        decode_s[mode, pack, label] += (
+                            metrics.snapshot().get("sparkdl.decode.seconds", 0.0) - before)
+    for label, df in frames.items():
+        n = df.count()
+        for mode, _ in modes:
+            parts = []
+            for pack, _ in packs:
+                w = walls[mode, pack, label]
+                parts.append(
+                    f"{pack} " + ", ".join(f"{n / x:.1f}" for x in w)
+                    + f" (median {n / float(np.median(w)):.1f}; sparkdl.decode "
+                    f"{decode_s[mode, pack, label] * 1e3 / (n * len(w)):.5f} ms/image)")
+            log(f"batch packer: {mode}: DeepImageFeaturizer, {label}, images/s "
+                f"({n} images, {card}): " + "; ".join(parts))
+
+
 def ported_paths_remainder(card: str, counted, train_params, f32_step_ms: float) -> dict:
     """Phase 13: the bf16 fit, the fitted transformer's persistence and the
     ViT checkpoint import, imagenet weights from Keras's cache, and the
-    dispatch depths. Returns the main path's launches of each kernel."""
+    dispatch depths; then phase 19, the batch packer, on (e)'s weights.
+    Returns the main path's launches of each kernel."""
     with tempfile.TemporaryDirectory(prefix="chip-smoke-bf16-") as tmp:
         tmp = Path(tmp)
         rng = np.random.default_rng(1)
@@ -3246,6 +3436,7 @@ def ported_paths_remainder(card: str, counted, train_params, f32_step_ms: float)
         persisted = vit_persistence(card, counted, fitted, uris)
         config, weights = imagenet_from_cache(card, counted)
         depth = dispatch_depths(card, counted, config, weights, fitted, uris)
+        batch_packer(card, counted, config, weights)
     launches = dict(fit_counts)
     launches["flash_attention_fwd"] += persisted + depth
     return launches
@@ -5692,7 +5883,8 @@ def main() -> int:
 
     # phase 13: the ported paths' remainder: the bf16 fit through #2-#4,
     # the fitted transformer's persistence and the .npz import (#1),
-    # imagenet from Keras's cache, the dispatch depths
+    # imagenet from Keras's cache, the dispatch depths; then phase 19: the
+    # C++ batch packer behind the featurizer's decode (no attention kernel)
     remainder = ported_paths_remainder(card, (reset_counts, counts), train_params,
                                        step_ms["flash"])
     for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",

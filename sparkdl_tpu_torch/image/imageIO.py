@@ -20,6 +20,7 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
+from sparkdl_tpu_torch.resilience.errors import PermanentError
 from sparkdl_tpu_torch.sql.types import (
     BinaryType,
     IntegerType,
@@ -139,9 +140,11 @@ def imageStructToRGBArray(imageRow: Row) -> np.ndarray:
     return arr
 
 
-class ImageDecodeError(ValueError):
+class ImageDecodeError(ValueError, PermanentError):
     """A file's bytes could not be decoded into an image; ``origin`` names
-    the file and ``cause`` is the underlying error, if any."""
+    the file and ``cause`` is the underlying error, if any. A
+    :class:`~sparkdl_tpu_torch.resilience.errors.PermanentError`: corrupt
+    bytes do not heal on retry, so skip the row or fail fast."""
 
     def __init__(self, origin: str, cause: Optional[BaseException] = None):
         self.origin = origin

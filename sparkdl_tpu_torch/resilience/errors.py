@@ -6,7 +6,8 @@ connection, a device out of memory for the moment) or *permanent* (the
 request, program or data is wrong: retrying hides the bug). A
 :class:`~sparkdl_tpu_torch.resilience.policy.RetryPolicy` retries only what
 :func:`classify` calls transient. The serving errors inherit these bases,
-so ``isinstance`` is the classification.
+so ``isinstance`` is the classification, and :func:`register` teaches
+:func:`classify` a foreign type.
 """
 
 from __future__ import annotations
@@ -60,18 +61,32 @@ _TRANSIENT_OS_TYPES = (ConnectionError, TimeoutError, InterruptedError, Blocking
 _PERMANENT_OS_TYPES = (FileNotFoundError, PermissionError, IsADirectoryError,
                        NotADirectoryError)
 
+#: caller-registered overrides, consulted before the built-in rules
+_REGISTERED: "list[tuple[Type[BaseException], bool]]" = []
+
+
+def register(exc_type: Type[BaseException], transient: bool) -> None:
+    """Teach :func:`classify` about a foreign exception type. Later
+    registrations win (consulted most recent first), so a caller can
+    narrow an earlier, broader registration."""
+    _REGISTERED.insert(0, (exc_type, bool(transient)))
+
 
 def classify(exc: BaseException) -> "Type[Union[TransientError, PermanentError]]":
     """:class:`TransientError` or :class:`PermanentError` for any exception.
 
-    Taxonomy members answer for themselves; the card running out of memory
-    is transient (the JAX package's ``RESOURCE_EXHAUSTED``); OS errors by
-    type, a residual ``OSError`` transient; everything unknown is
-    permanent, since retrying an unclassified failure masks bugs."""
+    Taxonomy members answer for themselves; then the caller's
+    :func:`register` entries; the card running out of memory is transient
+    (the JAX package's ``RESOURCE_EXHAUSTED``); OS errors by type, a
+    residual ``OSError`` transient; everything unknown is permanent, since
+    retrying an unclassified failure masks bugs."""
     if isinstance(exc, TransientError):
         return TransientError
     if isinstance(exc, PermanentError):
         return PermanentError
+    for exc_type, transient in _REGISTERED:
+        if isinstance(exc, exc_type):
+            return TransientError if transient else PermanentError
     if isinstance(exc, torch.OutOfMemoryError):
         return TransientError
     if isinstance(exc, _PERMANENT_OS_TYPES):

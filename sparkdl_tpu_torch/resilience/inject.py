@@ -8,7 +8,9 @@ or ``p``, a probability drawn from the plan's seeded generator) and one
 action:
 
 - ``error=``: raise an exception instance or class, or one of the
-  shorthands ``"transient"``, ``"permanent"`` and ``"device"``;
+  shorthands ``"transient"``, ``"permanent"``, ``"device"`` and
+  ``"decode"`` (an :class:`~sparkdl_tpu_torch.image.imageIO.ImageDecodeError`,
+  permanent: corrupt bytes do not heal on retry);
 - ``stall_s=``: block the call that long (what trips a watchdog);
 - ``preempt=True``: a simulated SIGTERM through
   :func:`~sparkdl_tpu_torch.resilience.preempt.request_preemption`;
@@ -137,8 +139,9 @@ class Rule:
                              "(error= / stall_s= / preempt=True / kill=True / act=)")
         if (at is None) == (p is None):
             raise ValueError("a rule needs exactly one trigger (at= or p=)")
-        if isinstance(error, str) and error not in _ERROR_SHORTHANDS:
-            raise ValueError(f"unknown error shorthand {error!r}; use {sorted(_ERROR_SHORTHANDS)}")
+        if isinstance(error, str) and error not in _ERROR_SHORTHANDS and error != "decode":
+            raise ValueError(f"unknown error shorthand {error!r}; "
+                             f"use {sorted([*_ERROR_SHORTHANDS, 'decode'])}")
         self.site = site
         self.at = None if at is None else int(at)
         self.p = None if p is None else float(p)
@@ -159,6 +162,11 @@ class Rule:
         err = self.error
         if isinstance(err, BaseException):
             return err
+        if err == "decode":
+            # imported here: image/ imports the taxonomy, not this module
+            from sparkdl_tpu_torch.image.imageIO import ImageDecodeError
+
+            return ImageDecodeError(f"<injected:{self.site}>")
         if isinstance(err, str):
             return _ERROR_SHORTHANDS[err](f"injected {err} fault at {self.site!r}")
         return err(f"injected fault at {self.site!r}")

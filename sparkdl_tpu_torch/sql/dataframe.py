@@ -1268,13 +1268,18 @@ class DataFrame:
         seed: Optional[int] = None,
     ) -> "DataFrame":
         """Row sampling (pyspark argument juggling supported:
-        ``sample(0.5)``, ``sample(0.5, seed)``, ``sample(False, 0.5,
-        seed)``).  Without replacement: Bernoulli(fraction) per row;
-        with replacement: Poisson(fraction) copies per row."""
+        ``sample(0.5)``, ``sample(0.5, seed)``, ``sample(0.5, seed=seed)``,
+        ``sample(False, 0.5, seed)``).  Without replacement:
+        Bernoulli(fraction) per row; with replacement: Poisson(fraction)
+        copies per row. One seed gives one set of rows."""
         if isinstance(withReplacement, (int, float)) and not isinstance(
             withReplacement, bool
         ):
-            withReplacement, fraction, seed = False, withReplacement, fraction
+            # a fraction in the first place: a second positional argument
+            # is the seed, else a keyword seed stands (as pyspark reads it)
+            if fraction is not None:
+                seed = fraction
+            withReplacement, fraction = False, withReplacement
         if fraction is None:
             raise ValueError("sample requires a fraction")
         import numpy as np

@@ -13,12 +13,15 @@ Ports of ``sparkdl_tpu.transformers.utils``:
   pinned input buffers on the card, and for ``run_batched_rows`` a
   two-chunk decode prefetch (:mod:`sparkdl_tpu_torch.data`);
   ``SPARKDL_SERIAL_INFERENCE=1`` turns the overlaps off;
-- ``decode_image_batch`` and ``make_image_decode_plan`` on their numpy
-  paths: uint8 three-channel rows of one size pack as uint8 at source size,
-  anything else packs as float32, resized while packing where the sizes are
-  mixed; ``n_channels=1`` gives ITU-R 601 luminance and ``to_rgb`` flips
-  the stored BGR order. The C++ ``native/batchpack.cpp`` bridge is not
-  ported yet (ROADMAP item 13);
+- ``decode_image_batch`` and ``make_image_decode_plan``: uint8 rows of one
+  size pack as uint8 at source size, anything else packs as float32,
+  resized where the sizes are mixed; ``n_channels=1`` gives ITU-R 601
+  luminance and ``to_rgb`` flips the stored BGR order. The packing runs in
+  the C++ batch packer (:mod:`sparkdl_tpu_torch.native`,
+  ``native/batchpack.cpp``) where it is built, else in numpy, with the same
+  bytes. Mixed sizes pack each shape group at its source size and resize
+  it on the device (:func:`device_resize`), where the JAX package resizes
+  in the C++ packer;
 - ``normalize_channels``, ``place_params``, ``make_input_prologue`` and
   ``load_keras_function``; ``pad_to_batch``, ``shape_bucket`` and
   ``bucket_ladder``, the padded serving ladder's;
@@ -42,6 +45,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparkdl_tpu_torch import native
 from sparkdl_tpu_torch.data.dataset import Dataset
 from sparkdl_tpu_torch.engine.executor import DispatchWindow, PinnedStaging
 from sparkdl_tpu_torch.image import imageIO
@@ -140,6 +144,36 @@ def device_resize(
         return np.stack(out)
 
 
+def _packs_as_uint8(rows: Sequence, n_channels: int) -> bool:
+    """Whether ``rows`` pack to ``n_channels`` as uint8 without a change of
+    value: uint8 rows, and in one channel only one-channel rows (luminance
+    is not a uint8)."""
+    return (all(int(r["mode"]) in _U8_MODES for r in rows)
+            and (n_channels == 3
+                 or (n_channels == 1 and all(int(r["nChannels"]) == 1 for r in rows))))
+
+
+def _native_pack(rows: Sequence, n_channels: int, to_rgb: bool) -> Optional[List[np.ndarray]]:
+    """Each row decoded at its source size to float32 by the C++ packer,
+    one call per shape group; None where the packer is off or refuses a
+    row (the numpy path then packs, or raises the canonical error)."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, r in enumerate(rows):
+        groups.setdefault((int(r["height"]), int(r["width"])), []).append(i)
+    images: List[Optional[np.ndarray]] = [None] * len(rows)
+    for hw, idxs in groups.items():
+        try:
+            batch = native.pack_image_rows([rows[i] for i in idxs], hw, n_channels,
+                                           bgr_to_rgb=to_rgb)
+        except ValueError:
+            return None  # a channel conversion the packer does not do
+        if batch is None:
+            return None
+        for j, i in enumerate(idxs):
+            images[i] = batch[j]
+    return images
+
+
 def decode_image_batch(
     rows: Sequence,
     target_hw: Optional[Tuple[int, int]] = None,
@@ -154,10 +188,13 @@ def decode_image_batch(
     ``to_rgb``.
 
     Rows of one (H, W) pack at source size (the caller's forward resizes);
-    with ``prefer_uint8`` and uint8 rows they pack as uint8 in three
-    channels, a quarter of the bytes to the card. Everything else packs as
-    float32; mixed sizes (or ``always_resize``) resized to ``target_hw`` on
-    ``device`` (``None``: the card); ``target_hw=None`` requires one size.
+    with ``prefer_uint8`` and uint8 rows they pack as uint8, a quarter of
+    the bytes to the card (in one channel only from one-channel rows).
+    Everything else packs as float32; mixed sizes (or ``always_resize``)
+    resized to ``target_hw`` on ``device`` (``None``: the card);
+    ``target_hw=None`` requires one size. The C++ packer packs where it is
+    built and on (:func:`native.is_available`), numpy where not, with the
+    same bytes.
     Advances ``sparkdl.decode``."""
     hws = {(int(r["height"]), int(r["width"])) for r in rows}
     uniform = len(hws) == 1
@@ -173,23 +210,29 @@ def decode_image_batch(
         out_hw = (int(target_hw[0]), int(target_hw[1]))
     metrics.counter("sparkdl.images_processed").add(len(rows))
 
-    if (prefer_uint8 and out_hw == source_hw and n_channels == 3
-            and all(int(r["mode"]) in _U8_MODES for r in rows)):
+    if prefer_uint8 and out_hw == source_hw and _packs_as_uint8(rows, n_channels):
         with metrics.timer("sparkdl.decode").time():
-            images = [normalize_channels(imageIO.imageStructToArray(r), 3)
-                      for r in rows]
-            if to_rgb:
-                images = [img[..., ::-1] for img in images]
-            return np.stack(images)
+            batch = native.pack_image_rows_u8(rows, out_hw, n_channels, bgr_to_rgb=to_rgb)
+            if batch is None:
+                images = [normalize_channels(imageIO.imageStructToArray(r), n_channels)
+                          for r in rows]
+                if to_rgb and n_channels == 3:
+                    images = [img[..., ::-1] for img in images]
+                batch = np.stack(images)
+        return batch
 
     with metrics.timer("sparkdl.decode").time():
-        images = [
-            normalize_channels(imageIO.imageStructToArray(r).astype(np.float32),
-                               n_channels)
-            for r in rows
-        ]
-        if to_rgb and n_channels >= 3:
-            images = [img[..., ::-1] for img in images]
+        images = _native_pack(rows, n_channels, to_rgb)
+        if images is None:
+            images = [
+                normalize_channels(imageIO.imageStructToArray(r).astype(np.float32),
+                                   n_channels)
+                for r in rows
+            ]
+            if to_rgb and n_channels >= 3:
+                images = [img[..., ::-1] for img in images]
+    # a pure pack where every row is at out_hw; each other shape group
+    # resizes on the device
     return device_resize(images, out_hw, device)
 
 
@@ -216,7 +259,7 @@ def make_image_decode_plan(
             f"partition mixes image sizes {sorted(hws)} and no target size "
             "is configured; resize upstream or set an input size"
         )
-    prefer_u8 = uniform and all(int(r["mode"]) in _U8_MODES for r in rows)
+    prefer_u8 = uniform and _packs_as_uint8(rows, n_channels)
 
     def decode(chunk):
         return decode_image_batch(

@@ -296,6 +296,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.parallel.runner",
         "sparkdl_tpu_torch.parallel.context",
         "sparkdl_tpu_torch.parallel.tp",
+        "sparkdl_tpu_torch.native",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -313,7 +314,9 @@ def test_every_port_module_imports_first():
         "keep = {'sparkdl_tpu_torch.ops', 'sparkdl_tpu_torch.ops.flash_attention',\n"
         "        'sparkdl_tpu_torch.ops.cuda_build'}\n"
         "failed = []\n"
+        "walked = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, 'sparkdl_tpu_torch.'):\n"
+        "    walked.add(m.name)\n"
         "    for name in [n for n in sys.modules\n"
         "                 if n.startswith('sparkdl_tpu_torch.') and n not in keep]:\n"
         "        del sys.modules[name]\n"
@@ -321,6 +324,8 @@ def test_every_port_module_imports_first():
         "        importlib.import_module(m.name)\n"
         "    except ImportError as exc:\n"
         "        failed.append(f'{m.name}: {exc}')\n"
+        "failed += [f'{n}: not walked' for n in ('sparkdl_tpu_torch.native',)\n"
+        "           if n not in walked]\n"
         "print('\\n'.join(failed))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -363,7 +368,8 @@ def test_port_sources_import_no_jax():
                    "data/prefetch.py", "data/device.py", "streaming/__init__.py",
                    "streaming/sources.py", "streaming/commit.py", "streaming/runner.py",
                    "serving/rollout.py", "parallel/__init__.py", "parallel/runner.py",
-                   "parallel/trainer.py", "parallel/context.py", "parallel/tp.py"):
+                   "parallel/trainer.py", "parallel/context.py", "parallel/tp.py",
+                   "native/__init__.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:

@@ -215,9 +215,9 @@ class _SeededRandomState(np.random.RandomState):
 @contextmanager
 def seeded_draws():
     """While the block runs, ``np.random.RandomState()`` without a seed is
-    seeded with 0, so a body that draws unseeded (``DataFrame.sample(0.5,
-    seed=7)`` takes the seed's place for the fraction and draws unseeded, in
-    both packages) draws the same numbers on both sides."""
+    seeded with 0, so a body that draws unseeded (``DataFrame.sample(1.0)``,
+    no seed given) draws the same numbers on both sides. A seeded draw is
+    untouched: the port's ``sample`` is held to its own seed, not to this."""
     orig = np.random.RandomState
     np.random.RandomState = _SeededRandomState
     try:
