@@ -221,8 +221,8 @@ prints no result):
    ``KerasImageFileTransformer`` and the bf16 ViT transformer at
    ``SPARKDL_DISPATCH_DEPTH`` 0-3 and under ``SPARKDL_SERIAL_INFERENCE=1``,
    over frames of 4 partitions (one chunk a call) and of 1 partition: the
-   same bytes in every mode; images/s over 5 rounds that take the modes in
-   turn, with ``sparkdl.load``, ``sparkdl.decode``, ``sparkdl.forward``,
+   same bytes in every mode; images/s over 2 rounds (``P13_DEPTH_ROUNDS``)
+   that take the modes in turn, with ``sparkdl.load``, ``sparkdl.decode``, ``sparkdl.forward``,
    ``sparkdl.serve`` and ``data.device_stall_ms``.
 14. the engine and online serving, in a temporary compile-cache directory.
    (a) ViT-B/16 in bf16 (phase 5's seeded weights, flash attention) served
@@ -345,6 +345,25 @@ prints no result):
    equal its payload bit for bit, every window once, within the bf16 bound
    of the uninterrupted run), killed at ``csql.plan`` (nothing left behind).
    (a)'s and (b)'s launches join the kernel records (``phase18_launches``).
+19. the C++ batch packer, inside phase 13 (``batch_packer``'s docstring).
+20. the native second stack, last (after phase 17 (b)): (a) the C++
+   AOTInductor runner library (``native/aoti_runner.cpp``) and
+   ``aoti_tool`` build from the checkout's sources; (b)
+   ``export_featurizer`` exports phase 7's InceptionV3 weights in bf16 at
+   batch 32 from 299x299 sources for the card (compile s, package and
+   ``params.bin`` MiB); (a) and (b) run in a child process at nice 19,
+   started after phase 9, so that the compile runs beside phases 10-12,
+   and joined before phase 13
+   (``NativeExport``); (c)
+   ``NativeDeepImageFeaturizer`` over 128 299x299 rows against the Python
+   bf16 ``DeepImageFeaturizer`` within ``CNN_BF16_MAX_REL`` of the largest
+   float32 feature, and over phase 7's frame (resized on the card, rounded
+   to uint8) against the Python stage given the same rounded rows, rows
+   in order; (d) ``aoti_tool`` in a fresh process over the same batches,
+   against (c)'s rows at the bound, bit for bit or not, its load s beside
+   the in-process runner's and ``aoti_load_package``'s; (e) ``stream()``
+   bit for bit a loop of ``__call__``; (f) both stages' images/s on both
+   frames; (g) no attention launch (``phase20_launches``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -425,6 +444,15 @@ TRAIN_LR = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_STARTED = time.perf_counter()
+_STARTED_EPOCH = time.time()
+
+
+def mark(phase: str) -> None:
+    """Log the script's seconds so far at the end of ``phase``."""
+    log(f"time: {phase} ended at {time.perf_counter() - _STARTED:.1f} s")
 
 
 def card_line() -> str:
@@ -2821,6 +2849,7 @@ BF16_FIT_GRAD_RTOL = 5e-2
 P13_VARIANT = "ViT-B/16"
 P13_IMAGE = 224
 P13_DEVICE = "cuda"
+P13_DEPTH_ROUNDS = 2     # (e): images/s rounds, each taking every mode
 DISPATCH_MODES = (("SPARKDL_DISPATCH_DEPTH", "0"), ("SPARKDL_DISPATCH_DEPTH", "1"),
                   ("SPARKDL_DISPATCH_DEPTH", "2"), ("SPARKDL_DISPATCH_DEPTH", "3"),
                   ("SPARKDL_SERIAL_INFERENCE", "1"))
@@ -3135,9 +3164,9 @@ def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) ->
     ``SPARKDL_SERIAL_INFERENCE=1``, each over a frame of 4 partitions (a
     call of one chunk: 128 / 4 / 32, 64 / 2 / 32) and of 1 partition (a call
     of 4, 4 and 2 chunks for the prefetch and the window to overlap): the
-    same bytes in every mode, and images/s over 5 rounds that take the
-    modes in turn, with the loop's timers. Returns the ViT transformer's
-    launches."""
+    same bytes in every mode, and images/s over ``P13_DEPTH_ROUNDS``
+    rounds that take the modes in turn, with the loop's timers. Returns the
+    ViT transformer's launches."""
     from sparkdl_tpu_torch import DeepImageFeaturizer, KerasImageFileTransformer
     from sparkdl_tpu_torch.models.keras_model import write_keras_file
     from sparkdl_tpu_torch.models.keras_port import keras_layers_view, port_keras_weights
@@ -3199,10 +3228,10 @@ def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) ->
         log(f"dispatch depth: the same bytes at depths 0-3 and serial for each of "
             f"{len(cases)} frames")
 
-        # 5 rounds, each taking every mode in turn
+        # rounds, each taking every mode in turn
         walls = {(mode, label): [] for mode, _ in modes for label in cases}
         sums = {key: dict.fromkeys(timers, 0.0) for key in walls}
-        for _ in range(5):
+        for _ in range(P13_DEPTH_ROUNDS):
             for mode, env in modes:
                 with scoped_env(**env):
                     for label, (stage, df) in cases.items():
@@ -3221,7 +3250,7 @@ def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) ->
                 w, t = walls[mode, label], sums[mode, label]
                 log(f"dispatch {mode}: {label}, images/s ({n} images, {card}): "
                     + ", ".join(f"{n / x:.1f}" for x in w)
-                    + f"; median {n / float(np.median(w)):.1f}; over the 5: sparkdl.load "
+                    + f"; median {n / float(np.median(w)):.1f}; over the {len(w)}: sparkdl.load "
                     f"{t['sparkdl.load.seconds']:.4f} s, sparkdl.decode "
                     f"{t['sparkdl.decode.seconds']:.4f} s, sparkdl.forward "
                     f"{t['sparkdl.forward.seconds']:.4f} s, sparkdl.serve "
@@ -3231,7 +3260,7 @@ def dispatch_depths(card: str, counted, config, weights, vit_stage, vit_uris) ->
     return vit_launches
 
 
-P19_ROUNDS = 5           # images/s rounds, each taking every mode and both packs
+P19_ROUNDS = 2           # images/s rounds, each taking every mode and both packs
 P19_DECODE_CALLS = 50    # decode_image_batch calls timed per chunk and pack
 
 
@@ -3295,7 +3324,7 @@ def batch_packer(card: str, counted, config, weights) -> None:
     import os
 
     log(f"batch packer: {Path(native._library_path()).name} built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s (CXX={native._compiler()!r}); CPUs: "
+        f"{time.perf_counter() - t0:.2f} s (CXX={native.compiler()!r}); CPUs: "
         f"{len(os.sched_getaffinity(0))} to this process of os.cpu_count() {os.cpu_count()}")
     packs = (("the packer", {}), ("numpy", {"SPARKDL_NO_NATIVE": "1"}))
 
@@ -3418,6 +3447,249 @@ def batch_packer(card: str, counted, config, weights) -> None:
                     f"{decode_s[mode, pack, label] * 1e3 / (n * len(w)):.5f} ms/image)")
             log(f"batch packer: {mode}: DeepImageFeaturizer, {label}, images/s "
                 f"({n} images, {card}): " + "; ".join(parts))
+
+
+P20_BATCH = 32            # the exported program's static batch
+P20_SOURCE = (299, 299)   # its source size: InceptionV3's input, so no resize inside
+P20_EXPORT_TIMEOUT_S = 900.0
+# phase 20 (a) and (b) in a child process: the runner library and the tool
+# built, then phase 7's InceptionV3 weights exported; its last line is the
+# seconds of each, as JSON after the marker
+P20_EXPORT = """
+import json, os, sys, time
+os.nice(19)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from sparkdl_tpu_torch.native import aoti, featurizer
+t0 = time.perf_counter()
+aoti._load()
+runner_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+featurizer.build_tool()
+tool_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+featurizer.export_featurizer(
+    "InceptionV3", batch_size=chip_smoke.P20_BATCH, out_dir=sys.argv[2],
+    source_hw=chip_smoke.P20_SOURCE,
+    model_weights=chip_smoke.flax_layout_inception_params(seed=3), compute_dtype="bfloat16")
+print("P20_EXPORT " + json.dumps({"runner_s": runner_s, "tool_s": tool_s,
+                                  "export_s": time.perf_counter() - t0,
+                                  "ended": time.time()}), flush=True)
+"""
+
+
+class NativeExport:
+    """Phase 20's builds and export (``P20_EXPORT``) in a child process at
+    the lowest CPU priority (nice 19), started after phase 9 so that its
+    minutes of compiling run beside phases 10-12, and not after them.
+    :meth:`wait`, before phase 13, joins it, so that no reading of phases
+    13-19 (host-bound rates, compile seconds, card memory) is taken beside
+    it. :meth:`close` stops it if it still runs and removes its files."""
+
+    def __init__(self):
+        import os
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-native-")
+        self.program = os.path.join(self.dir, "inception_v3")
+        self.log = open(os.path.join(self.dir, "export.log"), "w+")
+        self.started = time.perf_counter() - _STARTED
+        self.result = None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", P20_EXPORT, str(Path(__file__).resolve().parent),
+             self.program], stdout=self.log, stderr=subprocess.STDOUT)
+
+    def wait(self) -> dict:
+        """The child's seconds (``runner_s``, ``tool_s``, ``export_s``) once
+        it has ended, with when it ran on the script's clock; raises with its
+        output's end if it failed."""
+        if self.result is None:
+            t0 = time.perf_counter()
+            rc = self.proc.wait(timeout=P20_EXPORT_TIMEOUT_S)
+            waited = time.perf_counter() - t0
+            self.log.seek(0)
+            text = self.log.read()
+            result = [line for line in text.splitlines() if line.startswith("P20_EXPORT ")]
+            if rc != 0 or not result:
+                raise AssertionError(f"phase 20's build and export failed (exit {rc}):\n"
+                                     f"{text[-4000:]}")
+            self.result = json.loads(result[-1].split(" ", 1)[1])
+            log(f"native: the build and export ran in a child process from "
+                f"{self.started:.1f} s to {self.result['ended'] - _STARTED_EPOCH:.1f} s of the "
+                f"script; phase 13 waited {waited:.2f} s for it")
+        return self.result
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cnn_rows_at(n: int, hw, seed: int):
+    """``n`` image-struct rows at ``hw``, red- or blue-dominant as
+    :func:`cnn_image_rows` makes them."""
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        bgr = rng.randint(0, 80, (*hw, 3)).astype(np.uint8)
+        bgr[..., 0 if i % 2 else 2] += 120
+        rows.append({"image": imageArrayToStruct(bgr, origin=f"frame_{i}"), "label": i % 2})
+    return rows
+
+
+def native_stack(card: str, counted, export: NativeExport) -> dict:
+    """Phase 20: the native second stack, InceptionV3 bf16 through the C++
+    AOTInductor runner and ``aoti_tool`` on phase 7's weights.
+
+    (a) the runner library and ``aoti_tool`` build from the checkout's
+        sources (the phase fails without them: nothing stands in), in
+        ``export``'s child process, and load here;
+    (b) ``export_featurizer`` at batch 32 from 299x299 sources in bf16 on
+        the card, in that process beside phases 10-12: compile seconds,
+        the package's and ``params.bin``'s MiB;
+    (c) ``NativeDeepImageFeaturizer`` against the Python bf16
+        ``DeepImageFeaturizer``: 128 rows at 299x299 (4 partitions) within
+        ``CNN_BF16_MAX_REL`` of the largest float32 Python feature; phase
+        7's frame (96x96 and 240x320, resized on the card and rounded to
+        uint8) against the Python stage over the same rounded rows, at the
+        same bound; rows in input order;
+    (d) ``aoti_tool`` in a fresh process over (c)'s batches at 299x299:
+        against (c)'s rows at the same bound, bit for bit or not, its load
+        seconds beside the in-process runner's and ``aoti_load_package``'s;
+    (e) ``stream()`` bit for bit a loop of ``__call__``;
+    (f) images/s of both stages on both frames (5 rounds each, medians);
+    (g) no attention kernel launched in the phase."""
+    import os
+
+    import torch
+
+    from sparkdl_tpu_torch import DeepImageFeaturizer, NativeDeepImageFeaturizer
+    from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct
+    from sparkdl_tpu_torch import native
+    from sparkdl_tpu_torch.native import aoti, featurizer
+    from sparkdl_tpu_torch.sql.session import TorchSession
+    from sparkdl_tpu_torch.transformers.native_image import uint8_batch
+
+    reset, read = counted
+    reset()
+    t_phase = time.perf_counter()
+    # (a), (b)
+    built = export.wait()
+    t0 = time.perf_counter()
+    aoti._load()
+    tool = featurizer.build_tool()
+    log(f"native: runner library {Path(aoti.library_path()).name} built in "
+        f"{built['runner_s']:.2f} s, aoti_tool in {built['tool_s']:.2f} s "
+        f"(CXX={native.compiler()!r}), in the export's process; both loaded here in "
+        f"{time.perf_counter() - t0:.2f} s")
+    prog_dir = export.program
+    log(f"native: export_featurizer(InceptionV3, batch {P20_BATCH}, "
+        f"{P20_SOURCE[0]}x{P20_SOURCE[1]}, bf16) {built['export_s']:.2f} s in a child process "
+        f"at nice 19 beside phases 10-12; "
+        f"program.pt2 {os.path.getsize(os.path.join(prog_dir, 'program.pt2')) / 2**20:.3f} "
+        f"MiB, params.bin {os.path.getsize(os.path.join(prog_dir, 'params.bin')) / 2**20:.3f} MiB")
+
+    tree = flax_layout_inception_params(seed=3)  # phase 7's weights
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    tmp = export.dir
+    # (c)
+    featurize = dict(inputCol="image", outputCol="features", modelName="InceptionV3")
+    native = NativeDeepImageFeaturizer(**featurize, programDir=prog_dir)
+    python = DeepImageFeaturizer(**featurize, modelWeights=tree, batchSize=CNN_BATCH,
+                                 computeDtype="bfloat16")
+    python_f32 = DeepImageFeaturizer(**featurize, modelWeights=tree, batchSize=CNN_BATCH,
+                                     computeDtype="float32")
+    at_size = cnn_rows_at(CNN_IMAGES, P20_SOURCE, seed=20)
+    phase7 = cnn_image_rows(CNN_IMAGES, seed=0)
+    device = torch.device("cuda")
+    rounded = uint8_batch([r["image"] for r in phase7], P20_SOURCE, device).cpu().numpy()
+    rounded_rows = [{"image": imageArrayToStruct(img, origin=r["image"]["origin"]),
+                     "label": r["label"]} for img, r in zip(rounded, phase7)]
+    frames = {
+        "299x299": (session.createDataFrame(at_size, numPartitions=4),) * 2,
+        "phase 7's, resized": (session.createDataFrame(phase7, numPartitions=4),
+                               session.createDataFrame(rounded_rows, numPartitions=4)),
+    }
+    native_rows = {}
+    for label, (df, python_df) in frames.items():
+        got = native.transform(df).collect()
+        want = python.transform(python_df).collect()
+        scale = np.abs(vectors(python_f32.transform(python_df).collect(), "features")).max()
+        order = [r["image"]["origin"] for r in df.collect()]
+        if [r["image"]["origin"] for r in got] != order or len(got) != CNN_IMAGES:
+            raise AssertionError(f"native: {label}: rows out of order or missing")
+        g, w = vectors(got, "features"), vectors(want, "features")
+        err = np.abs(g - w).max()
+        log(f"native: NativeDeepImageFeaturizer vs DeepImageFeaturizer (bf16), {label} "
+            f"frame, {len(got)} rows in order: max abs err {err:.4e} = {err / scale:.4e} "
+            f"of the largest float32 feature {scale:.4f} (bound {CNN_BF16_MAX_REL})")
+        if g.shape != (CNN_IMAGES, 2048) or not np.isfinite(g).all():
+            raise AssertionError(f"native: {label}: bad features {g.shape}")
+        if not err <= CNN_BF16_MAX_REL * scale:
+            raise AssertionError(f"native: {label}: {err:.4e} from the Python stage")
+        native_rows[label] = g
+
+    # (d) the tool over (c)'s 299x299 batches: one partition is one batch
+    batches = np.stack([uint8_batch([r["image"] for r in at_size[i:i + P20_BATCH]],
+                                    P20_SOURCE, device).cpu().numpy()
+                        for i in range(0, CNN_IMAGES, P20_BATCH)])
+    in_path, out_path = os.path.join(tmp, "in.bin"), os.path.join(tmp, "out.bin")
+    batches.tofile(in_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([tool, prog_dir, in_path, out_path], capture_output=True,
+                          text=True, timeout=600)
+    tool_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"aoti_tool failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    stats = dict(kv.split("=", 1) for kv in proc.stderr.split() if "=" in kv)
+    cli = np.fromfile(out_path, np.float32).reshape(CNN_IMAGES, -1)
+    err = np.abs(cli - native_rows["299x299"]).max()
+    scale = np.abs(native_rows["299x299"]).max()
+    t0 = time.perf_counter()
+    prog = aoti.NativeProgram(prog_dir)
+    runner_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch._inductor.aoti_load_package(os.path.join(prog_dir, "program.pt2"))
+    package_load_s = time.perf_counter() - t0
+    log(f"native: aoti_tool (a fresh process, no Python) over {len(batches)} batches of "
+        f"{P20_BATCH}: {tool_wall:.2f} s in all, load {float(stats['load_s']):.3f} s, run "
+        f"{float(stats['run_s']):.3f} s; against the in-process rows max abs err "
+        f"{err:.4e} ({'bit for bit' if np.array_equal(cli, native_rows['299x299']) else 'not bit for bit'}); "
+        f"in-process NativeProgram load {runner_load_s:.3f} s, "
+        f"aoti_load_package {package_load_s:.3f} s")
+    if not err <= CNN_BF16_MAX_REL * scale:
+        raise AssertionError(f"aoti_tool's features {err:.4e} from the in-process ones")
+
+    # (e)
+    on_card = [torch.from_numpy(b).to(device) for b in batches]
+    called = [prog(b)[0] for b in on_card]
+    streamed = [out[0] for out in prog.stream(iter(on_card))]
+    if not all(np.array_equal(a, b) for a, b in zip(streamed, called)) or \
+            len(streamed) != len(called) or prog.live_buffers != 0:
+        raise AssertionError("native: stream() is not bit for bit the loop of __call__")
+    log(f"native: stream() over {len(on_card)} batches bit for bit a loop of __call__; "
+        f"live buffers after: {prog.live_buffers}")
+    prog.close()
+
+    # (f)
+    for label, (df, python_df) in frames.items():
+        for what, stage, frame in (("native featurizer", native, df),
+                                   ("Python bf16 featurizer", python, python_df)):
+            images_per_s(lambda s=stage, f=frame: s.transform(f).collect(), CNN_IMAGES, what,
+                         f"{label} frame, 4 partitions", card)
+
+    # (g)
+    launches = read()
+    if any(launches.values()):
+        raise AssertionError(f"the native stack launched attention kernels: {launches}")
+    log(f"native: attention launches over phase 20: {launches} (none); phase 20 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def ported_paths_remainder(card: str, counted, train_params, f32_step_ms: float) -> dict:
@@ -5853,40 +6125,71 @@ def main() -> int:
         "bf16_library_ms": bwd_library_bf16_ms,
     })
 
+    mark("phases 1-6")
     # phase 7: the CNN transfer-learning pipeline at full width
     cnn_pipeline(card, counted=(reset_counts, counts))
+    mark("phase 7")
 
     # phase 8: the rest of the CNN zoo at full width, and the sweep over it
     cnn_zoo(card, counted=(reset_counts, counts))
+    mark("phase 8")
 
     # phase 9: the graph layer: TorchFunction, TFImageTransformer,
     # TFTransformer, export, persistence
     records[0]["launches"] += graph_layer(card, counted=(reset_counts, counts))
+    mark("phase 9")
 
-    # phase 10: the Keras half of the graph layer: a .keras InceptionV3
-    # through TorchFunction.from_keras, KerasImageFileTransformer, the UDFs
-    keras_half(card, counted=(reset_counts, counts))
+    # phase 20's builds and export start here, in a child process at the
+    # lowest CPU priority, and compile beside phases 10-12; phase 13 waits
+    # for it, so that phases 13-19 run alone; phase 20 runs last
+    native_export = NativeExport()
+    try:
+        # phase 10: the Keras half of the graph layer: a .keras InceptionV3
+        # through TorchFunction.from_keras, KerasImageFileTransformer, the UDFs
+        keras_half(card, counted=(reset_counts, counts))
+        mark("phase 10")
 
-    # phase 11: KerasImageFileEstimator fine-tuning the ResNet50 head
-    # (BASELINE.json configs[3]) and its sweep
-    keras_fine_tune(card, counted=(reset_counts, counts))
+        # phase 11: KerasImageFileEstimator fine-tuning the ResNet50 head
+        # (BASELINE.json configs[3]) and its sweep
+        keras_fine_tune(card, counted=(reset_counts, counts))
+        mark("phase 11")
 
-    # phase 12: checkpoint, resume and preemption of the ViT fit through
-    # the four kernels; the Keras fine-tune's checkpoints, streaming and
-    # optax optimizers
-    resumed = vit_checkpoint_resume(card, (reset_counts, counts), train_params)
-    records[0]["launches"] += resumed["transform"]["flash_attention_fwd"]
-    for record, key in zip(records[1:], ("flash_attention_fwd+lse", "flash_attention_bwd_dq",
-                                         "flash_attention_bwd_dkv")):
-        record["launches"] += resumed["fit"][key]
-    keras_remainder(card, counted=(reset_counts, counts))
+        # phase 12: checkpoint, resume and preemption of the ViT fit through
+        # the four kernels; the Keras fine-tune's checkpoints, streaming and
+        # optax optimizers
+        resumed = vit_checkpoint_resume(card, (reset_counts, counts), train_params)
+        records[0]["launches"] += resumed["transform"]["flash_attention_fwd"]
+        for record, key in zip(records[1:], ("flash_attention_fwd+lse", "flash_attention_bwd_dq",
+                                             "flash_attention_bwd_dkv")):
+            record["launches"] += resumed["fit"][key]
+        keras_remainder(card, counted=(reset_counts, counts))
+        mark("phase 12")
 
+        native_export.wait()
+        phases_13_to_20(card, (reset_counts, counts), train_params, step_ms["flash"],
+                        records, native_export)
+    finally:
+        native_export.close()
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def phases_13_to_20(card: str, counted, train_params, f32_step_ms: float, records,
+                    native_export) -> None:
+    """Phases 13 (with 19), 14-18, 17 (b) and 20, in that order; the
+    launches of each kernel join ``records``."""
+    reset_counts, counts = counted
     # phase 13: the ported paths' remainder: the bf16 fit through #2-#4,
     # the fitted transformer's persistence and the .npz import (#1),
     # imagenet from Keras's cache, the dispatch depths; then phase 19: the
     # C++ batch packer behind the featurizer's decode (no attention kernel)
-    remainder = ported_paths_remainder(card, (reset_counts, counts), train_params,
-                                       step_ms["flash"])
+    remainder = ported_paths_remainder(card, (reset_counts, counts), train_params, f32_step_ms)
+    mark("phases 13 and 19")
     for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
                                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         record["launches"] += remainder[key]
@@ -5912,6 +6215,7 @@ def main() -> int:
                                              then=then)
     records[0]["launches"] += streamed[0] + csql[0]
     records[0]["phase18_launches"] = csql[0]
+    mark("phases 14-18")
 
     # phase 17 (b): parallelism in an NCCL group of one, in a child process:
     # the DP, DP x TP and Ulysses-flash ViT fits (#2-#4) and the
@@ -5921,13 +6225,15 @@ def main() -> int:
                                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         record["launches"] += parallel[key]
         record["phase17_launches"] = parallel[key]
+    mark("phase 17 (b)")
 
-    print(card, flush=True)
-    print(json.dumps({"kernels": records}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    # phase 20: the native second stack, InceptionV3 through the C++
+    # AOTInductor runner and aoti_tool (no attention kernel)
+    native = native_stack(card, (reset_counts, counts), native_export)
+    for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
+                                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        record["phase20_launches"] = native[key]
+    mark("phase 20")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ _EXPORTS = {
     "LogisticRegression": "sparkdl_tpu_torch.ml.classification",
     "MobileNetV2": "sparkdl_tpu_torch.models.mobilenet_v2",
     "MulticlassClassificationEvaluator": "sparkdl_tpu_torch.ml.evaluation",
+    "NativeDeepImageFeaturizer": "sparkdl_tpu_torch.transformers.native_image",
     "ParamGridBuilder": "sparkdl_tpu_torch.ml.tuning",
     "Pipeline": "sparkdl_tpu_torch.ml.pipeline",
     "PipelineModel": "sparkdl_tpu_torch.ml.pipeline",

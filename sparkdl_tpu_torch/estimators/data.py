@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from sparkdl_tpu_torch.data.dataset import Dataset
+from sparkdl_tpu_torch.resilience import inject
 from sparkdl_tpu_torch.utils.metrics import metrics
 
 #: threads loading one batch's images, and batches the producer keeps ready
@@ -140,6 +141,13 @@ class StreamingShardLoader:
     equals an in-memory one bit for bit. Each batch's load is timed into
     ``sparkdl.load``; the time the fit loop waits for a batch goes to
     ``sparkdl.load_wait``.
+
+    Each URI load fires the ``data.source`` injection site, then calls
+    ``loader``. ``retry``, a
+    :class:`~sparkdl_tpu_torch.resilience.policy.RetryPolicy`, wraps that
+    load: a transient failure (a flaky network file system) is tried again
+    and counted in ``resilience.retries``, a permanent one (an
+    ``ImageDecodeError``) still fails the epoch at once.
     """
 
     def __init__(
@@ -149,17 +157,22 @@ class StreamingShardLoader:
         loader: Callable[[str], Any],
         batch_size: int,
         weighted: bool,
+        retry=None,
     ):
         self.uris = list(uris)
         self.y = y
         self.loader = loader
         self.batch_size = int(batch_size)
         self.weighted = bool(weighted)
+        self._load_one = retry.wrap(self._load_uri) if retry is not None else self._load_uri
+
+    def _load_uri(self, uri: str) -> np.ndarray:
+        inject.fire("data.source")
+        return np.asarray(self.loader(uri), dtype=np.float32)
 
     def _load_batch(self, pool, rows, n_real: int) -> Dict[str, np.ndarray]:
         with metrics.timer("sparkdl.load").time():
-            images = list(pool.map(
-                lambda i: np.asarray(self.loader(self.uris[i]), dtype=np.float32), rows))
+            images = list(pool.map(lambda i: self._load_one(self.uris[i]), rows))
             batch = {"x": np.stack(images), "y": self.y[rows]}
         if self.weighted:
             w = np.zeros(self.batch_size, np.float32)

@@ -12,7 +12,9 @@ source, the compiler and the flags, so an edit of either builds afresh. The
 build writes a process-unique temporary file and renames it into place, so
 concurrent processes never ``dlopen`` a half-written library. Within a
 process one thread builds while the others wait on an event, with no lock
-held across the compiler or the ``dlopen``.
+held across the compiler or the ``dlopen`` (:class:`Once`). The AOTInductor
+runner and ``aoti_tool`` (:mod:`~sparkdl_tpu_torch.native.aoti`) build
+through the same helpers (:func:`build_path`, :func:`build`, :class:`Once`).
 
 Everything degrades: without a compiler, or if the build fails,
 :func:`is_available` is false and callers take the numpy path. The
@@ -56,86 +58,123 @@ _KNOWN_MODES = frozenset({0, 16, 24, 5, 21, 29})
 _F32_MODES = frozenset({5, 21, 29})
 _U8_MODES = frozenset({0, 16, 24})
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
-#: set while one thread runs the build and the dlopen; later callers wait on it
-_inflight: Optional[threading.Event] = None
-
-
-def _compiler() -> str:
+def compiler() -> str:
+    """The C++ compiler of every native build: ``$CXX``, default ``g++``."""
     return os.environ.get("CXX") or "g++"
+
+
+def build_path(stem: str, sources: Sequence[str], flags: Sequence[str],
+               suffix: str = ".so", extra: Sequence[str] = ()) -> str:
+    """Where the build of ``sources`` lies: ``_build/`` and a hash of the
+    sources' bytes, the compiler, the flags and ``extra``. Raises
+    ``OSError`` where a source cannot be read."""
+    digest = hashlib.sha256()
+    for path in sources:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    digest.update("\0".join((compiler(), *flags, *extra)).encode())
+    return os.path.join(_BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}{suffix}")
+
+
+def build(sources: Sequence[str], flags: Sequence[str], out: str,
+          timeout: float = 900.0) -> str:
+    """Compile ``sources`` with ``flags`` to ``out`` unless it is there: into
+    a process- and thread-unique temporary file, renamed into place once
+    whole (atomic on POSIX), so no process ever loads a half-written file.
+    Returns ``out``; raises ``RuntimeError`` with the compiler's message."""
+    if os.path.exists(out):
+        return out
+    name = os.path.basename(out)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        proc = subprocess.run([compiler(), *sources, "-o", tmp, *flags],
+                              capture_output=True, text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {name} failed:\n{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    except (OSError, subprocess.TimeoutExpired) as e:  # no toolchain, no room
+        raise RuntimeError(f"cannot build {name}: {e}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+class Once:
+    """A value made at most once a process, by its first caller (single
+    flight). The maker runs with no lock held, so a caller that only asks
+    whether the value is there never waits seconds behind a compiler; the
+    callers that come meanwhile wait on an event. The verdict is kept: every
+    later call returns the value, or raises the maker's exception again."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._done = False
+        self._value = None
+        self._error: Optional[BaseException] = None
+        #: set while the first caller runs the maker; later callers wait on it
+        self._inflight: Optional[threading.Event] = None
+
+    def get(self, make):
+        while True:
+            with self._lock:
+                if self._done:
+                    if self._error is not None:
+                        raise self._error
+                    return self._value
+                if self._inflight is None:
+                    self._inflight = claim = threading.Event()
+                    break
+                waiter = self._inflight
+            waiter.wait()
+        value, error = None, None
+        try:
+            value = make()
+        except Exception as e:  # kept for every later caller
+            error = e
+        except BaseException:  # an interrupt is no verdict: the next caller tries again
+            with self._lock:
+                self._inflight = None
+            claim.set()
+            raise
+        with self._lock:
+            self._value, self._error, self._done, self._inflight = value, error, True, None
+        claim.set()
+        if error is not None:
+            raise error
+        return value
+
+
+_packer = Once()
 
 
 def _library_path() -> Optional[str]:
     """Where the build of the current source lies: ``_build/`` and a hash of
     the source, the compiler and the flags. None without the source."""
     try:
-        with open(_SRC_PATH, "rb") as fh:
-            source = fh.read()
+        return build_path("batchpack", [_SRC_PATH], _FLAGS)
     except OSError:
         return None
-    digest = hashlib.sha256(source)
-    digest.update("\0".join((_compiler(), *_FLAGS)).encode())
-    return os.path.join(_BUILD_DIR, f"batchpack-{digest.hexdigest()[:16]}.so")
 
 
 def _build(path: str) -> bool:
-    """Compile the library to ``path``: into a process-unique temporary
-    file, renamed into place once whole."""
+    """Compile the library to ``path``; False, with the reason logged,
+    where it does not build."""
     try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-    except OSError as e:
-        logger.warning("native batch packer: cannot make its build directory: %s", e)
-        return False
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_compiler(), *_FLAGS, "-o", tmp, _SRC_PATH]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    except (OSError, subprocess.TimeoutExpired) as e:  # no toolchain
-        logger.info("native batch packer unavailable: %s", e)
-        return False
-    if proc.returncode != 0:
-        logger.warning("native batch packer build failed (the numpy path stands in):\n%s",
-                       proc.stderr[-2000:])
-        return False
-    try:
-        os.replace(tmp, path)  # atomic on POSIX
-    except OSError as e:
-        logger.warning("native batch packer install failed: %s", e)
+        build([_SRC_PATH], _FLAGS, path, timeout=300)
+    except RuntimeError as e:
+        logger.warning("native batch packer unavailable (the numpy path stands in): %s", e)
         return False
     return True
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    """The library's handle, built at most once per process (single flight).
-
-    The first caller claims the build by planting an event under ``_lock``;
-    the compiler and the ``dlopen`` run with no lock held, and every later
-    caller waits on the event, not on the lock. So a thread that only asks
-    :func:`is_available` never waits seconds behind a build."""
-    global _lib, _tried, _inflight
+    """The library's handle, built and loaded at most once per process
+    (:class:`Once`); None where the packer is off or did not build."""
     if os.environ.get("SPARKDL_NO_NATIVE") == "1":
         return None
-    while True:
-        with _lock:
-            if _tried:
-                return _lib
-            if _inflight is None:
-                _inflight = claim = threading.Event()
-                break
-            waiter = _inflight
-        waiter.wait()
-    lib = None
-    try:
-        lib = _resolve()
-    finally:
-        with _lock:
-            _lib = lib
-            _tried = True
-            _inflight = None
-        claim.set()
-    return lib
+    return _packer.get(_resolve)
 
 
 def _resolve() -> Optional[ctypes.CDLL]:

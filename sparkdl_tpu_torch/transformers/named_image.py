@@ -42,7 +42,7 @@ cache keeps the built module on its device from one transform to the next.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -227,6 +227,40 @@ def load_module(module: torch.nn.Module, state: Dict[str, torch.Tensor],
     return module.to(device=device, memory_format=torch.channels_last).eval()
 
 
+def fused_forward(model_name: str, state: Dict[str, torch.Tensor], dtype: torch.dtype,
+                  featurize: bool, device):
+    """The fused forward of the named-CNN stages, as ``(module, body)``.
+
+    ``body(x, run)`` takes an NHWC batch in stored (BGR) order at source
+    size, uint8 or float32, casts it to float32, resizes it to the model's
+    input size, flips it to RGB, applies the entry's ``preprocess_input``
+    and calls ``run(x, features_only=featurize)`` on it in channels_last and
+    ``dtype``; the result is float32. ``run`` is ``module``, the entry's
+    module built from ``state`` on ``device``, or a function that calls it
+    with other weights (the native export's
+    ``torch.func.functional_call``). In ``"tf"`` preprocessing the flip is
+    folded into the stem conv's weights (``module`` holds them) instead.
+    :class:`DeepImageFeaturizer` runs this body and
+    :func:`~sparkdl_tpu_torch.native.featurizer.export_featurizer` exports
+    it, so both stacks run one function."""
+    entry = get_keras_application_model(model_name)
+    folded = fold_bgr_flip_into_stem(state, entry.preprocess_mode)
+    flip_in_forward = folded is None
+    module = build_module(model_name, state if folded is None else folded, dtype, device)
+    size = entry.input_size
+    preprocess = entry.preprocess
+
+    def body(x: torch.Tensor, run: Callable) -> torch.Tensor:
+        x = cast_and_resize_on_device(x, size)
+        if flip_in_forward:
+            x = x.flip(-1)  # BGR -> RGB
+        x = preprocess(x)
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return run(x.to(dtype), features_only=featurize).float()
+
+    return module, body
+
+
 class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
     """Shared machinery: resize -> preprocess -> CNN forward on the device."""
 
@@ -271,7 +305,6 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
 
     def _build_forward(self, device: torch.device):
         name = self._validate_model_name()
-        entry = get_keras_application_model(name)
         dtype_name = self.getOrDefault(self.computeDtype)
         if dtype_name not in _DTYPES:
             raise ValueError(
@@ -284,22 +317,12 @@ class _NamedImageTransformer(Transformer, HasInputCol, HasOutputCol, HasDevice):
         if hit is not None:
             return hit[0]
 
-        folded = fold_bgr_flip_into_stem(state, entry.preprocess_mode)
-        flip_in_forward = folded is None
-        module = build_module(name, state if folded is None else folded, dtype, device)
-        size = entry.input_size
-        preprocess = entry.preprocess
-        featurize = self._featurize  # local: don't pin self in the cache
+        module, body = fused_forward(name, state, dtype, self._featurize, device)
 
         def forward(x: torch.Tensor) -> torch.Tensor:
             # x: uint8 or float32 NHWC in stored (BGR) order, at source size
             with torch.inference_mode():
-                x = cast_and_resize_on_device(x, size)
-                if flip_in_forward:
-                    x = x.flip(-1)  # BGR -> RGB
-                x = preprocess(x)
-                x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-                return module(x.to(dtype), features_only=featurize).float()
+                return body(x, module)
 
         _FORWARD_CACHE[key] = (forward, state)
         return forward

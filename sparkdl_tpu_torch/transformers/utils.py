@@ -120,12 +120,13 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 
 def device_resize(
-    images: Sequence[np.ndarray], size: Tuple[int, int], device=None
-) -> np.ndarray:
+    images: Sequence[np.ndarray], size: Tuple[int, int], device=None, on_device: bool = False
+):
     """Resize a list of HWC float arrays to ``size`` and stack them; images
     of one source shape resize together on ``device`` (``None``: the card),
-    images already at ``size`` pass through. Advances the
-    ``sparkdl.resize`` timer."""
+    images already at ``size`` pass through. ``on_device`` returns the
+    stack as a tensor on ``device``, the resized groups never copied back to
+    the host. Advances the ``sparkdl.resize`` timer."""
     device = resolve_device(device)
     height, width = int(size[0]), int(size[1])
     with metrics.timer("sparkdl.resize").time():
@@ -133,15 +134,24 @@ def device_resize(
         groups: Dict[Tuple[int, ...], List[int]] = {}
         for i, img in enumerate(images):
             groups.setdefault(tuple(img.shape), []).append(i)
+        stacked = None
         for shape, idxs in groups.items():
             batch = np.stack([np.asarray(images[i], dtype=np.float32) for i in idxs])
+            if on_device:
+                batch = torch.from_numpy(batch).to(device)
+                if shape[:2] != (height, width):
+                    batch = resize_bilinear(batch, (height, width))
+                if stacked is None:
+                    stacked = batch.new_empty((len(images), *batch.shape[1:]))
+                stacked[torch.tensor(idxs, device=device)] = batch
+                continue
             if shape[:2] != (height, width):
                 batch = resize_bilinear(
                     torch.from_numpy(batch).to(device), (height, width)
                 ).cpu().numpy()
             for j, i in enumerate(idxs):
                 out[i] = batch[j]
-        return np.stack(out)
+        return stacked if on_device else np.stack(out)
 
 
 def _packs_as_uint8(rows: Sequence, n_channels: int) -> bool:
@@ -182,7 +192,8 @@ def decode_image_batch(
     device=None,
     n_channels: int = 3,
     to_rgb: bool = False,
-) -> np.ndarray:
+    on_device: bool = False,
+):
     """Decode image-struct Rows into one NHWC batch of ``n_channels``
     (:func:`normalize_channels`), in stored (BGR) channel order unless
     ``to_rgb``.
@@ -194,7 +205,8 @@ def decode_image_batch(
     resized to ``target_hw`` on ``device`` (``None``: the card);
     ``target_hw=None`` requires one size. The C++ packer packs where it is
     built and on (:func:`native.is_available`), numpy where not, with the
-    same bytes.
+    same bytes. ``on_device`` returns the batch as a tensor on ``device``
+    (the card's resize output stays there).
     Advances ``sparkdl.decode``."""
     hws = {(int(r["height"]), int(r["width"])) for r in rows}
     uniform = len(hws) == 1
@@ -219,7 +231,7 @@ def decode_image_batch(
                 if to_rgb and n_channels == 3:
                     images = [img[..., ::-1] for img in images]
                 batch = np.stack(images)
-        return batch
+        return torch.from_numpy(batch).to(resolve_device(device)) if on_device else batch
 
     with metrics.timer("sparkdl.decode").time():
         images = _native_pack(rows, n_channels, to_rgb)
@@ -233,7 +245,7 @@ def decode_image_batch(
                 images = [img[..., ::-1] for img in images]
     # a pure pack where every row is at out_hw; each other shape group
     # resizes on the device
-    return device_resize(images, out_hw, device)
+    return device_resize(images, out_hw, device, on_device=on_device)
 
 
 def make_image_decode_plan(

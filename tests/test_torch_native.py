@@ -176,7 +176,7 @@ def test_uint8_pack_rejects_float_rows():
 
 def test_load_builds_once_outside_the_lock(monkeypatch, tmp_path):
     """``tests/test_native_loader.py``'s contract: while one thread builds,
-    the module lock is free; four first callers share one build; the
+    the loader's lock is free; four first callers share one build; the
     verdict is kept."""
     calls = []
     build_started = threading.Event()
@@ -193,9 +193,7 @@ def test_load_builds_once_outside_the_lock(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_build", slow_build)
     monkeypatch.setattr(native, "_SRC_PATH", str(src))
     monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", False)
-    monkeypatch.setattr(native, "_inflight", None)
+    monkeypatch.setattr(native, "_packer", native.Once())
 
     results = []
     threads = [threading.Thread(target=lambda: results.append(native._load()))
@@ -203,10 +201,10 @@ def test_load_builds_once_outside_the_lock(monkeypatch, tmp_path):
     for t in threads:
         t.start()
     assert build_started.wait(timeout=30.0), "no thread reached the build"
-    assert native._lock.acquire(timeout=5.0), (
-        "module lock held across the native build: the single-flight "
+    assert native._packer._lock.acquire(timeout=5.0), (
+        "loader lock held across the native build: the single-flight "
         "pattern regressed to build-under-lock")
-    native._lock.release()
+    native._packer._lock.release()
 
     release_build.set()
     for t in threads:

@@ -8,11 +8,13 @@ and ``DataFrame.sample``'s seed, against the JAX package's, on the CPU.
   ``register`` teaches ``classify`` a foreign type, ``error="decode"``
   injects an ``ImageDecodeError``, and a permanent error fails fast with no
   retry. The module's autouse ``fresh_metrics`` is applied by hand around
-  each body. Two cases cannot run on the port unchanged:
+  each body. One case cannot run on the port unchanged:
   ``test_xla_status_words_by_type_name`` (XLA's status words are the JAX
-  package's; the port reads torch's out-of-memory error, checked here) and
-  ``test_streaming_shard_loader_retries_uri_loads`` (the port's
-  ``StreamingShardLoader`` takes ``batch_size`` and no retry policy).
+  package's; the port reads torch's out-of-memory error, checked here).
+  The port's ``StreamingShardLoader`` names its batch ``batch_size`` where
+  the JAX package's names it ``local_bs``, so the port's twin of
+  ``test_streaming_shard_loader_retries_uri_loads`` passes its batch of 2
+  under that name.
 - ``ImageDecodeError`` is a ``PermanentError`` and a ``ValueError`` in both
   packages.
 - ``sample`` with a fraction in the first place keeps its seed: one seed,
@@ -41,13 +43,12 @@ from sparkdl_tpu_torch.sql.session import TorchSession  # noqa: E402
 
 REFERENCE = Path(__file__).with_name("test_resilience.py")
 JAX_TESTS = twin.load(REFERENCE, "_resilience_reference_tests")
-PORT_TESTS = twin.load(REFERENCE, "_resilience_port_tests", twin.PORT_SUBS[:1])
+PORT_TESTS = twin.load(REFERENCE, "_resilience_port_tests",
+                       twin.PORT_SUBS[:1] + (("local_bs=2,", "batch_size=2,"),))
 #: the reference's cases the port cannot run unchanged, and why
 NOT_TWINNED = {
     "TestClassify::test_xla_status_words_by_type_name":
         "XLA status words; the port classifies torch.OutOfMemoryError",
-    "TestDataIntegration::test_streaming_shard_loader_retries_uri_loads":
-        "the port's StreamingShardLoader takes batch_size and no retry policy",
 }
 CASES = [c for c, _ in twin.cases(JAX_TESTS)
          if c.startswith(("TestClassify::", "TestDataIntegration::")) and c not in NOT_TWINNED]

@@ -297,6 +297,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.parallel.context",
         "sparkdl_tpu_torch.parallel.tp",
         "sparkdl_tpu_torch.native",
+        "sparkdl_tpu_torch.native.aoti",
+        "sparkdl_tpu_torch.native.featurizer",
+        "sparkdl_tpu_torch.transformers.native_image",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -324,7 +327,10 @@ def test_every_port_module_imports_first():
         "        importlib.import_module(m.name)\n"
         "    except ImportError as exc:\n"
         "        failed.append(f'{m.name}: {exc}')\n"
-        "failed += [f'{n}: not walked' for n in ('sparkdl_tpu_torch.native',)\n"
+        "failed += [f'{n}: not walked' for n in ('sparkdl_tpu_torch.native',\n"
+        "                                           'sparkdl_tpu_torch.native.aoti',\n"
+        "                                           'sparkdl_tpu_torch.native.featurizer',\n"
+        "                                           'sparkdl_tpu_torch.transformers.native_image')\n"
         "           if n not in walked]\n"
         "print('\\n'.join(failed))\n"
     )
@@ -369,7 +375,8 @@ def test_port_sources_import_no_jax():
                    "streaming/sources.py", "streaming/commit.py", "streaming/runner.py",
                    "serving/rollout.py", "parallel/__init__.py", "parallel/runner.py",
                    "parallel/trainer.py", "parallel/context.py", "parallel/tp.py",
-                   "native/__init__.py"):
+                   "native/__init__.py", "native/aoti.py", "native/featurizer.py",
+                   "transformers/native_image.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:
