@@ -150,7 +150,9 @@ prints no result):
    Functional, 23,597,957 weights) with seeded weights, written as a
    ``.keras`` file by the port's writer. Checks: one sgd(0.01) step at
    batch 64 (sparse categorical cross-entropy) on the card and on the CPU,
-   TF32 off, each held to a float64 step on the CPU (the loss within 1e-4;
+   TF32 off, each held to a float64 step on the CPU (the two CPU steps run
+   in a child process at the lowest CPU priority beside phases 7-11, and
+   are held last; the loss within 1e-4;
    each leaf's change within 1e-3 of the float64 change or within 3x the
    CPU float32 step's own error; the moving statistics card against CPU at
    ``atol=1e-5, rtol=1e-4``); the stepped weights written by
@@ -225,24 +227,29 @@ prints no result):
    that take the modes in turn, with ``sparkdl.load``, ``sparkdl.decode``, ``sparkdl.forward``,
    ``sparkdl.serve`` and ``data.device_stall_ms``.
 14. the engine and online serving, in a temporary compile-cache directory.
+   Its AOTInductor programs ((a)'s slot block, (c)'s, (d)'s ladder) are
+   compiled by a second process (``ServingPrecompile``, at the lowest CPU
+   priority, started after phase 6, so that its minutes of compiling run
+   beside phases 7-12); this process loads them.
    (a) ViT-B/16 in bf16 (phase 5's seeded weights, flash attention) served
    through ``ModelServer.from_torch_function`` with
    ``ServingConfig(max_batch=32, max_wait_ms=2)`` and a durable
-   fingerprint: ``warmup()`` compiles the slot-block program with
-   AOTInductor (``ExecutionEngine``), then 256 single 224x224 images from
-   16 threads. Checks: each row within 3% of the largest value of the
-   float32 plain forward (dense attention, one image at a time);
-   ``serving.compiles`` unchanged after warmup; at most 64 blocks; the
-   lse-free forward launched 12 times a dispatched block. (b) A second
-   process builds the same server on the same cache directory: its warmup
-   loads from disk (``engine.cache_hit``, no ``engine.compile``), and its
-   program's output on one full block equals the cold program's bit for
-   bit. (c) Phase 10's ``.keras`` InceptionV3 through
+   fingerprint: the second process's ``warmup()`` compiles the slot-block
+   program with AOTInductor (``ExecutionEngine``), this one's loads it,
+   then 256 single 224x224 images from 16 threads. Checks: each row within
+   3% of the largest value of the float32 plain forward (dense attention,
+   one image at a time); ``serving.compiles`` unchanged after warmup; at
+   most 64 blocks; the lse-free forward launched 12 times a dispatched
+   block. (b) The warm start: this process's warmup loaded the package from
+   disk (``engine.cache_hit``, no ``engine.compile``), and the loaded
+   program's output on one full block equals the compiling process's bit
+   for bit. (c) Phase 10's ``.keras`` InceptionV3 through
    ``registerKerasImageUDF`` and ``ModelServer.from_registered_udf``, 128
-   299x299 image structs decoded by the client, from 8 threads: rows
-   against the UDF's SQL rows and the plain forward at ``SLICE_TOL``, no
-   attention launch. (d) ``SPARKDL_RAGGED=0`` on the ViT endpoint at
-   ``max_batch=4``: the ladder compiles three programs, 32 requests from 4
+   299x299 image structs decoded by the client, from 8 threads: the
+   program loaded from disk, not compiled; rows against the UDF's SQL rows
+   and the plain forward at ``SLICE_TOL``, no attention launch. (d)
+   ``SPARKDL_RAGGED=0`` on the ViT endpoint at ``max_batch=4``: the
+   ladder's three programs loaded (compiled by the second process), 32 requests from 4
    threads held as in (a), and 3 requests at once (tried until one batch
    pads: bucket 4 with a pad row) held the same; then 16 decode streams of 4-16 steps admitted
    mid-flight into 8 slots of a torch step compiled through the engine,
@@ -271,8 +278,9 @@ prints no result):
    and ``streaming.*`` series; records/s, the epochs and
    ``streaming.record_latency_ms``. (c) Exactly once on the card: a worker
    process scores ``FileTailSource`` records of the 64 URIs with the eager
-   ViT, uninterrupted; another is killed by a ``SPARKDL_FAULT_PLAN`` rule at
-   ``streaming.commit`` 2 (exit 9) and restarted: each offset once, the
+   ViT, uninterrupted; another, beside it, is killed by a
+   ``SPARKDL_FAULT_PLAN`` rule at ``streaming.commit`` 2 (exit 9) and
+   restarted: each offset once, the
    replayed epoch bit for bit its payload, rows within the bf16 bound of
    the uninterrupted run; then an in-process preemption
    (``request_preemption``) flushes and a second runner resumes.
@@ -343,7 +351,8 @@ prints no result):
    the card: uninterrupted (its windows against numpy's), killed at
    ``streaming.window_commit`` and restarted (the replayed epoch's lines
    equal its payload bit for bit, every window once, within the bf16 bound
-   of the uninterrupted run), killed at ``csql.plan`` (nothing left behind).
+   of the uninterrupted run), killed at ``csql.plan`` (nothing left behind);
+   the three first runs side by side, the restart after its kill.
    (a)'s and (b)'s launches join the kernel records (``phase18_launches``).
 19. the C++ batch packer, inside phase 13 (``batch_packer``'s docstring).
 20. the native second stack, last (after phase 17 (b)): (a) the C++
@@ -352,7 +361,7 @@ prints no result):
    ``export_featurizer`` exports phase 7's InceptionV3 weights in bf16 at
    batch 32 from 299x299 sources for the card (compile s, package and
    ``params.bin`` MiB); (a) and (b) run in a child process at nice 19,
-   started after phase 9, so that the compile runs beside phases 10-12,
+   started after phase 6, so that the compile runs beside phases 7-12,
    and joined before phase 13
    (``NativeExport``); (c)
    ``NativeDeepImageFeaturizer`` over 128 299x299 rows against the Python
@@ -364,6 +373,28 @@ prints no result):
    the in-process runner's and ``aoti_load_package``'s; (e) ``stream()``
    bit for bit a loop of ``__call__``; (f) both stages' images/s on both
    frames; (g) no attention launch (``phase20_launches``).
+21. the fleet simulator and the profiler, last (after phase 20). (a) Phase
+   16 (b)'s 256 routed requests as replay records (``records_from_spans``
+   over the router's span file), written with ``write_trace`` and loaded
+   back: one record a request, each with a ``forward`` phase, every phase a
+   replayed or emergent one; replayed (``FleetReplay``) twice under the live
+   fleet's knobs (2 replicas, ``max_batch=32``, ``max_wait_ms=2``, queue 256,
+   seed 0) to one event log (its sha256 printed) whose times never
+   decrease, every request counted; ``tune(budget=8, seed=0)`` twice to one
+   artifact. Printed: virtual and wall seconds, the fidelity rows (live
+   against replayed p50/p99 at 15% or 0.25 ms: a reading, since a
+   closed-loop burst replays open loop) and the tuned knobs' burn against
+   the default's. (b) In a child process (a capture late in a long process
+   loses its first kernels: PERF.md §6), ``SPARKDL_PROFILE_DIR`` set
+   for a transform of 32 images through the bf16 InceptionV3
+   ``DeepImageFeaturizer``, then for 32 through the bf16 flash ViT-B/16
+   ``TorchImageFileTransformer`` (seeded random weights): each
+   directory holds a ``torch.profiler`` trace with CUDA kernel events, the
+   ViT trace's ``flash_fwd_kernel`` events equal the wrapper's count (12),
+   the featurizer's trace holds convolution kernels and no flash kernel, the
+   profiled rows equal the unprofiled ones bit for bit; each trace's kernel
+   count, kernel time and five costliest kernels printed
+   (``phase21_launches``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel records, and ``{"ok": true, "device": {...}}``. Float32 matrix
@@ -2237,10 +2268,133 @@ def keras_train_flops(module, x) -> float:
     return 3 * total[0]
 
 
-def keras_fine_tune(card: str, counted):
+def finetune_batch() -> dict:
+    """Phase 11's batch: 64 seeded 224x224 images, labels and weights (CPU
+    tensors)."""
+    import torch
+
+    rng = np.random.default_rng(22)
+    return {"x": torch.from_numpy(rng.uniform(0, 1, (FT_BATCH, FT_IMAGE, FT_IMAGE, 3))
+                                  .astype(np.float32)),
+            "y": torch.from_numpy(rng.integers(0, FT_CLASSES, FT_BATCH).astype(np.int32)),
+            "w": torch.ones(FT_BATCH)}
+
+
+P11_CPU_TIMEOUT_S = 600.0
+# phase 11's two CPU steps (float32, and the float64 reference) in a child
+# process at the lowest CPU priority; its last line is each step's loss and
+# seconds, as JSON after the marker, and each step's weights are pickled
+# beside the model file
+P11_CPU_STEPS = """
+import json, os, pickle, sys, time
+os.nice(19)
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+out = {{}}
+for label, wide in (("cpu", False), ("float64", True)):
+    module, state, step, placed = cs.keras_step({path!r}, "cpu", cs.finetune_batch(),
+                                                float64=wide)
+    t0 = time.perf_counter()
+    state, loss = step(state, placed)
+    weights = cs.flat_weights(module.keras_weights())
+    out[label] = {{"loss": float(loss), "seconds": time.perf_counter() - t0}}
+    with open(os.path.join({dir!r}, label + ".pkl"), "wb") as fh:
+        pickle.dump(weights, fh)
+    del module, state, placed, weights
+print("P11_CPU_STEPS " + json.dumps(out), flush=True)
+"""
+
+
+class NicedChild:
+    """A Python child process that runs ``code`` (``args`` are its
+    ``sys.argv[1:]``; the code lowers its own priority with ``os.nice(19)``),
+    its output in the file ``log_path``, its result the JSON after
+    ``marker`` on its last line. :meth:`wait` joins it; :meth:`stop` kills it
+    if it still runs."""
+
+    def __init__(self, code: str, marker: str, log_path, args=(), env=None):
+        self.marker = marker + " "
+        self.log = open(log_path, "w+")
+        self.result = None
+        self.proc = subprocess.Popen([sys.executable, "-c", code, *args], env=env,
+                                     stdout=self.log, stderr=subprocess.STDOUT)
+
+    def wait(self, timeout: float, what: str):
+        """The child's result once it has ended; raises, naming ``what``,
+        with its output's end if it failed."""
+        if self.result is None:
+            rc = self.proc.wait(timeout=timeout)
+            self.log.seek(0)
+            text = self.log.read()
+            lines = [line for line in text.splitlines() if line.startswith(self.marker)]
+            if rc != 0 or not lines:
+                raise AssertionError(f"{what} failed (exit {rc}):\n{text[-4000:]}")
+            self.result = json.loads(lines[-1][len(self.marker):])
+        return self.result
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+class FineTuneReference:
+    """Phase 11's ``.keras`` file of the ResNet50 head, written here, and its
+    two CPU steps (``P11_CPU_STEPS``) in a child process at the lowest CPU
+    priority, started after phase 6 so that their minute of CPU work runs
+    beside phases 7-11's card work and not in phase 11. :meth:`wait` joins
+    it; :meth:`close` stops it if it still runs and removes its files."""
+
+    def __init__(self):
+        import gzip
+        import os
+
+        from sparkdl_tpu_torch.models.keras_model import write_keras_file
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-finetune-")
+        self.path = os.path.join(self.dir, "resnet50_head.keras")
+        config = json.loads(gzip.decompress(RESNET_HEAD_CONFIG.read_bytes()))
+        weights = resnet_head_weights(config, seed=21)
+        t0 = time.perf_counter()
+        write_keras_file(self.path, config, weights)
+        self.write_s = time.perf_counter() - t0
+        self.result = None
+        code = P11_CPU_STEPS.format(root=str(Path(__file__).resolve().parent),
+                                    path=self.path, dir=self.dir)
+        self.child = NicedChild(code, "P11_CPU_STEPS", os.path.join(self.dir, "cpu_steps.log"))
+
+    def wait(self) -> dict:
+        """``{"cpu": (loss, weights, seconds), "float64": (...)}`` of the two
+        steps once the child has ended; raises with its output's end if it
+        failed."""
+        import os
+        import pickle
+
+        if self.result is None:
+            t0 = time.perf_counter()
+            steps = self.child.wait(P11_CPU_TIMEOUT_S, "phase 11's CPU steps")
+            waited = time.perf_counter() - t0
+            self.result = {}
+            for label, step in steps.items():
+                with open(os.path.join(self.dir, label + ".pkl"), "rb") as fh:
+                    self.result[label] = step["loss"], pickle.load(fh), step["seconds"]
+            log(f"finetune: the CPU steps ran in a child process beside phases 7-11; phase "
+                f"11 waited {waited:.2f} s for them")
+        return self.result
+
+    def close(self) -> None:
+        import shutil
+
+        self.child.stop()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def keras_fine_tune(card: str, counted, reference: FineTuneReference):
     """Phase 11: ``KerasImageFileEstimator`` fine-tuning the ResNet50 head
     of BASELINE.json ``configs[3]`` at full width, with the checks and
-    times of the docstring."""
+    times of the docstring; the model file and the two CPU steps are
+    ``reference``'s."""
     import gzip
 
     import torch
@@ -2260,80 +2414,31 @@ def keras_fine_tune(card: str, counted):
     with tempfile.TemporaryDirectory(prefix="chip-smoke-finetune-") as tmp:
         tmp = Path(tmp)
         config = json.loads(gzip.decompress(RESNET_HEAD_CONFIG.read_bytes()))
-        weights = resnet_head_weights(config, seed=21)
-        start = flat_weights(weights)
+        start = flat_weights(resnet_head_weights(config, seed=21))
         n_weights = sum(a.size for a in start.values())
-        path = str(tmp / "resnet50_head.keras")
-        t0 = time.perf_counter()
-        write_keras_file(path, config, weights)
+        path = reference.path
         log(f"finetune: the ResNet50 head .keras (nested Functional of "
             f"{len(config['config']['layers'][1]['config']['layers'])} layers + Dense "
             f"{FT_CLASSES}, {n_weights} weights, {Path(path).stat().st_size / 1e6:.1f} MB) "
-            f"written in {time.perf_counter() - t0:.2f} s")
+            f"written in {reference.write_s:.2f} s")
         if n_weights != 23_597_957:
             raise AssertionError(f"the ResNet50 head holds {n_weights} weights")
-        rng = np.random.default_rng(22)
-        batch = {"x": torch.from_numpy(rng.uniform(0, 1, (FT_BATCH, FT_IMAGE, FT_IMAGE, 3))
-                                       .astype(np.float32)),
-                 "y": torch.from_numpy(rng.integers(0, FT_CLASSES, FT_BATCH).astype(np.int32)),
-                 "w": torch.ones(FT_BATCH)}
+        batch = finetune_batch()
 
-        # 1. one sgd step on the card and on the CPU, TF32 off, each held to
-        # a float64 step on the CPU
+        # 1. one sgd step on the card, TF32 off, held (after 5., once the
+        # CPU's two steps have ended beside this phase) to a float64 step on
+        # the CPU, and the CPU's float32 step beside it
         tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        results = {}
-        for label, device, wide in (("card", "cuda", False), ("cpu", "cpu", False),
-                                    ("float64", "cpu", True)):
-            module, state, step, placed = keras_step(path, device, batch, float64=wide)
-            t0 = time.perf_counter()
-            state, loss = step(state, placed)
-            loss = float(loss)
-            results[label] = loss, flat_weights(module.keras_weights()), \
-                time.perf_counter() - t0
-            trainable = {n for n, p in module.named_parameters() if p.requires_grad}
-            del module, state, placed
+        module, state, step, placed = keras_step(path, "cuda", batch)
+        t0 = time.perf_counter()
+        state, loss = step(state, placed)
+        card_loss = float(loss)
+        got = flat_weights(module.keras_weights())
+        card_s = time.perf_counter() - t0
+        trainable = {n for n, p in module.named_parameters() if p.requires_grad}
+        del module, state, placed
         torch.cuda.empty_cache()
-        (card_loss, got, card_s), (cpu_loss, want, cpu_s), (loss64, ref, ref_s) = (
-            results["card"], results["cpu"], results["float64"])
-        bn_names = {layer["config"]["name"] for layer
-                    in config["config"]["layers"][1]["config"]["layers"]
-                    if layer["class_name"] == "BatchNormalization"}
-        stats = [k for k in start if k.split("/")[-1] in ("2", "3")
-                 and k.split("/")[-2] in bn_names]
-        changes = {k: ref[k] - start[k] for k in start if k not in stats}
-        floor = 1e-3 * max(np.linalg.norm(c) for c in changes.values())
-
-        def change_errors(weights):
-            return {k: float(np.linalg.norm((weights[k] - start[k]) - c)
-                             / max(np.linalg.norm(c), floor)) for k, c in changes.items()}
-
-        card_errs, cpu_errs = change_errors(got), change_errors(want)
-        bad = [k for k in changes if not card_errs[k] <= max(
-            FT_CHANGE_RTOL, FT_CHANGE_CPU_FACTOR * cpu_errs[k])]
-        worst = sorted(card_errs, key=lambda k: -card_errs[k])[:3]
-        stat_errs = {k: float(np.abs(got[k] - want[k]).max()) for k in stats}
-        log(f"finetune: one sgd({FT_LR}) step at batch {FT_BATCH}, {FT_IMAGE}x{FT_IMAGE}, "
-            f"TF32 off: loss card {card_loss:.7f}, CPU {cpu_loss:.7f}, float64 {loss64:.7f}; "
-            f"{len(trainable)} trainable tensors, {len(changes)} weight leaves; change errors "
-            f"against float64, card (CPU float32): median "
-            f"{np.median(list(card_errs.values())):.3e} ({np.median(list(cpu_errs.values())):.3e}), "
-            f"worst " + ", ".join(f"{k} {card_errs[k]:.3e} ({cpu_errs[k]:.3e})" for k in worst)
-            + f"; {sum(card_errs[k] > FT_CHANGE_RTOL for k in changes)} leaves past "
-            f"{FT_CHANGE_RTOL:g}; {len(stats)} moving statistics, card vs CPU max abs err "
-            f"{max(stat_errs.values()):.3e}; card step {card_s:.2f} s (first), CPU "
-            f"{cpu_s:.2f} s, float64 {ref_s:.2f} s")
-        for other in (card_loss, cpu_loss):
-            if not abs(other - loss64) <= FT_LOSS_RTOL * abs(loss64):
-                raise AssertionError(f"fine-tune loss {other} vs float64 {loss64}")
-        if bad:
-            raise AssertionError("fine-tune weight changes differ: " + ", ".join(
-                f"{k} {card_errs[k]:.3e} (CPU {cpu_errs[k]:.3e})" for k in bad[:5]))
-        for k in stats:
-            np.testing.assert_allclose(got[k], want[k], **FT_STAT_TOL, err_msg=k)
-        if all(np.array_equal(got[k], start[k]) for k in stats):
-            raise AssertionError("no moving statistic moved")
-        del results, got, want, ref
 
         # the weights written back: the port's file reads back bit for bit
         module, state, step, placed = keras_step(path, dev, batch)
@@ -2461,6 +2566,48 @@ def keras_fine_tune(card: str, counted):
             f"{sweep_s / len(grid):.2f} s a fit; training accuracy by argmax {accuracy}")
         if len({m.getModelFile() for m in models}) != 2:
             raise AssertionError("the sweep's models share a file")
+
+        # 1., its checks
+        (cpu_loss, want, cpu_s), (loss64, ref, ref_s) = [reference.wait()[k]
+                                                         for k in ("cpu", "float64")]
+        bn_names = {layer["config"]["name"] for layer
+                    in config["config"]["layers"][1]["config"]["layers"]
+                    if layer["class_name"] == "BatchNormalization"}
+        stats = [k for k in start if k.split("/")[-1] in ("2", "3")
+                 and k.split("/")[-2] in bn_names]
+        changes = {k: ref[k] - start[k] for k in start if k not in stats}
+        floor = 1e-3 * max(np.linalg.norm(c) for c in changes.values())
+
+        def change_errors(weights):
+            return {k: float(np.linalg.norm((weights[k] - start[k]) - c)
+                             / max(np.linalg.norm(c), floor)) for k, c in changes.items()}
+
+        card_errs, cpu_errs = change_errors(got), change_errors(want)
+        bad = [k for k in changes if not card_errs[k] <= max(
+            FT_CHANGE_RTOL, FT_CHANGE_CPU_FACTOR * cpu_errs[k])]
+        worst = sorted(card_errs, key=lambda k: -card_errs[k])[:3]
+        stat_errs = {k: float(np.abs(got[k] - want[k]).max()) for k in stats}
+        log(f"finetune: one sgd({FT_LR}) step at batch {FT_BATCH}, {FT_IMAGE}x{FT_IMAGE}, "
+            f"TF32 off: loss card {card_loss:.7f}, CPU {cpu_loss:.7f}, float64 {loss64:.7f}; "
+            f"{len(trainable)} trainable tensors, {len(changes)} weight leaves; change errors "
+            f"against float64, card (CPU float32): median "
+            f"{np.median(list(card_errs.values())):.3e} ({np.median(list(cpu_errs.values())):.3e}), "
+            f"worst " + ", ".join(f"{k} {card_errs[k]:.3e} ({cpu_errs[k]:.3e})" for k in worst)
+            + f"; {sum(card_errs[k] > FT_CHANGE_RTOL for k in changes)} leaves past "
+            f"{FT_CHANGE_RTOL:g}; {len(stats)} moving statistics, card vs CPU max abs err "
+            f"{max(stat_errs.values()):.3e}; card step {card_s:.2f} s (first), CPU "
+            f"{cpu_s:.2f} s, float64 {ref_s:.2f} s")
+        for other in (card_loss, cpu_loss):
+            if not abs(other - loss64) <= FT_LOSS_RTOL * abs(loss64):
+                raise AssertionError(f"fine-tune loss {other} vs float64 {loss64}")
+        if bad:
+            raise AssertionError("fine-tune weight changes differ: " + ", ".join(
+                f"{k} {card_errs[k]:.3e} (CPU {cpu_errs[k]:.3e})" for k in bad[:5]))
+        for k in stats:
+            np.testing.assert_allclose(got[k], want[k], **FT_STAT_TOL, err_msg=k)
+        if all(np.array_equal(got[k], start[k]) for k in stats):
+            raise AssertionError("no moving statistic moved")
+        del got, want, ref
 
         launches = counted[1]()
         if any(launches.values()):
@@ -3480,8 +3627,8 @@ print("P20_EXPORT " + json.dumps({"runner_s": runner_s, "tool_s": tool_s,
 
 class NativeExport:
     """Phase 20's builds and export (``P20_EXPORT``) in a child process at
-    the lowest CPU priority (nice 19), started after phase 9 so that its
-    minutes of compiling run beside phases 10-12, and not after them.
+    the lowest CPU priority (nice 19), started after phase 6 so that its
+    minutes of compiling run beside phases 7-12, and not after them.
     :meth:`wait`, before phase 13, joins it, so that no reading of phases
     13-19 (host-bound rates, compile seconds, card memory) is taken beside
     it. :meth:`close` stops it if it still runs and removes its files."""
@@ -3491,12 +3638,10 @@ class NativeExport:
 
         self.dir = tempfile.mkdtemp(prefix="chip-smoke-native-")
         self.program = os.path.join(self.dir, "inception_v3")
-        self.log = open(os.path.join(self.dir, "export.log"), "w+")
         self.started = time.perf_counter() - _STARTED
         self.result = None
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", P20_EXPORT, str(Path(__file__).resolve().parent),
-             self.program], stdout=self.log, stderr=subprocess.STDOUT)
+        self.child = NicedChild(P20_EXPORT, "P20_EXPORT", os.path.join(self.dir, "export.log"),
+                                args=(str(Path(__file__).resolve().parent), self.program))
 
     def wait(self) -> dict:
         """The child's seconds (``runner_s``, ``tool_s``, ``export_s``) once
@@ -3504,15 +3649,8 @@ class NativeExport:
         output's end if it failed."""
         if self.result is None:
             t0 = time.perf_counter()
-            rc = self.proc.wait(timeout=P20_EXPORT_TIMEOUT_S)
+            self.result = self.child.wait(P20_EXPORT_TIMEOUT_S, "phase 20's build and export")
             waited = time.perf_counter() - t0
-            self.log.seek(0)
-            text = self.log.read()
-            result = [line for line in text.splitlines() if line.startswith("P20_EXPORT ")]
-            if rc != 0 or not result:
-                raise AssertionError(f"phase 20's build and export failed (exit {rc}):\n"
-                                     f"{text[-4000:]}")
-            self.result = json.loads(result[-1].split(" ", 1)[1])
             log(f"native: the build and export ran in a child process from "
                 f"{self.started:.1f} s to {self.result['ended'] - _STARTED_EPOCH:.1f} s of the "
                 f"script; phase 13 waited {waited:.2f} s for it")
@@ -3521,10 +3659,7 @@ class NativeExport:
     def close(self) -> None:
         import shutil
 
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        self.log.close()
+        self.child.stop()
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
@@ -3550,7 +3685,7 @@ def native_stack(card: str, counted, export: NativeExport) -> dict:
         sources (the phase fails without them: nothing stands in), in
         ``export``'s child process, and load here;
     (b) ``export_featurizer`` at batch 32 from 299x299 sources in bf16 on
-        the card, in that process beside phases 10-12: compile seconds,
+        the card, in that process beside phases 7-12: compile seconds,
         the package's and ``params.bin``'s MiB;
     (c) ``NativeDeepImageFeaturizer`` against the Python bf16
         ``DeepImageFeaturizer``: 128 rows at 299x299 (4 partitions) within
@@ -3590,7 +3725,7 @@ def native_stack(card: str, counted, export: NativeExport) -> dict:
     prog_dir = export.program
     log(f"native: export_featurizer(InceptionV3, batch {P20_BATCH}, "
         f"{P20_SOURCE[0]}x{P20_SOURCE[1]}, bf16) {built['export_s']:.2f} s in a child process "
-        f"at nice 19 beside phases 10-12; "
+        f"at nice 19 beside phases 7-12; "
         f"program.pt2 {os.path.getsize(os.path.join(prog_dir, 'program.pt2')) / 2**20:.3f} "
         f"MiB, params.bin {os.path.getsize(os.path.join(prog_dir, 'params.bin')) / 2**20:.3f} MiB")
 
@@ -3729,32 +3864,134 @@ P14_PAD_TRIES = 5       # (d): rounds of 3 requests at once, until a batch pads
 P14_STREAMS = 16        # (d): decode streams ...
 P14_SLOTS = 8           # ... into this many slots
 P14_FINGERPRINT = "chip-smoke:vit-b16:flax-seed2:bf16"
-#: code the warm-start process runs after importing this script as ``cs``
-#: (a scratch harness that shrinks phase 14 for the CPU shrinks it there too)
+#: code the precompiling processes and the worker processes run after
+#: importing this script as ``cs`` (a scratch harness that shrinks phase 14
+#: for the CPU shrinks it there too)
 P14_CHILD_PRELUDE = ""
-P14_WARM_START = """
-import json, sys, time
+P14_PRECOMPILE_TIMEOUT_S = 900.0
+#: phase 14's AOTInductor programs, one child process each
+P14_PARTS = ("vit", "udf", "ladder")
+# one part of phase 14's AOTInductor programs compiled in a child process at
+# the lowest CPU priority into the compile cache that phase 14 then loads
+# from: "vit", (a)'s ragged ViT-B/16 slot block (and its rows of (b)'s
+# block); "udf", (c)'s Keras UDF slot block; "ladder", (d)'s padded ladder;
+# its last line is the server's warmup report, as JSON after the marker
+P14_PRECOMPILE = """
+import json, os, sys, time
+os.nice(19)
 import numpy as np, torch
 sys.path.insert(0, {root!r})
 import chip_smoke as cs
 {prelude}
+from sparkdl_tpu_torch import registerKerasImageUDF
 from sparkdl_tpu_torch.ops.flash_attention import FLASH_FWD
+from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
+from sparkdl_tpu_torch.sql.session import TorchSession
 from sparkdl_tpu_torch.utils.metrics import metrics
-FLASH_FWD.build()
-server = cs.vit_server(cs.flax_layout_vit_params(seed=2, classes=cs.N_CLASSES), 32)
-t0 = time.perf_counter()
-server.warmup()
-load_s = time.perf_counter() - t0
-report = server.status()["program_cache"]["warmup"]["vit"]["ragged"]
-block = torch.from_numpy(np.load({block!r})).to(cs.P14_DEVICE)
-mask = torch.ones(block.shape[0], dtype=torch.bool, device=cs.P14_DEVICE)
-ep = server._endpoints["vit"]
-out = ep._ragged_program()(ep._params, block, mask).cpu().numpy()
-np.save({out!r}, out)
-server.close()
-print(json.dumps({{"source": report["source"], "load_s": load_s,
-                   **metrics.snapshot("engine.")}}))
+part = {part!r}
+
+
+def warmed(server):
+    before = server.status()["program_cache"]["persistent"]["bytes"]
+    compiled = metrics.timer("engine.compile").seconds
+    t0 = time.perf_counter()
+    server.warmup()
+    status = server.status()["program_cache"]
+    report = {{"seconds": time.perf_counter() - t0, "warmup": status["warmup"],
+              "compile_s": metrics.timer("engine.compile").seconds - compiled,
+              "bytes": status["persistent"]["bytes"] - before, "ended": time.time()}}
+    return server, report
+
+
+if part == "udf":
+    with cs.scoped_env(SPARKDL_RAGGED="1"):
+        session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+        registerKerasImageUDF("inception_serving", {keras!r}, session=session,
+                              device=cs.P14_DEVICE)
+        server, report = warmed(ModelServer.from_registered_udf(
+            "inception_serving", session=session,
+            config=ServingConfig(max_batch=32, max_wait_ms=2.0)))
+        server.close()
+else:
+    FLASH_FWD.build()
+    params = cs.flax_layout_vit_params(seed=2, classes=cs.N_CLASSES)
+    with cs.scoped_env(SPARKDL_RAGGED="1" if part == "vit" else "0"):
+        server, report = warmed(cs.vit_server(params, 32 if part == "vit" else 4))
+        if part == "vit":
+            ep = server._endpoints["vit"]
+            block = torch.from_numpy(np.load({block!r})).to(cs.P14_DEVICE)
+            mask = torch.ones(block.shape[0], dtype=torch.bool, device=cs.P14_DEVICE)
+            np.save({rows!r}, ep._ragged_program()(ep._params, block, mask).cpu().numpy())
+        server.close()
+print("P14_PRECOMPILE " + json.dumps(report), flush=True)
 """
+
+
+def p14_images(n: int):
+    """Phase 14's first ``n`` images (its generator's first draw)."""
+    return np.random.default_rng(14).random((n, P14_IMAGE, P14_IMAGE, 3), dtype=np.float32)
+
+
+class ServingPrecompile:
+    """Phase 14's programs (``P14_PRECOMPILE``) compiled in three child
+    processes at once (``P14_PARTS``), each at the lowest CPU priority
+    (nice 19), started after phase 6 so that their minutes of compiling run
+    beside phases 7-12 and not in phase 14, as :class:`NativeExport`'s do.
+    It holds the compile-cache directory, (c)'s ``.keras`` file and (b)'s
+    block, which it writes before it starts the children. :meth:`wait`,
+    before phase 13, joins them; phase 14 loads what they compiled.
+    :meth:`close` stops those still running and removes the files."""
+
+    def __init__(self):
+        import gzip
+        import os
+
+        from sparkdl_tpu_torch.models.keras_model import write_keras_file
+
+        self.dir = Path(tempfile.mkdtemp(prefix="chip-smoke-serving-"))
+        self.programs = str(self.dir / "programs")
+        self.keras = str(self.dir / "inception_v3.keras")
+        self.block = str(self.dir / "block.npy")
+        self.rows = str(self.dir / "rows.npy")
+        config = json.loads(gzip.decompress(KERAS_CONFIG.read_bytes()))
+        write_keras_file(self.keras, config, keras_inception_weights(config, seed=11))
+        np.save(self.block, p14_images(32))
+        self.started = time.perf_counter() - _STARTED
+        self.result = None
+        env = dict(os.environ, SPARKDL_COMPILE_CACHE=self.programs)
+        self.children = {part: NicedChild(
+            P14_PRECOMPILE.format(root=str(Path(__file__).resolve().parent),
+                                  prelude=P14_CHILD_PRELUDE, part=part, block=self.block,
+                                  rows=self.rows, keras=self.keras),
+            "P14_PRECOMPILE", self.dir / f"precompile-{part}.log", env=env)
+            for part in P14_PARTS}
+
+    def wait(self) -> dict:
+        """Each part's warmup report (``vit``, ``udf``, ``ladder``: seconds,
+        ``engine.compile`` seconds, package bytes, each program's source,
+        the end on the wall clock) once every child has ended; raises with a
+        failed child's output's end."""
+        if self.result is None:
+            t0 = time.perf_counter()
+            deadline = t0 + P14_PRECOMPILE_TIMEOUT_S
+            result = {part: child.wait(max(1.0, deadline - time.perf_counter()),
+                                       f"phase 14's {part} compile")
+                      for part, child in self.children.items()}
+            waited = time.perf_counter() - t0
+            self.result = result
+            log(f"serving: phase 14's programs compiled in {len(result)} child processes from "
+                f"{self.started:.1f} s of the script, ended at "
+                + ", ".join(f"{part} {r['ended'] - _STARTED_EPOCH:.1f} s"
+                            for part, r in result.items())
+                + f"; phase 13 waited {waited:.2f} s for them")
+        return self.result
+
+    def close(self) -> None:
+        import shutil
+
+        for child in self.children.values():
+            child.stop()
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def bf16_vit(train_params):
@@ -3900,26 +4137,25 @@ def udf_program_repair(udf_server, fn, items, plain) -> None:
     np.testing.assert_allclose(repaired, plain[:n], **SLICE_TOL)
 
 
-def online_serving(card: str, counted, train_params, then=None) -> int:
+def online_serving(card: str, counted, train_params, precompiled: ServingPrecompile,
+                   then=None) -> int:
     """Phase 14: ``ModelServer`` on the card through ``ExecutionEngine``
-    (AOTInductor programs in a persistent cache): (a) a ViT-B/16 bf16
-    endpoint through #1, (b) its warm start from disk in another process,
-    (c) the Keras InceptionV3 UDF endpoint, (e) its compiled program called
-    straight through the engine with the Keras model's non-contiguous
-    kernels, (d) the padded ladder and the decode plane. ``then(server,
+    (AOTInductor programs in a persistent cache, compiled by
+    ``precompiled``'s child process and loaded here): (a) a ViT-B/16 bf16
+    endpoint through #1, (b) its warm start: this process loads the
+    program another compiled, (c) the Keras InceptionV3 UDF endpoint, (e)
+    its compiled program called straight through the engine with the Keras
+    model's non-contiguous kernels, (d) the padded ladder and the decode
+    plane. ``then(server,
     images, want, serving_a)`` runs last, with (a)'s endpoint still open and
     its programs in memory (phase 15 streams through it; phase 16 sets its
     routed requests/s beside ``serving_a``, (a)'s line). Returns the
     lse-free forward's launches of (a) and (d)."""
-    import gzip
-    import os
-
     import torch
 
     from sparkdl_tpu_torch import registerKerasImageUDF
     from sparkdl_tpu_torch.graph import TorchFunction
     from sparkdl_tpu_torch.image.imageIO import imageArrayToStruct, imageStructToArray
-    from sparkdl_tpu_torch.models.keras_model import write_keras_file
     from sparkdl_tpu_torch.serving import ModelServer, ServingConfig
     from sparkdl_tpu_torch.sql.functions import col
     from sparkdl_tpu_torch.sql.session import TorchSession
@@ -3930,35 +4166,41 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
     reset, read = counted
     blocks = VIT_VARIANTS[P14_VARIANT][2]  # flash launches a forward: one per block
     launches = 0
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-serving-") as tmp, \
-            scoped_env(SPARKDL_COMPILE_CACHE=os.path.join(tmp, "programs"),
-                       SPARKDL_RAGGED="1"):
-        tmp = Path(tmp)
+    compiled = precompiled.wait()
+
+    def child_sources(label):
+        return [r["source"] for r in
+                next(iter(compiled[label]["warmup"].values())).values()]
+
+    with scoped_env(SPARKDL_COMPILE_CACHE=precompiled.programs, SPARKDL_RAGGED="1"):
         rng = np.random.default_rng(14)
         images = rng.random((P14_REQUESTS, P14_IMAGE, P14_IMAGE, 3), dtype=np.float32)
+        if images[:32].tobytes() != np.load(precompiled.block).tobytes():
+            raise AssertionError("(b)'s block is not phase 14's first 32 images")
         want = vit_plain_f32(train_params, images)
 
-        # (a) the ViT-B/16 endpoint, ragged, through the flash forward
+        # (a) the ViT-B/16 endpoint, ragged, through the flash forward: the
+        # child compiled its slot-block program, this process loads it
         metrics.reset()
         used0 = device_used()
         server = vit_server(train_params, 32)
         used1 = device_used()
         t0 = time.perf_counter()
         assert server.warmup() == {"vit": ("ragged",)}
-        cold_s = time.perf_counter() - t0
+        warm_s = time.perf_counter() - t0
         used2 = device_used()
-        status = server.status()["program_cache"]
-        report = status["warmup"]["vit"]["ragged"]
+        report = server.status()["program_cache"]["warmup"]["vit"]["ragged"]
         weights = sum(t.numel() * t.element_size()
                       for t in server._endpoints["vit"]._params.values())
-        log(f"serving (a): ViT-B/16 bf16 slot block of 32, warmup {cold_s:.2f} s "
-            f"({report['source']}; engine.compile {metrics.timer('engine.compile').seconds:.2f} s)"
-            f" ({card})")
+        cold = compiled["vit"]
+        log(f"serving (a): ViT-B/16 bf16 slot block of 32, compiled in the child in "
+            f"{cold['seconds']:.2f} s (engine.compile {cold['compile_s']:.2f} s), loaded here: "
+            f"warmup {warm_s:.2f} s ({report['source']}) ({card})")
         log(f"  (a) card memory: the endpoint's weights {mib(used1 - used0)} ({mib(weights)} of "
             f"params), its slot-block program {mib(used2 - used1)} more; the package on disk "
-            f"{mib(status['persistent']['bytes'])}")
-        if report["source"] != "compile":
-            raise AssertionError(f"the cold warmup did not compile: {report}")
+            f"{mib(cold['bytes'])}")
+        if child_sources("vit") != ["compile"]:
+            raise AssertionError(f"the child's warmup did not compile: {cold}")
         compiles = metrics.counter("serving.compiles").value
         batches0 = metrics.counter("serving.batches").value
         reset()
@@ -3981,41 +4223,30 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
                                  "dispatched blocks")
         launches += counts["flash_attention_fwd"]
 
-        # (b) a warm start: another process, the same cache directory
-        block = images[:32]
-        np.save(tmp / "block.npy", block)
-        block_dev = torch.from_numpy(block).to(P14_DEVICE)
+        # (b) the warm start: (a)'s warmup in this process loaded from disk
+        # what the child compiled, and the two programs agree bit for bit on
+        # one full block
+        block_dev = torch.from_numpy(images[:32]).to(P14_DEVICE)
         mask = torch.ones(32, dtype=torch.bool, device=P14_DEVICE)
         ep = server._endpoints["vit"]
-        cold_out = ep._ragged_program()(ep._params, block_dev, mask).cpu().numpy()
+        warm_out = ep._ragged_program()(ep._params, block_dev, mask).cpu().numpy()
         del ep  # the endpoint stays open for phase 15, its programs in memory
-        code = P14_WARM_START.format(root=str(Path(__file__).resolve().parent),
-                                     prelude=P14_CHILD_PRELUDE,
-                                     block=str(tmp / "block.npy"), out=str(tmp / "warm.npy"))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                              timeout=600)
-        process_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the warm-start process failed:\n{proc.stderr[-3000:]}")
-        warm = json.loads(proc.stdout.strip().splitlines()[-1])
-        warm_out = np.load(tmp / "warm.npy")
-        log(f"serving (b): warm start in a second process ({process_s:.1f} s in all): "
-            f"{warm['source']}, warmup {warm['load_s']:.2f} s (of it engine.cache_load "
+        cold_out = np.load(precompiled.rows)
+        warm = metrics.snapshot("engine.")
+        log(f"serving (b): warm start, the child's program in this process: "
+            f"{report['source']}, warmup {warm_s:.2f} s (of it engine.cache_load "
             f"{warm.get('engine.cache_load.seconds', 0.0):.2f} s), engine.cache_hit "
             f"{warm.get('engine.cache_hit', 0):.0f}, engine.compile "
             f"{warm.get('engine.compile.seconds', 0.0):.2f} s; block of 32 bit for bit "
             f"{warm_out.tobytes() == cold_out.tobytes()} ({card})")
-        if warm["source"] != "disk" or warm.get("engine.cache_miss", 0) or \
+        if report["source"] != "disk" or warm.get("engine.cache_miss", 0) or \
                 warm.get("engine.compile.seconds", 0.0):
-            raise AssertionError(f"the warm start compiled: {warm}")
+            raise AssertionError(f"the warm start compiled: {report}, {warm}")
         if warm_out.tobytes() != cold_out.tobytes():
-            raise AssertionError("the loaded program's block differs from the cold program's")
+            raise AssertionError("the loaded program's block differs from the compiled one's")
 
-        # (c) the Keras InceptionV3 UDF endpoint
-        config = json.loads(gzip.decompress(KERAS_CONFIG.read_bytes()))
-        path = str(tmp / "inception_v3.keras")
-        write_keras_file(path, config, keras_inception_weights(config, seed=11))
+        # (c) the Keras InceptionV3 UDF endpoint (its program the child's)
+        path = precompiled.keras
         session = TorchSession.builder.appName("chip_smoke").getOrCreate()
         udf = registerKerasImageUDF("inception_serving", path, session=session,
                                     device=P14_DEVICE)
@@ -4030,8 +4261,15 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
         t0 = time.perf_counter()
         udf_server.warmup()
         udf_s = time.perf_counter() - t0
-        log(f"serving (c): Keras InceptionV3 UDF endpoint, float32 slot block of 32, warmup "
-            f"{udf_s:.2f} s ({card})")
+        sources = [r["source"] for r in next(iter(
+            udf_server.status()["program_cache"]["warmup"].values())).values()]
+        log(f"serving (c): Keras InceptionV3 UDF endpoint, float32 slot block of 32, compiled "
+            f"in the child in {compiled['udf']['seconds']:.2f} s, loaded here: warmup "
+            f"{udf_s:.2f} s ({', '.join(sources)}) ({card})")
+        if child_sources("udf") != ["compile"] or sources != ["disk"] or \
+                metrics.timer("engine.compile").entries:
+            raise AssertionError(f"(c): the child's warmup {compiled['udf']}, this one's "
+                                 f"{sources}")
         reset()
         got, lat, wall = serve_from_threads(udf_server, items, P14_UDF_THREADS)
         counts = read()
@@ -4065,10 +4303,18 @@ def online_serving(card: str, counted, train_params, then=None) -> int:
             warmed = padded.warmup()
             ladder_s = time.perf_counter() - t0
             ladder_mem = device_used() - used0
-            if warmed != {"vit": (1, 2, 4)} or metrics.counter("serving.compiles").value != 3:
-                raise AssertionError(f"the padded ladder warmed {warmed}")
+            # the child compiled the three programs, this process loads them
+            if warmed != {"vit": (1, 2, 4)} or child_sources("ladder") != ["compile"] * 3 \
+                    or metrics.counter("serving.compiles").value \
+                    or metrics.counter("serving.cache_load").value != 3:
+                raise AssertionError(f"the padded ladder warmed {warmed}: the child's "
+                                     f"{compiled['ladder']}")
             report = padded.status()["program_cache"]["warmup"]["vit"]
-            log(f"serving (d): padded ladder (1, 2, 4) warmup {ladder_s:.2f} s: "
+            built = compiled["ladder"]["warmup"]["vit"]
+            log(f"serving (d): padded ladder (1, 2, 4) compiled in the child in "
+                f"{compiled['ladder']['seconds']:.2f} s: "
+                + ", ".join(f"bucket {b} {r['seconds']:.2f} s" for b, r in built.items())
+                + f"; loaded here: warmup {ladder_s:.2f} s: "
                 + ", ".join(f"bucket {b} {r['seconds']:.2f} s" for b, r in report.items())
                 + f"; the three programs {mib(ladder_mem)} of card memory beside the weights"
                 + f" ({card})")
@@ -4172,6 +4418,37 @@ def uri_scorer(module):
             return module(x.to(P14_DEVICE))
 
     return score
+
+
+class WorkerRun:
+    """A worker process (``python -c code``) started now, its output read by
+    a thread, so that several run at once (phases 15 (c) and 18 (c) run
+    their independent workers side by side). :meth:`result` waits for it:
+    ``(CompletedProcess with text stdout and stderr, its seconds)``; past
+    ``timeout`` it is killed (its exit then -9)."""
+
+    def __init__(self, code: str, env, timeout: float = 600.0):
+        import threading
+
+        self.started = time.perf_counter()
+        self.popen = subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        self.done = None
+        self.thread = threading.Thread(target=self._wait, args=(timeout,), daemon=True)
+        self.thread.start()
+
+    def _wait(self, timeout: float) -> None:
+        try:
+            out, err = self.popen.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.popen.kill()
+            out, err = self.popen.communicate()
+        self.done = (subprocess.CompletedProcess(self.popen.args, self.popen.returncode, out,
+                                                 err), time.perf_counter() - self.started)
+
+    def result(self):
+        self.thread.join()
+        return self.done
 
 
 def worker_config():
@@ -4372,22 +4649,23 @@ def streaming_inference(card: str, counted, train_params, server, images, want) 
             env.pop("SPARKDL_FAULT_PLAN", None)
             if plan is not None:
                 env["SPARKDL_FAULT_PLAN"] = json.dumps(plan)
-            code = P15_WORKER.format(root=str(Path(__file__).resolve().parent),
-                                     prelude=P14_CHILD_PRELUDE, workdir=str(path))
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                                  text=True, timeout=600)
-            return proc, time.perf_counter() - t0
+            return WorkerRun(P15_WORKER.format(root=str(Path(__file__).resolve().parent),
+                                               prelude=P14_CHILD_PRELUDE, workdir=str(path)),
+                             env)
 
+        # the uninterrupted worker and the one killed run side by side; the
+        # restart follows the kill
         t_c = time.perf_counter()
         clean_dir, killed_dir = workdir("clean"), workdir("killed")
-        proc, clean_s = worker(clean_dir)
+        clean_run = worker(clean_dir)
+        killed_run = worker(killed_dir, [{"site": "streaming.commit", "kill": True,
+                                          "at": P15_KILL_AT}])
+        proc, clean_s = clean_run.result()
         if proc.returncode != 0:
             raise AssertionError(f"(c) the uninterrupted worker failed:\n{proc.stderr[-3000:]}")
         clean_launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
         clean = exactly_once("(c) uninterrupted", sink_rows(clean_dir / "out.jsonl"), len(records))
-        proc, killed_s = worker(killed_dir, [{"site": "streaming.commit", "kill": True,
-                                              "at": P15_KILL_AT}])
+        proc, killed_s = killed_run.result()
         if proc.returncode != 9:
             raise AssertionError(f"(c) the killed worker exited {proc.returncode}, not 9:\n"
                                  f"{proc.stderr[-3000:]}")
@@ -4396,7 +4674,7 @@ def streaming_inference(card: str, counted, train_params, server, images, want) 
         if not pending:
             raise AssertionError("(c) the kill left no payload without its marker")
         payloads = {e: log_dir.payload(e)["records"] for e in pending}
-        proc, restart_s = worker(killed_dir)
+        proc, restart_s = worker(killed_dir).result()
         if proc.returncode != 0:
             raise AssertionError(f"(c) the restarted worker failed:\n{proc.stderr[-3000:]}")
         restarted = json.loads(proc.stdout.strip().splitlines()[-1])["summary"]
@@ -4571,7 +4849,7 @@ def routed_stream(router, prompt: float, steps: int):
     raise AssertionError(f"the stream of prompt {prompt} failed four times")
 
 
-def replica_plane(card: str, images, want, serving_a: str) -> None:
+def replica_plane(card: str, images, want, serving_a: str) -> list:
     """Phase 16: ``ReplicaSupervisor`` over two replica processes of
     :func:`vit_replica_server` behind the ``Router``, tracing on in the
     router and the replicas. (a) start, (b) phase 14's 256 images from 16
@@ -4579,13 +4857,15 @@ def replica_plane(card: str, images, want, serving_a: str) -> None:
     replica 0 a third of the way, (d) SIGTERM of replica 1 with requests in
     flight, (e) the telemetry plane, (f) the other wire lane. #1's launches
     are checked in the replicas (12 a block, in the factory); the parent
-    counts none."""
+    counts none. Returns (b)'s replay records (``records_from_spans`` over
+    the router's ``router.request`` spans), which phase 21 (a) replays."""
     import os
     import threading
 
     from sparkdl_tpu_torch.obs import JsonlTraceSink, diagnose, diagnose_paths, tracer
     from sparkdl_tpu_torch.serving import ReplicaSpec, ReplicaSupervisor
     from sparkdl_tpu_torch.serving.router import Router
+    from sparkdl_tpu_torch.sim import records_from_spans
     from sparkdl_tpu_torch.utils.metrics import metrics
 
     t_phase = time.perf_counter()
@@ -4622,6 +4902,10 @@ def replica_plane(card: str, images, want, serving_a: str) -> None:
             served = diagnose(sink.spans(), record_metrics=False)["per_replica"]
             router_spans = os.path.join(tmp, "router_spans.jsonl")
             sink.flush(router_spans)
+            # phase 21 (a) replays these: one record per routed request,
+            # built from the span file before the directory goes
+            with open(router_spans) as fh:
+                routed = records_from_spans(json.loads(line) for line in fh)
             if len(served) != P16_REPLICAS or not all(v["requests"] for v in served.values()):
                 raise AssertionError(f"(b) not every replica served: {served}")
             log("  (b) requests per replica: " + ", ".join(
@@ -4786,6 +5070,7 @@ def replica_plane(card: str, images, want, serving_a: str) -> None:
             for name, v in attribution["phases"].items())
         + f" ms; coverage of p50 {attribution['coverage_p50']:.3f} ({card})")
     log(f"replicas: phase 16 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return routed
 
 
 # ---------------------------------------------------------------------------
@@ -4978,28 +5263,36 @@ def rollout(card: str, sup, spec, root: str, images, want) -> None:
             recorder.disarm()
 
 
-def parallel_phase(card: str) -> dict:
-    """Phase 17 (b): :func:`parallel_child` in a fresh process (no process
-    that touched CUDA forks), which brings up an NCCL group of one on the
-    card. Its log lines are passed on; it fails the script by exiting
-    non-zero. Returns the launches of #1-#4 it counted."""
+def child_launches(function: str, marker: str, timeout_s: float) -> dict:
+    """``chip_smoke.<function>()`` in a fresh process (no process that
+    touched CUDA forks). Its log lines are passed on; it fails the script by
+    exiting non-zero. Returns the launch counts it printed after
+    ``marker``."""
     import os
 
-    t0 = time.perf_counter()
     root = str(Path(__file__).resolve().parent)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
     proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.parallel_child())"],
-        cwd=root, env=env, stdout=subprocess.PIPE, text=True, timeout=P17_CHILD_TIMEOUT_S)
+        [sys.executable, "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.{function}())"],
+        cwd=root, env=env, stdout=subprocess.PIPE, text=True, timeout=timeout_s)
     launches = None
     for line in proc.stdout.splitlines():
-        if line.startswith("PHASE17_LAUNCHES "):
+        if line.startswith(marker + " "):
             launches = json.loads(line.split(" ", 1)[1])
         else:
             log(line)
     if proc.returncode != 0 or launches is None:
-        raise AssertionError(f"phase 17 (b): the parallel child exited {proc.returncode}")
+        raise AssertionError(f"{function}: the child exited {proc.returncode}")
+    return launches
+
+
+def parallel_phase(card: str) -> dict:
+    """Phase 17 (b): :func:`parallel_child` in a fresh process, which brings
+    up an NCCL group of one on the card. Returns the launches of #1-#4 it
+    counted."""
+    t0 = time.perf_counter()
+    launches = child_launches("parallel_child", "PHASE17_LAUNCHES", P17_CHILD_TIMEOUT_S)
     log(f"parallel: phase 17 (b) in {time.perf_counter() - t0:.1f} s, launches "
         f"{launches} ({card})")
     return launches
@@ -5528,12 +5821,9 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
             env.pop("SPARKDL_FAULT_PLAN", None)
             if plan is not None:
                 env["SPARKDL_FAULT_PLAN"] = json.dumps(plan)
-            code = P18_WORKER.format(root=str(Path(__file__).resolve().parent),
-                                     prelude=P14_CHILD_PRELUDE, workdir=str(path))
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
-                                  text=True, timeout=600)
-            return proc, time.perf_counter() - t0
+            return WorkerRun(P18_WORKER.format(root=str(Path(__file__).resolve().parent),
+                                               prelude=P14_CHILD_PRELUDE, workdir=str(path)),
+                             env)
 
         def worker_result(label, proc):
             if proc.returncode != 0:
@@ -5544,9 +5834,15 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
                                      f"{out['batches']} blocks")
             return out
 
+        # the uninterrupted worker and the two killed run side by side; the
+        # restart follows the kill at streaming.window_commit
         t_c = time.perf_counter()
         clean_dir, killed_dir, plan_dir = workdir("clean"), workdir("killed"), workdir("plan")
-        proc, clean_s = worker(clean_dir)
+        clean_run = worker(clean_dir)
+        killed_run = worker(killed_dir, [{"site": "streaming.window_commit", "kill": True,
+                                          "at": P18_KILL_AT}])
+        plan_run = worker(plan_dir, [{"site": "csql.plan", "kill": True, "at": 1}])
+        proc, clean_s = clean_run.result()
         clean_out = worker_result("uninterrupted", proc)
         clean_rows = sink_rows(clean_dir / "out.jsonl")
         clean = window_aggregates(clean_rows)
@@ -5556,8 +5852,7 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
         check_windows("(c) uninterrupted worker", clean,
                       expected_windows(scores[idx], [r["label"] for r in records],
                                        [r["ts"] for r in records]), bound)
-        proc, killed_s = worker(killed_dir, [{"site": "streaming.window_commit", "kill": True,
-                                              "at": P18_KILL_AT}])
+        proc, killed_s = killed_run.result()
         if proc.returncode != 9:
             raise AssertionError(f"(c) the killed worker exited {proc.returncode}, not 9:\n"
                                  f"{proc.stderr[-3000:]}")
@@ -5566,7 +5861,7 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
         payloads = {e: commit_log.payload(e)["closed"] for e in pending}
         if not pending or not any(payloads.values()):
             raise AssertionError(f"(c) the kill left pending epochs {pending} with no windows")
-        proc, restart_s = worker(killed_dir)
+        proc, restart_s = worker(killed_dir).result()
         restarted = worker_result("restarted", proc)["summary"]
         if restarted["replayed"] != len(pending) or commit_log.pending():
             raise AssertionError(f"(c) the restart replayed {restarted['replayed']} of "
@@ -5581,7 +5876,7 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
         if len(resumed) != len(rows):
             raise AssertionError("(c) the restarted run emitted a window twice")
         check_windows("(c) killed and restarted worker", resumed, clean, bound)
-        proc, plan_s = worker(plan_dir, [{"site": "csql.plan", "kill": True, "at": 1}])
+        proc, plan_s = plan_run.result()
         if proc.returncode != 9:
             raise AssertionError(f"(c) the worker killed at csql.plan exited {proc.returncode}")
         left = sorted(p.name for p in plan_dir.iterdir())
@@ -5594,6 +5889,258 @@ def continuous_sql(card: str, counted, train_params, images, want) -> int:
             f"epochs {sorted(payloads)} bit for bit from their payloads; killed at csql.plan "
             f"(exit 9) {plan_s:.1f} s, nothing left behind; (c) in all "
             f"{time.perf_counter() - t_c:.1f} s ({card})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the fleet simulator on phase 16 (b)'s routed traffic, and the
+# profiler through SPARKDL_PROFILE_DIR
+# ---------------------------------------------------------------------------
+# (a): the live fleet's knobs: two replicas of vit_replica_server, whose
+# ServingConfig(max_batch=32, max_wait_ms=2.0) keeps the default queue of 256;
+# the router's hedging and retry budget are at their defaults in both
+P21_CONFIG = {"replicas": P16_REPLICAS, "max_batch": 32, "max_wait_ms": 2.0,
+              "queue_capacity": 256}
+P21_SEED = 0
+P21_TUNE_BUDGET = 8
+P21_IMAGES = 32          # (b): images a profiled transform, one batch ...
+P21_BATCH = 32           # ... of this many
+# (b): convolution kernels by name: cuDNN's and the implicit-GEMM kernels
+# (xmma, cutlass) a convolution may run as
+P21_CONV_KERNEL = re.compile(r"conv|cudnn|fprop|implicit|xmma|cutlass|winograd", re.I)
+P21_FLASH_KERNEL = "flash_fwd_kernel"   # #1's __global__ in flash_attention_fwd.cu
+P21_CHILD_TIMEOUT_S = 300.0
+
+
+def fleet_replay(card: str, routed) -> None:
+    """Phase 21 (a): phase 16 (b)'s routed requests as a trace (written with
+    ``write_trace``, loaded back with ``load_trace``), replayed twice under
+    the live fleet's knobs (``P21_CONFIG``) to the same event log, its
+    fidelity against the live run printed (a reading, not a check), and
+    ``tune`` twice to the same artifact."""
+    import hashlib
+    import os
+
+    from sparkdl_tpu_torch.sim import (
+        FleetReplay,
+        fidelity_report,
+        load_trace,
+        summarize,
+        write_trace,
+    )
+    from sparkdl_tpu_torch.sim.trace import EMERGENT_PHASES, REPLAYED_PHASES
+    from sparkdl_tpu_torch.sim.tune import tune
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sim-") as tmp:
+        path = os.path.join(tmp, "routed_trace.jsonl")
+        write_trace(path, {"benchmark": "chip_smoke phase 16 (b)", "replicas": P16_REPLICAS,
+                           "threads": P16_THREADS, "live": summarize(routed)}, routed)
+        meta, records = load_trace(path)
+    if len(records) != P14_REQUESTS:
+        raise AssertionError(f"(a) {len(records)} records of {P14_REQUESTS} routed requests")
+    no_forward = [r.to_json() for r in records if not r.phases.get("forward", 0.0) > 0.0]
+    if no_forward:
+        raise AssertionError(f"(a) {len(no_forward)} records without a forward phase, e.g. "
+                             f"{no_forward[0]}")
+    names = {name for r in records for name in r.phases}
+    unknown = names - set(REPLAYED_PHASES) - set(EMERGENT_PHASES)
+    if unknown:
+        raise AssertionError(f"(a) phases the simulator does not know: {sorted(unknown)}")
+    log(f"sim (a): {len(records)} records from phase 16 (b)'s router.request spans, "
+        f"phases {sorted(names)}; outcomes "
+        f"{sorted({r.outcome for r in records})}")
+
+    runs = []
+    for _ in range(2):
+        replay = FleetReplay(records, config=P21_CONFIG, seed=P21_SEED)
+        runs.append((replay, replay.run()))
+    (first, report), (second, _) = runs
+    log_bytes = first.event_log_bytes()
+    if second.event_log_bytes() != log_bytes:
+        raise AssertionError("(a) two replays of one trace and seed gave different event logs")
+    times = [row["t"] for row in first.event_log]
+    if any(b < a for a, b in zip(times, times[1:])):
+        raise AssertionError("(a) the event log's times decrease")
+    if report["requests"] != len(records):
+        raise AssertionError(f"(a) the replay counted {report['requests']} requests")
+    if report["ok"] + report["shed"] + report["expired"] > report["requests"]:
+        raise AssertionError(f"(a) ok {report['ok']} + shed {report['shed']} + expired "
+                             f"{report['expired']} > {report['requests']} requests")
+    log(f"sim (a): two replays, one event log: sha256 "
+        f"{hashlib.sha256(log_bytes).hexdigest()}, {len(first.event_log)} events "
+        f"({report['events']} handled), {len(log_bytes)} bytes; requests {report['requests']}, "
+        f"ok {report['ok']}, shed {report['shed']}, expired {report['expired']}; virtual "
+        f"{report['virtual_s']} s in wall {report['wall_s']} s, ratio {report['speedup']} "
+        f"(the card's host CPU)")
+    fidelity = fidelity_report(meta["live"], report, tolerance=0.15, floor_ms=0.25)
+    rows = fidelity["rows"]
+    passed = sum(1 for row in rows.values() if row["ok"])
+    log(f"sim (a): fidelity, live (phase 16 (b), {P16_THREADS} threads closed loop, "
+        f"{card}) against replayed (open loop), bound 15% or 0.25 ms: {passed} of "
+        f"{len(rows)} rows pass")
+    for label, row in rows.items():
+        log(f"  {label}: live {row['live']} ms, replayed {row['sim']} ms, bound "
+            f"{row['bound']} ms, {'ok' if row['ok'] else 'miss'}")
+
+    artifacts = [tune(records, budget=P21_TUNE_BUDGET, seed=P21_SEED) for _ in range(2)]
+    texts = [json.dumps(a, sort_keys=True) for a in artifacts]
+    if texts[0] != texts[1]:
+        raise AssertionError("(a) two tune() runs gave different artifacts")
+    art = artifacts[0]
+    rec, default = art["recommended"], art["default"]
+    log(f"sim (a): tune(budget={P21_TUNE_BUDGET}, seed={P21_SEED}, stress "
+        f"{art['time_scale']}x) twice, one artifact (sha256 "
+        f"{hashlib.sha256(texts[0].encode()).hexdigest()[:16]}, {len(art['trials'])} "
+        f"trials): recommended {rec['config']}, burn {rec['burn_integral']} (score "
+        f"{rec['score']}, p99 {rec['p99_ms']} ms) against the default's "
+        f"{default['burn_integral']} (score {default['score']}, p99 "
+        f"{default['p99_ms']} ms)")
+
+
+def kernel_events(log_dir: str, label: str) -> list:
+    """The CUDA kernel events of the one ``*.pt.trace.json`` under
+    ``log_dir``; raises if there is none, or no kernel event."""
+    traces = sorted(Path(log_dir).rglob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"(b) {label}: {len(traces)} traces in {log_dir}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"(b) {label}: the trace holds no CUDA kernel events (CUPTI "
+                             f"gave none); categories "
+                             f"{sorted({str(e.get('cat')) for e in events})}")
+    return kernels
+
+
+def kernel_summary(kernels) -> str:
+    """Count, summed time and the five costliest kernels by summed time."""
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    total_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"{len(kernels)} kernel events, {total_ms:.3f} ms of kernel time; costliest: "
+            + "; ".join(f"{name[:90]} {us / 1e3:.3f} ms" for name, us in top))
+
+
+def profiled_transforms(card: str, counted) -> dict:
+    """Phase 21 (b): ``SPARKDL_PROFILE_DIR`` set to a fresh directory for a
+    transform of 32 images through the bf16 InceptionV3
+    ``DeepImageFeaturizer``, then to another for 32 images through the bf16
+    flash ViT-B/16 ``TorchImageFileTransformer`` (both with seeded random
+    weights: the readings are the traces); each stage is run once
+    unprofiled first, and the profiled rows must equal those bit for bit.
+    Returns the launches of the four kernels over (b)."""
+    import os
+
+    import torch
+
+    from sparkdl_tpu_torch import DeepImageFeaturizer
+    from sparkdl_tpu_torch.estimators import TorchImageFileTransformer
+    from sparkdl_tpu_torch.models.vit import ViT
+    from sparkdl_tpu_torch.sql.session import TorchSession
+
+    reset_counts, counts = counted
+    session = TorchSession.builder.appName("chip_smoke").getOrCreate()
+    featurizer = DeepImageFeaturizer(
+        inputCol="image", outputCol="features", modelName="InceptionV3",
+        modelWeights="random", computeDtype="bfloat16", batchSize=P21_BATCH)
+    cnn_df = session.createDataFrame(cnn_image_rows(P21_IMAGES, seed=21), numPartitions=1)
+    torch.manual_seed(21)
+    vit_stage = TorchImageFileTransformer(
+        inputCol="uri", outputCol="features", imageLoader=load_npy,
+        module=ViT(variant="ViT-B/16", num_classes=N_CLASSES, attn_impl="flash",
+                   dtype=torch.bfloat16),
+        batchSize=P21_BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-profile-") as tmp:
+        rng = np.random.default_rng(21)
+        uris = []
+        for i in range(P21_IMAGES):
+            uris.append(os.path.join(tmp, f"img_{i:02d}.npy"))
+            np.save(uris[-1], rng.random((224, 224, 3), dtype=np.float32))
+        vit_df = session.createDataFrame([{"uri": u} for u in uris], numPartitions=1)
+        reset_counts()
+        for label, stage, df, classes in (("featurizer", featurizer, cnn_df, 2048),
+                                          ("vit", vit_stage, vit_df, N_CLASSES)):
+            plain = rows_array(stage.transform(df).collect())
+            before = counts()
+            log_dir = os.path.join(tmp, f"trace_{label}")
+            t0 = time.perf_counter()
+            with scoped_env(SPARKDL_PROFILE_DIR=log_dir):
+                traced = rows_array(stage.transform(df).collect())
+            traced_s = time.perf_counter() - t0
+            during = {k: v - before[k] for k, v in counts().items()}
+            if traced.shape != (P21_IMAGES, classes) or not np.isfinite(traced).all():
+                raise AssertionError(f"(b) {label}: rows of shape {traced.shape}")
+            if not np.array_equal(traced, plain):
+                raise AssertionError(f"(b) {label}: the profiled rows differ from the "
+                                     f"unprofiled ones by {np.abs(traced - plain).max():.3e}")
+            kernels = kernel_events(log_dir, label)
+            flash = [e for e in kernels if P21_FLASH_KERNEL in e["name"]]
+            conv = [e for e in kernels if P21_CONV_KERNEL.search(e["name"])]
+            if label == "vit":
+                want = during["flash_attention_fwd"]
+                if want != 12 * (P21_IMAGES // P21_BATCH) or len(flash) != want:
+                    raise AssertionError(f"(b) the ViT trace holds {len(flash)} {P21_FLASH_KERNEL} "
+                                         f"events; the wrapper counted {during}")
+            else:
+                if flash or any(during.values()):
+                    raise AssertionError(f"(b) the featurizer's trace holds {len(flash)} flash "
+                                         f"kernels; the wrappers counted {during}")
+                if not conv:
+                    raise AssertionError("(b) the featurizer's trace holds no convolution "
+                                         "kernel: " + kernel_summary(kernels))
+            log(f"profile (b) {label}: {P21_IMAGES} images under SPARKDL_PROFILE_DIR in "
+                f"{traced_s:.2f} s, rows bit for bit the unprofiled ones; "
+                + kernel_summary(kernels)
+                + f"; {len(flash)} {P21_FLASH_KERNEL} events (the wrapper counted "
+                f"{during['flash_attention_fwd']}), {len(conv)} convolution kernels ({card})")
+    return counts()
+
+
+def profiler_child() -> int:
+    """Phase 21 (b), in a process of its own: :func:`profiled_transforms`.
+    Prints ``PHASE21_LAUNCHES {...}``."""
+    host_build_env()
+    import torch
+
+    if not import_package():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from sparkdl_tpu_torch.ops.flash_attention import (
+        FLASH_BWD_DKV,
+        FLASH_BWD_DQ,
+        FLASH_FWD,
+        FLASH_FWD_LSE,
+    )
+
+    kernels = (FLASH_FWD, FLASH_FWD_LSE, FLASH_BWD_DQ, FLASH_BWD_DKV)
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+
+    def counts():
+        return {k.symbol + ("+lse" if k is FLASH_FWD_LSE else ""): k.launches for k in kernels}
+
+    launches = profiled_transforms(card_line(), (reset, counts))
+    print("PHASE21_LAUNCHES " + json.dumps(launches), flush=True)
+    return 0
+
+
+def sim_and_profiler(card: str, routed) -> dict:
+    """Phase 21: (a) :func:`fleet_replay`, (b) :func:`profiler_child` in a
+    fresh process. A capture late in a long process loses its first kernels
+    (the profiler places the card's events before the capture's start as
+    the process ages: PERF.md §6), so (b) captures in a process of
+    its own, as a user who wants every kernel would. Returns (b)'s
+    launches."""
+    t0 = time.perf_counter()
+    fleet_replay(card, routed)
+    launches = child_launches("profiler_child", "PHASE21_LAUNCHES", P21_CHILD_TIMEOUT_S)
+    log(f"sim and profiler: phase 21 in {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches} ({card})")
     return launches
 
 
@@ -5613,10 +6160,33 @@ def import_package() -> bool:
     return True
 
 
+def start_cpu_isa_probes():
+    """A process's first AOTInductor load asks Inductor which vector
+    instruction sets the CPU has (``pick_vec_isa``): it builds a probe for
+    each of a few and loads it in a Python process that imports torch, ~25 s
+    on the card's host, and keeps the answer for the process. This asks on
+    a thread, which mostly waits for those processes, so that the probes run
+    beside phases 7-12 and not in phase 14's first load. Returns the thread;
+    its ``seconds`` is set when it has asked."""
+    import threading
+
+    import torch._inductor.cpu_vec_isa as cpu_vec_isa
+
+    def probe():
+        t0 = time.perf_counter()
+        cpu_vec_isa.pick_vec_isa()
+        thread.seconds = time.perf_counter() - t0
+
+    thread = threading.Thread(target=probe, name="cpu-isa-probes", daemon=True)
+    thread.seconds = None
+    thread.start()
+    return thread
+
+
 def host_build_env() -> str:
     """The environment of this script's own AOTInductor builds and loads,
     set for it and the processes it starts, before torch is imported
-    (Inductor reads both variables when its config is imported):
+    (Inductor reads these variables when its config is imported):
 
     - ``CXX``: a package's C++ must link OpenMP, and a ``CXX`` that is a
       wrapper with search paths of its own may not find OpenMP's link
@@ -5626,7 +6196,13 @@ def host_build_env() -> str:
       process probes the CPU's vector instruction sets by starting a
       Python process that imports torch for each; the variable trusts the
       CPU's flags for most of them, which pays where starting torch is
-      slow (a check or two that does not read it still probes).
+      slow (a check or two that does not read it still probes);
+    - ``TORCHINDUCTOR_COMPILE_THREADS=1``: each compiling process compiles
+      its Triton kernels itself instead of starting a pool of workers, each
+      of which imports torch; on the card's host that takes a compile of
+      phase 14's programs less CPU at about the same wall time
+      (``chip_compile_cost.py``), and the script's compiling processes run
+      beside each other and beside card work, so CPU is what they share.
 
     Returns a line that says what was set."""
     import os
@@ -5637,8 +6213,10 @@ def host_build_env() -> str:
     if gxx is not None:
         os.environ["CXX"] = gxx
     os.environ.setdefault("TORCHINDUCTOR_VEC_ISA_OK", "1")
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     return (f"host build environment: CXX={os.environ.get('CXX')!r} (was {before!r}), "
-            f"TORCHINDUCTOR_VEC_ISA_OK={os.environ['TORCHINDUCTOR_VEC_ISA_OK']}")
+            f"TORCHINDUCTOR_VEC_ISA_OK={os.environ['TORCHINDUCTOR_VEC_ISA_OK']}, "
+            f"TORCHINDUCTOR_COMPILE_THREADS={os.environ['TORCHINDUCTOR_COMPILE_THREADS']}")
 
 
 def main() -> int:
@@ -6126,24 +6704,32 @@ def main() -> int:
     })
 
     mark("phases 1-6")
-    # phase 7: the CNN transfer-learning pipeline at full width
-    cnn_pipeline(card, counted=(reset_counts, counts))
-    mark("phase 7")
-
-    # phase 8: the rest of the CNN zoo at full width, and the sweep over it
-    cnn_zoo(card, counted=(reset_counts, counts))
-    mark("phase 8")
-
-    # phase 9: the graph layer: TorchFunction, TFImageTransformer,
-    # TFTransformer, export, persistence
-    records[0]["launches"] += graph_layer(card, counted=(reset_counts, counts))
-    mark("phase 9")
-
-    # phase 20's builds and export start here, in a child process at the
-    # lowest CPU priority, and compile beside phases 10-12; phase 13 waits
-    # for it, so that phases 13-19 run alone; phase 20 runs last
-    native_export = NativeExport()
+    # from here on child processes at the lowest CPU priority run beside
+    # phases 7-12: phase 14's compiles (phase 14 loads what they compile),
+    # phase 20's builds and export, and phase 11's two CPU steps; and so do
+    # the CPU-ISA probes of this process's first AOTInductor load, on a
+    # thread; phase 13 waits for them all, so that phases 13-19 run alone;
+    # phase 20 runs last
+    precompiled = ServingPrecompile()
+    native_export = reference = None
     try:
+        native_export = NativeExport()
+        reference = FineTuneReference()
+        isa_probes = start_cpu_isa_probes()
+
+        # phase 7: the CNN transfer-learning pipeline at full width
+        cnn_pipeline(card, counted=(reset_counts, counts))
+        mark("phase 7")
+
+        # phase 8: the rest of the CNN zoo at full width, and the sweep over it
+        cnn_zoo(card, counted=(reset_counts, counts))
+        mark("phase 8")
+
+        # phase 9: the graph layer: TorchFunction, TFImageTransformer,
+        # TFTransformer, export, persistence
+        records[0]["launches"] += graph_layer(card, counted=(reset_counts, counts))
+        mark("phase 9")
+
         # phase 10: the Keras half of the graph layer: a .keras InceptionV3
         # through TorchFunction.from_keras, KerasImageFileTransformer, the UDFs
         keras_half(card, counted=(reset_counts, counts))
@@ -6151,7 +6737,7 @@ def main() -> int:
 
         # phase 11: KerasImageFileEstimator fine-tuning the ResNet50 head
         # (BASELINE.json configs[3]) and its sweep
-        keras_fine_tune(card, counted=(reset_counts, counts))
+        keras_fine_tune(card, counted=(reset_counts, counts), reference=reference)
         mark("phase 11")
 
         # phase 12: checkpoint, resume and preemption of the ViT fit through
@@ -6166,10 +6752,17 @@ def main() -> int:
         mark("phase 12")
 
         native_export.wait()
-        phases_13_to_20(card, (reset_counts, counts), train_params, step_ms["flash"],
-                        records, native_export)
+        precompiled.wait()
+        isa_probes.join()
+        log("engine: this process's CPU-ISA probes (its first AOTInductor load's) ran on a "
+            "thread beside phases 7-12: " + (f"{isa_probes.seconds:.1f} s"
+                                             if isa_probes.seconds is not None else "failed"))
+        phases_13_to_21(card, (reset_counts, counts), train_params, step_ms["flash"],
+                        records, native_export, precompiled)
     finally:
-        native_export.close()
+        for child in (native_export, reference, precompiled):
+            if child is not None:
+                child.close()
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)
@@ -6179,9 +6772,9 @@ def main() -> int:
     return 0
 
 
-def phases_13_to_20(card: str, counted, train_params, f32_step_ms: float, records,
-                    native_export) -> None:
-    """Phases 13 (with 19), 14-18, 17 (b) and 20, in that order; the
+def phases_13_to_21(card: str, counted, train_params, f32_step_ms: float, records,
+                    native_export, precompiled) -> None:
+    """Phases 13 (with 19), 14-18, 17 (b), 20 and 21, in that order; the
     launches of each kernel join ``records``."""
     reset_counts, counts = counted
     # phase 13: the ported paths' remainder: the bf16 fit through #2-#4,
@@ -6195,7 +6788,8 @@ def phases_13_to_20(card: str, counted, train_params, f32_step_ms: float, record
         record["launches"] += remainder[key]
 
     # phase 14: the engine and online serving: the ViT-B/16 endpoint through
-    # #1 (ragged and padded), its warm start, the Keras UDF endpoint and its
+    # #1 (ragged and padded), its warm start (every program but the decode
+    # step compiled beside phases 7-12 by ``precompiled``), the Keras UDF endpoint and its
     # program given non-contiguous weights, decode; then phase 15 (the data
     # pipeline with device prefetch and streaming inference, exactly once)
     # while phase 14's ViT endpoint is still open
@@ -6203,16 +6797,16 @@ def phases_13_to_20(card: str, counted, train_params, f32_step_ms: float, record
     # (#1's launches checked in the replicas, not counted here)
     # phase 18: the SQL dialect and continuous SQL through an eager bf16 ViT-B/16
     # endpoint (#1), on phase 14's images and their float32 plain rows
-    streamed, csql = [], []
+    streamed, csql, routed = [], [], []
 
     def then(server, images, want, serving_a):
         streamed.append(streaming_inference(card, (reset_counts, counts), train_params,
                                             server, images, want))
-        replica_plane(card, images, want, serving_a)
+        routed.extend(replica_plane(card, images, want, serving_a))
         csql.append(continuous_sql(card, (reset_counts, counts), train_params, images, want))
 
     records[0]["launches"] += online_serving(card, (reset_counts, counts), train_params,
-                                             then=then)
+                                             precompiled, then=then)
     records[0]["launches"] += streamed[0] + csql[0]
     records[0]["phase18_launches"] = csql[0]
     mark("phases 14-18")
@@ -6234,6 +6828,18 @@ def phases_13_to_20(card: str, counted, train_params, f32_step_ms: float, record
                                      "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
         record["phase20_launches"] = native[key]
     mark("phase 20")
+
+    # phase 21: the fleet simulator over phase 16 (b)'s routed requests (no
+    # device work), then, in a child process, the profiler through
+    # SPARKDL_PROFILE_DIR over the bf16 featurizer and the bf16 flash ViT
+    # (#1), last, so that the profiler's CUPTI state touches no earlier
+    # reading
+    profiled = sim_and_profiler(card, routed)
+    for record, key in zip(records, ("flash_attention_fwd", "flash_attention_fwd+lse",
+                                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        record["launches"] += profiled[key]
+        record["phase21_launches"] = profiled[key]
+    mark("phase 21")
 
 
 if __name__ == "__main__":

@@ -21,8 +21,6 @@ one structured ``{"ok", "error_class", "detail"}`` record.
 from __future__ import annotations
 
 import logging
-import subprocess
-import sys
 import threading
 import time
 from typing import Any, Callable
@@ -30,6 +28,7 @@ from typing import Any, Callable
 from sparkdl_tpu_torch.resilience import inject
 from sparkdl_tpu_torch.resilience.errors import DeviceUnresponsive, error_class
 from sparkdl_tpu_torch.utils.metrics import metrics
+from sparkdl_tpu_torch.utils.probes import bounded_subprocess_probe
 
 logger = logging.getLogger(__name__)
 
@@ -56,19 +55,6 @@ def _blackbox_dump(reason: str, **attrs) -> None:
 
     blackbox.note(reason, **attrs)
     blackbox.dump(reason)
-
-
-def bounded_subprocess_probe(code: str, timeout_s: int) -> "tuple[bool, str]":
-    """Run ``code`` in a fresh interpreter with a hard timeout: ``(True,
-    stdout)`` on success, else ``(False, diagnostic)``."""
-    try:
-        proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                              text=True, timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        return False, f"probe hung > {timeout_s}s"
-    if proc.returncode != 0:
-        return False, (proc.stderr or proc.stdout).strip()[-200:]
-    return True, proc.stdout.strip()
 
 
 def watchdogged(

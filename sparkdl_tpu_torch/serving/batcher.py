@@ -198,9 +198,15 @@ class MicroBatcher:
         prologue: Optional[Callable[[Any], Any]] = None,
         params: Any = None,
         device=None,
+        clock=time.monotonic,
     ):
         self.model_id = model_id
         self._config = config
+        # the time source of every stamp (deadline, enqueue, expiry,
+        # dispatch, done) and of the admission queue's linger: the fleet
+        # simulator drives an endpoint on virtual time; live serving keeps
+        # the monotonic default
+        self._clock = clock
         self._cache = cache
         self._device = resolve_device(device)
         # every internal forward takes (params, batch); an endpoint without
@@ -271,6 +277,7 @@ class MicroBatcher:
             shed_counter=metrics.counter("serving.shed"),
             tenant_policy=(config.tenant_policy if config.tenant_policy is not None
                            else TenantPolicy.from_env()),
+            clock=clock,
         )
         self._breaker = CircuitBreaker(
             name=f"serving.{model_id}",
@@ -305,15 +312,15 @@ class MicroBatcher:
             )
         if deadline_ms is None:
             deadline_ms = self._config.default_deadline_ms
-        deadline = time.monotonic() + deadline_ms / 1000.0 if deadline_ms is not None else None
-        if deadline is not None and deadline <= time.monotonic():
+        deadline = self._clock() + deadline_ms / 1000.0 if deadline_ms is not None else None
+        if deadline is not None and deadline <= self._clock():
             # expired on arrival: fail fast without a queue slot
             metrics.counter("serving.expired").add(1)
             fut: Future = Future()
             fut.set_exception(DeadlineExceeded(
                 f"request to {self.model_id!r} expired before submit ({deadline_ms}ms budget)"))
             return fut
-        req = Request(value=arr, deadline=deadline, tenant=tenant, enqueued_at=time.monotonic())
+        req = Request(value=arr, deadline=deadline, tenant=tenant, enqueued_at=self._clock())
         if tracer.enabled:
             # one span per request, a child of the caller's current span;
             # it ends when the future resolves (on the worker thread), so it
@@ -481,7 +488,7 @@ class MicroBatcher:
                                 flush_early=self._device_free)
         if not reqs:
             return
-        now = time.monotonic()
+        now = self._clock()
         live = self._expire(reqs, now)
         if not live:
             return
@@ -528,7 +535,7 @@ class MicroBatcher:
         return forward_once
 
     def _run_batch(self, reqs) -> None:
-        now = time.monotonic()
+        now = self._clock()
         live = self._expire(reqs, now)
         if not live:
             return
@@ -592,7 +599,7 @@ class MicroBatcher:
             self._m_errors.add(len(live))
             self._fail_batch(live, e, record=True, slots=slots, bspan=bspan)
             return
-        t_dispatched = time.monotonic()
+        t_dispatched = self._clock()
         for host, meta in self._window.submit(
                 out_dev, meta=(live, n_computed, t_batch, t_dispatched, slots, bspan)):
             self._complete(host, meta)
@@ -623,7 +630,7 @@ class MicroBatcher:
         # counted before the futures resolve: a caller woken by its result
         # sees its batch counted
         self._observe_batch(len(live), n_computed)
-        done = time.monotonic()
+        done = self._clock()
         latency = metrics.histogram("serving.latency_ms")
         for i, r in enumerate(live):
             # queue wait, dispatch, device-to-host fetch, set BEFORE the
@@ -658,7 +665,7 @@ class MicroBatcher:
             return
         self._breaker.record_success()
         self._observe_batch(len(live), n_computed)
-        done = time.monotonic()
+        done = self._clock()
         latency = metrics.histogram("serving.latency_ms")
         for i, r in enumerate(live):
             r.future.sparkdl_phases = {

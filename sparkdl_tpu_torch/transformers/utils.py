@@ -52,6 +52,7 @@ from sparkdl_tpu_torch.image import imageIO
 from sparkdl_tpu_torch.utils.device import place_params, resolve_device  # noqa: F401
 from sparkdl_tpu_torch.utils.lru import LRUCache
 from sparkdl_tpu_torch.utils.metrics import metrics
+from sparkdl_tpu_torch.utils.profiler import maybe_trace
 
 DEFAULT_BATCH_SIZE = 32
 
@@ -474,6 +475,8 @@ def run_batched_rows(
 
     ``SPARKDL_SERIAL_INFERENCE=1`` turns both overlaps off: each chunk
     decodes inline and each result is fetched after its launch.
+    ``SPARKDL_PROFILE_DIR=<dir>`` captures the loop in a ``torch.profiler``
+    trace there (:func:`~sparkdl_tpu_torch.utils.profiler.maybe_trace`).
     ``decode(chunk_rows) -> np.ndarray`` must be row-aligned with ``rows``;
     ``fn`` takes the batch on ``device`` and returns one tensor. Returns the
     outputs of all rows, in order, as one host array.
@@ -506,7 +509,7 @@ def run_batched_rows(
     serve_timer = metrics.timer("sparkdl.serve")
     forward_timer = metrics.timer("sparkdl.forward")
     try:
-        with serve_timer.time():
+        with maybe_trace(), serve_timer.time():
             collected = _run_chunks(lambda x: _single_output(fn(x)), chunks,
                                     device, forward_timer, serial)
     finally:
@@ -536,7 +539,7 @@ def run_batched_multi(
     # the inputs come decoded, so the loop is all dispatch + fetch
     serve_timer = metrics.timer("sparkdl.serve")
     forward_timer = metrics.timer("sparkdl.forward")
-    with serve_timer.time():
+    with maybe_trace(), serve_timer.time():
         chunks = (tuple(a[lo:hi] for a in arrays) for lo, hi in bounds)
         collected = _run_chunks(fn, chunks, device, forward_timer, _serial_inference())
     metrics.counter("sparkdl.rows_processed").add(n)

@@ -300,6 +300,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "sparkdl_tpu_torch.native.aoti",
         "sparkdl_tpu_torch.native.featurizer",
         "sparkdl_tpu_torch.transformers.native_image",
+        "sparkdl_tpu_torch.sim",
+        "sparkdl_tpu_torch.sim.clock",
+        "sparkdl_tpu_torch.sim.trace",
+        "sparkdl_tpu_torch.sim.replica",
+        "sparkdl_tpu_torch.sim.replay",
+        "sparkdl_tpu_torch.sim.tune",
+        "sparkdl_tpu_torch.utils.probes",
+        "sparkdl_tpu_torch.utils.profiler",
     ):
         assert module in loaded, module
     assert [m for m in loaded if _imports_jax_package(m)] == []
@@ -330,7 +338,15 @@ def test_every_port_module_imports_first():
         "failed += [f'{n}: not walked' for n in ('sparkdl_tpu_torch.native',\n"
         "                                           'sparkdl_tpu_torch.native.aoti',\n"
         "                                           'sparkdl_tpu_torch.native.featurizer',\n"
-        "                                           'sparkdl_tpu_torch.transformers.native_image')\n"
+        "                                           'sparkdl_tpu_torch.transformers.native_image',\n"
+        "                                           'sparkdl_tpu_torch.sim',\n"
+        "                                           'sparkdl_tpu_torch.sim.clock',\n"
+        "                                           'sparkdl_tpu_torch.sim.trace',\n"
+        "                                           'sparkdl_tpu_torch.sim.replica',\n"
+        "                                           'sparkdl_tpu_torch.sim.replay',\n"
+        "                                           'sparkdl_tpu_torch.sim.tune',\n"
+        "                                           'sparkdl_tpu_torch.utils.probes',\n"
+        "                                           'sparkdl_tpu_torch.utils.profiler')\n"
         "           if n not in walked]\n"
         "print('\\n'.join(failed))\n"
     )
@@ -376,7 +392,9 @@ def test_port_sources_import_no_jax():
                    "serving/rollout.py", "parallel/__init__.py", "parallel/runner.py",
                    "parallel/trainer.py", "parallel/context.py", "parallel/tp.py",
                    "native/__init__.py", "native/aoti.py", "native/featurizer.py",
-                   "transformers/native_image.py"):
+                   "transformers/native_image.py", "sim/__init__.py", "sim/clock.py",
+                   "sim/trace.py", "sim/replica.py", "sim/replay.py", "sim/tune.py",
+                   "utils/probes.py", "utils/profiler.py"):
         assert PACKAGE / module in files, module
     offenders = []
     for path in files:
